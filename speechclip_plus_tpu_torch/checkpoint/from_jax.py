@@ -1,0 +1,171 @@
+"""Weight bridge: JAX `speechclip_plus_tpu` variables -> a port model.
+
+Fills a `KWClip` (or one of its towers) from the JAX package's `variables`
+(`params` and `batch_stats`, nested dicts of numpy arrays), so both packages
+compute the same function in the parity tests. The layout rules:
+
+  - Dense kernels are (in, out); `nn.Linear` weights are (out, in).
+  - Flax `nn.Conv` kernels are (k, in/groups, out) [2-D: (kh, kw, in, out)];
+    torch's are (out, in/groups, k) [(out, in, kh, kw)].
+  - Scanned layers (the JAX default `scan_layers=True`) are stacked along a
+    leading L axis (`layers/layer`, `transformer/blocks/block`) and are
+    unstacked here.
+  - HuBERT's separate q/k/v projections become the packed `in_proj`.
+  - LayerNorm / GroupNorm `scale` is torch's `weight`.
+  - The pos-conv kernel is the weight-norm-materialized one the JAX side
+    stores (``models/hubert.py:627-680``); it is copied as is.
+  - Keyword-BN `batch_stats` become the running-statistic buffers.
+
+Every parameter and buffer of the target must be filled exactly once;
+anything left over raises, as does any shape mismatch. Plain numpy: the
+bridge imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["load_jax_variables", "load_hubert", "load_clip"]
+
+
+class _Filler:
+    def __init__(self, module: nn.Module):
+        # parameters and persistent buffers (not the derived causal mask)
+        self.todo = {id(t): name for name, t in module.state_dict(keep_vars=True).items()}
+
+    def put(self, tensor: torch.Tensor, array) -> None:
+        array = np.asarray(array, dtype=np.float32)
+        if tuple(tensor.shape) != array.shape:
+            raise ValueError(f"{self.todo.get(id(tensor), '?')}: torch {tuple(tensor.shape)} "
+                             f"vs jax {array.shape}")
+        if self.todo.pop(id(tensor), None) is None:
+            raise ValueError("tensor filled twice or not part of the target module")
+        with torch.no_grad():
+            tensor.copy_(torch.tensor(array))
+
+    def linear(self, mod: nn.Linear, t: Dict) -> None:
+        self.put(mod.weight, np.asarray(t["kernel"]).T)
+        if mod.bias is not None:
+            self.put(mod.bias, t["bias"])
+
+    def norm(self, mod, t: Dict) -> None:
+        self.put(mod.weight, t["scale"])
+        self.put(mod.bias, t["bias"])
+
+    def conv1d(self, mod: nn.Conv1d, t: Dict) -> None:
+        self.put(mod.weight, np.asarray(t["kernel"]).transpose(2, 1, 0))
+        if mod.bias is not None:
+            self.put(mod.bias, t["bias"])
+
+    def packed_mha(self, mod, t: Dict) -> None:
+        """`in_proj/{kernel,bias}` + `out_proj` (CLIP and branch attention)."""
+        self.put(mod.in_proj_weight, np.asarray(t["in_proj"]["kernel"]).T)
+        self.put(mod.in_proj_bias, t["in_proj"]["bias"])
+        self.linear(mod.out_proj, t["out_proj"])
+
+    def finish(self) -> None:
+        if self.todo:
+            raise ValueError(f"not filled from the JAX variables: {sorted(self.todo.values())}")
+
+
+def _slice(tree, i):
+    """Layer i of a scanned (stacked) layer tree."""
+    if hasattr(tree, "items"):
+        return {k: _slice(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
+    fe = p["feature_extractor"]
+    for i, conv in enumerate(mod.feature_extractor.conv_layers):
+        f.conv1d(conv, fe[f"conv_{i}"])
+    f.norm(mod.feature_extractor.gn, fe["gn_0"])
+    f.norm(mod.layer_norm, p["layer_norm"])
+    if mod.post_extract_proj is not None:
+        f.linear(mod.post_extract_proj, p["post_extract_proj"])
+    f.conv1d(mod.pos_conv.conv, p["pos_conv"]["conv"])
+    f.norm(mod.encoder_layer_norm, p["encoder_layer_norm"])
+    for i, layer in enumerate(mod.layers):
+        t = _slice(p["layers"]["layer"], i)
+        w = np.concatenate([np.asarray(t[n]["kernel"]) for n in ("q_proj", "k_proj", "v_proj")], 1)
+        b = np.concatenate([np.asarray(t[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")])
+        f.put(layer.self_attn.in_proj_weight, w.T)
+        f.put(layer.self_attn.in_proj_bias, b)
+        f.linear(layer.self_attn.out_proj, t["out_proj"])
+        f.norm(layer.self_attn_layer_norm, t["self_attn_layer_norm"])
+        f.linear(layer.fc1, t["fc1"])
+        f.linear(layer.fc2, t["fc2"])
+        f.norm(layer.final_layer_norm, t["final_layer_norm"])
+
+
+def _fill_blocks(f: _Filler, transformer, p: Dict) -> None:
+    for i, block in enumerate(transformer.blocks):
+        t = _slice(p["blocks"]["block"], i)
+        f.norm(block.ln_1, t["ln_1"])
+        f.packed_mha(block.attn, t["attn"])
+        f.norm(block.ln_2, t["ln_2"])
+        f.linear(block.c_fc, t["c_fc"])
+        f.linear(block.c_proj, t["c_proj"])
+
+
+def _fill_clip(f: _Filler, mod, p: Dict) -> None:
+    v, pv = mod.visual, p["visual"]
+    f.put(v.conv1.weight, np.asarray(pv["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+    f.put(v.class_embedding, pv["class_embedding"])
+    f.put(v.positional_embedding, pv["positional_embedding"])
+    f.norm(v.ln_pre, pv["ln_pre"])
+    _fill_blocks(f, v.transformer, pv["transformer"])
+    f.norm(v.ln_post, pv["ln_post"])
+    f.put(v.proj, pv["proj"])
+    t, pt = mod.text, p["text"]
+    f.put(t.token_embedding.weight, pt["token_embedding"]["embedding"])
+    f.put(t.positional_embedding, pt["positional_embedding"])
+    _fill_blocks(f, t.transformer, pt["transformer"])
+    f.norm(t.ln_final, pt["ln_final"])
+    f.put(t.text_projection, pt["text_projection"])
+    f.put(mod.logit_scale, p["logit_scale"])
+
+
+def _fill_branch(f: _Filler, mod, p: Dict, stats: Dict) -> None:
+    f.put(mod.cls, p["cls"])
+    sa = p["self_att"]
+    f.packed_mha(mod.self_att.multihead_attn_layer, sa["multihead_attn_layer"])
+    f.norm(mod.self_att.attentionBlock_Norm, sa["attentionBlock_Norm"])
+    f.linear(mod.parallel_proj, p["parallel_proj"])
+    ds = p["downsampling"]
+    f.conv1d(mod.downsampling.conv, ds["conv_0"])
+    f.linear(mod.downsampling.weight_proj, ds["weight_proj"])
+    head, ph = mod.head, p["head"]
+    f.linear(head.linear_proj, ph["linear_proj"])
+    f.norm(head.bn_layer, ph["bn_layer"])
+    f.put(head.bn_layer.running_mean, stats["head"]["bn_layer"]["mean"])
+    f.put(head.bn_layer.running_var, stats["head"]["bn_layer"]["var"])
+
+
+def load_hubert(module: nn.Module, params: Dict) -> None:
+    """Fill a `HubertModel` from the JAX `audio_encoder` params subtree."""
+    f = _Filler(module)
+    _fill_hubert(f, module, params)
+    f.finish()
+
+
+def load_clip(module: nn.Module, params: Dict) -> None:
+    """Fill a `ClipModel` from the JAX `clip` params subtree."""
+    f = _Filler(module)
+    _fill_clip(f, module, params)
+    f.finish()
+
+
+def load_jax_variables(model: nn.Module, variables: Dict) -> None:
+    """Fill a `KWClip` from the JAX model's {'params', 'batch_stats'}."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    f = _Filler(model)
+    f.put(model.weightedsum, p["weightedsum"])
+    _fill_hubert(f, model.audio_encoder, p["audio_encoder"])
+    _fill_clip(f, model.clip, p["clip"])
+    _fill_branch(f, model.cascaded_branch, p["cascaded_branch"],
+                 stats.get("cascaded_branch", {}))
+    f.finish()

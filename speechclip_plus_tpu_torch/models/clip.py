@@ -1,0 +1,182 @@
+"""Frozen CLIP towers (ViT image tower, causal text tower).
+
+Port of ``speechclip_plus_tpu/models/clip.py`` (reference
+``avssl/module/clip_official.py``): pre-norm blocks with quick-GELU MLPs and
+packed-QKV attention. The vision tower's attention runs through the fused
+attention block with the out-projection fused in (K1); the text tower keeps
+the plain path with its causal mask, as in JAX.
+
+`encode_keywords` (``clip.py:404-439``) builds [SOT, kw_1..kw_n, EOT, 0...]
+over the static context with selects, so the keyword count is data, and pools
+at the EOT slot; `TextTransformer.forward` finds EOT by its id, not by argmax
+(the reduced vocabulary puts EOT at id 3). Images are NHWC at the public
+surface, like JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..nn.attention import MultiheadAttention
+from ..nn.transformer import LayerNorm
+
+__all__ = ["ClipConfig", "ClipModel", "VisionTransformer", "TextTransformer"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipConfig:
+    embed_dim: int = 512
+    image_resolution: int = 224
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    vision_patch_size: int = 32
+    context_length: int = 77
+    vocab_size: int = 49408
+    text_width: int = 512
+    text_heads: int = 8
+    text_layers: int = 12
+    sot_id: int = 49406
+    eot_id: int = 49407
+    dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def vit_b32() -> "ClipConfig":
+        return ClipConfig()
+
+    @staticmethod
+    def tiny(**kw) -> "ClipConfig":
+        """`speechclip_plus_tpu.models.clip.ClipConfig.tiny`."""
+        defaults = dict(embed_dim=16, image_resolution=32, vision_width=24, vision_layers=2,
+                        vision_heads=2, vision_patch_size=16, context_length=16, vocab_size=64,
+                        text_width=32, text_heads=4, text_layers=2, sot_id=62, eot_id=63)
+        defaults.update(kw)
+        return ClipConfig(**defaults)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, d_model: int, n_head: int, dtype: torch.dtype):
+        super().__init__()
+        self.ln_1 = LayerNorm(d_model, dtype=dtype)
+        self.attn = MultiheadAttention(d_model, n_head, fuse_out=True, dtype=dtype)
+        self.ln_2 = LayerNorm(d_model, dtype=dtype)
+        self.c_fc = nn.Linear(d_model, 4 * d_model, dtype=dtype)
+        self.c_proj = nn.Linear(4 * d_model, d_model, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), attn_mask=attn_mask)
+        return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
+
+
+class Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(width, heads, dtype) for _ in range(layers))
+
+    def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x, attn_mask)
+        return x
+
+
+class VisionTransformer(nn.Module):
+    """Patch conv -> [CLS; patches] + pos -> ln_pre -> blocks -> ln_post(CLS) @ proj."""
+
+    def __init__(self, c: ClipConfig):
+        super().__init__()
+        w, p, dt = c.vision_width, c.vision_patch_size, c.dtype
+        self.conv1 = nn.Conv2d(3, w, p, stride=p, bias=False, dtype=dt)
+        self.class_embedding = nn.Parameter(torch.zeros(w, dtype=dt))
+        n_pos = (c.image_resolution // p) ** 2 + 1
+        self.positional_embedding = nn.Parameter(torch.zeros(n_pos, w, dtype=dt))
+        self.ln_pre = LayerNorm(w, dtype=dt)
+        self.transformer = Transformer(w, c.vision_layers, c.vision_heads, dt)
+        self.ln_post = LayerNorm(w, dtype=dt)
+        self.proj = nn.Parameter(torch.zeros(w, c.embed_dim, dtype=dt))
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        """image (B, H, W, 3) -> (B, embed_dim)."""
+        x = self.conv1(image.permute(0, 3, 1, 2).to(self.conv1.weight.dtype))
+        x = x.flatten(2).transpose(1, 2)                            # (B, P, W)
+        cls = self.class_embedding.expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        x = self.transformer(self.ln_pre(x))
+        return self.ln_post(x[:, 0, :]) @ self.proj
+
+
+class TextTransformer(nn.Module):
+    """Causal text tower over embedded token sequences. The token table stays
+    fp32: it is also the fp32 VQ codebook; lookups are cast to the compute
+    dtype."""
+
+    def __init__(self, c: ClipConfig):
+        super().__init__()
+        self.cfg = c
+        dt = c.dtype
+        self.token_embedding = nn.Embedding(c.vocab_size, c.text_width)
+        self.positional_embedding = nn.Parameter(torch.zeros(c.context_length, c.text_width,
+                                                             dtype=dt))
+        self.transformer = Transformer(c.text_width, c.text_layers, c.text_heads, dt)
+        self.ln_final = LayerNorm(c.text_width, dtype=dt)
+        self.text_projection = nn.Parameter(torch.zeros(c.text_width, c.embed_dim, dtype=dt))
+        t = c.context_length
+        causal = torch.full((t, t), -1e30).triu(1)
+        self.register_buffer("causal_bias", causal, persistent=False)
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.token_embedding(ids).to(self.positional_embedding.dtype)
+
+    def run(self, x: torch.Tensor, eot_index: torch.Tensor) -> torch.Tensor:
+        """Embedded sequence (B, ctx, W) -> pooled feature (B, E) at eot_index."""
+        x = x + self.positional_embedding
+        x = self.ln_final(self.transformer(x, self.causal_bias))
+        pooled = x[torch.arange(x.shape[0], device=x.device), eot_index]
+        return pooled @ self.text_projection
+
+    def forward(self, text_ids: torch.Tensor) -> torch.Tensor:
+        is_eot = text_ids == self.cfg.eot_id
+        eot_index = torch.where(is_eot.any(dim=-1), is_eot.int().argmax(dim=-1),
+                                text_ids.argmax(dim=-1))
+        return self.run(self._embed(text_ids), eot_index)
+
+    def encode_keywords(self, keywords: torch.Tensor, keyword_num) -> torch.Tensor:
+        """keywords (B, K, W); keyword_num an int or a (B,) tensor."""
+        c = self.cfg
+        b, kmax, _ = keywords.shape
+        dev = keywords.device
+        keyword_num = torch.as_tensor(keyword_num, device=dev).to(torch.long)
+        if keyword_num.ndim == 0:
+            keyword_num = keyword_num.expand(b)
+        eot_index = keyword_num.clamp(1, c.context_length - 2) + 1
+        pos = torch.arange(c.context_length, device=dev)[None, :]
+        ids = torch.where(pos == 0, c.sot_id, 0)
+        ids = torch.where(pos == eot_index[:, None], c.eot_id, ids)
+        x = self._embed(ids)
+        kw_at_pos = keywords[:, (pos[0] - 1).clamp(0, kmax - 1), :]
+        is_kw = (pos >= 1) & (pos < eot_index[:, None])
+        x = torch.where(is_kw[:, :, None], kw_at_pos.to(x.dtype), x)
+        return self.run(x, eot_index)
+
+
+class ClipModel(nn.Module):
+    def __init__(self, c: ClipConfig):
+        super().__init__()
+        self.visual = VisionTransformer(c)
+        self.text = TextTransformer(c)
+        self.logit_scale = nn.Parameter(torch.tensor(0.0))
+
+    def encode_image(self, image: torch.Tensor) -> torch.Tensor:
+        return self.visual(image)
+
+    def encode_text(self, text_ids: torch.Tensor) -> torch.Tensor:
+        return self.text(text_ids)
+
+    def encode_keywords(self, keywords: torch.Tensor, keyword_num) -> torch.Tensor:
+        return self.text.encode_keywords(keywords, keyword_num)

@@ -1,0 +1,79 @@
+"""Multi-head attention with torch's packed in-proj layout.
+
+Port of ``speechclip_plus_tpu/nn/attention.py``. Parameters follow
+torch.nn.MultiheadAttention: `in_proj_weight` (3D, D), `in_proj_bias` (3D,),
+`out_proj` Linear(D, D). q is scaled by 1/sqrt(dh) before q kᵀ.
+
+Self-attention without a per-head mask goes through the fused attention
+block (K1, ``nn/fused_attention_block.py``): with the out-projection fused in
+for the frozen towers (`fuse_out=True`), or context-only followed by a plain
+`ctx @ Wo + bo` for the branch (`fuse_out=False`, as in
+``speechclip_plus_tpu/nn/fused_attention_block_vjp.py:511``). An additive
+`attn_mask` (the CLIP text tower's causal mask) takes the plain path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .fused_attention_block import fused_attention_block
+
+__all__ = ["MultiheadAttention", "dot_product_attention", "padding_bias"]
+
+_MASK_VALUE = -1e30
+
+
+def padding_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
+    """(B, T) bool, True = pad -> additive fp32 bias, -1e30 at pads."""
+    return torch.where(key_padding_mask, _MASK_VALUE, 0.0).to(torch.float32)
+
+
+def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None):
+    """Scaled dot-product attention on (B, H, T, dh), q scaled inside.
+
+    bf16 inputs keep bf16 scores and probabilities (the JAX XLA path's
+    precision); the softmax itself runs in fp32. `bias` broadcasts to
+    (B, H, Tq, Tk)."""
+    q = q * (q.shape[-1] ** -0.5)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float()
+    if bias is not None:
+        scores = scores + bias
+    weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(weights, v)
+
+
+class MultiheadAttention(nn.Module):
+    def __init__(self, d_model: int, nhead: int, *, fuse_out: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if d_model % nhead:
+            raise ValueError(f"d_model {d_model} not divisible by nhead {nhead}")
+        self.d_model, self.nhead, self.fuse_out = d_model, nhead, fuse_out
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, dtype=dtype))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, dtype=dtype))
+        self.out_proj = nn.Linear(d_model, d_model, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, T, D) -> (B, T, D) in the module's dtype.
+        key_padding_bias: (B, T) fp32 additive (`padding_bias`).
+        attn_mask: (T, T) additive fp32 mask shared by batch and heads."""
+        x = x.to(self.in_proj_weight.dtype)
+        w_out, b_out = self.out_proj.weight, self.out_proj.bias
+        if attn_mask is None:
+            ctx = fused_attention_block(
+                x.contiguous(), self.in_proj_weight, self.in_proj_bias,
+                w_out, b_out, key_padding_bias, n_heads=self.nhead,
+                fuse_out=self.fuse_out)
+            return ctx if self.fuse_out else F.linear(ctx, w_out, b_out)
+        b, t, d = x.shape
+        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).split(d, dim=-1)
+        split = lambda a: a.reshape(b, t, self.nhead, -1).transpose(1, 2)
+        bias = attn_mask.float()
+        if key_padding_bias is not None:
+            bias = bias + key_padding_bias[:, None, None, :]
+        out = dot_product_attention(split(q), split(k), split(v), bias)
+        return F.linear(out.transpose(1, 2).reshape(b, t, d), w_out, b_out)

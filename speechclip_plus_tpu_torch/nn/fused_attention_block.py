@@ -1,0 +1,148 @@
+"""Fused attention block, forward only (K1): QKV proj -> attention [-> out proj].
+
+Port of ``speechclip_plus_tpu/nn/fused_attention_block.py`` (Pallas
+`_kernel`, :118). Per layer it computes, for x (B, T, D) in its native
+layout:
+
+    qkv = x Wqkvᵀ + bqkv,  q scaled by 1/sqrt(dh)
+    ctx = concat_h softmax(q_h k_hᵀ + key_bias) v_h
+    out = ctx Woᵀ + bo        (fuse_out=True; else ctx is returned)
+
+On a CUDA tensor it runs the hand-written kernels in
+``csrc/fused_attention_block.cu`` (a tensor-core projection GEMM and an
+online-softmax attention kernel; see the note there). On a CPU tensor it runs
+`plain_fused_attention_block`, the same function in plain PyTorch. There is
+no fallback from one to the other. Both compute in fp32, keep qkv in fp32
+and round the context and the output to x's dtype (the TPU kernel rounded
+qkv to bf16 as well).
+
+Forward only: the frozen towers never need its gradient; a backward raises,
+as ``_fused_bwd`` does on the JAX side. Dropout, per-head `attn_bias` and
+the WavLM `attn_gate` are training-path modes of the TPU kernel that come
+with the training step; asking for them raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["fused_attention_block", "plain_fused_attention_block", "LAUNCHES"]
+
+# wrapper calls that ran the kernels on the card (one per call, whatever the
+# number of CUDA launches it makes)
+LAUNCHES = 0
+
+_HEAD_DIMS = (64, 96)
+
+
+def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
+                                n_heads: int, fuse_out: bool = True):
+    """Plain PyTorch twin of the kernels: fp32 arithmetic on the operands'
+    values, qkv kept fp32; the context and the output rounded to x's dtype."""
+    b, t, d = x.shape
+    dh = d // n_heads
+    qkv = F.linear(x.float(), w_in.float(), b_in.float())
+    q, k, v = (a.reshape(b, t, n_heads, dh).transpose(1, 2) for a in qkv.split(d, dim=-1))
+    s = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
+    if key_padding_bias is not None:
+        s = s + key_padding_bias[:, None, None, :]
+    ctx = torch.matmul(torch.softmax(s, dim=-1), v).transpose(1, 2).reshape(b, t, d)
+    if fuse_out:
+        ctx = F.linear(ctx.to(x.dtype).float(), w_out.float(), b_out.float())
+    return ctx.to(x.dtype)
+
+
+def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out):
+    global LAUNCHES
+    from ..utils.cuda_build import check, kernels
+
+    b, t, d = x.shape
+    dh = d // n_heads
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_attention_block: dtype {x.dtype} (fp32 or bf16)")
+    if dh not in _HEAD_DIMS or d % 8:
+        raise ValueError(f"fused_attention_block: head dim {dh} not in {_HEAD_DIMS}")
+    weights = [w_in] + ([w_out] if fuse_out else [])
+    for w, shape in zip(weights, [(3 * d, d), (d, d)]):
+        if w.device != x.device or w.dtype != x.dtype or tuple(w.shape) != shape \
+                or not w.is_contiguous():
+            raise ValueError(f"fused_attention_block: weight {tuple(w.shape)} "
+                             f"{w.dtype} {w.device}; want {shape} {x.dtype} contiguous")
+    if not x.is_contiguous():
+        raise ValueError("fused_attention_block: x must be contiguous")
+    # the GEMM reads x and the weights with 16-byte vector loads
+    for name, a in [("x", x)] + list(zip(("w_in", "w_out"), weights)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"fused_attention_block: {name} is not 16-byte aligned")
+    if key_padding_bias is None:
+        key_padding_bias = torch.zeros(b, t, dtype=torch.float32, device=x.device)
+    if tuple(key_padding_bias.shape) != (b, t):
+        raise ValueError(f"key_padding_bias {tuple(key_padding_bias.shape)}; want {(b, t)}")
+    kb = key_padding_bias.to(torch.float32).contiguous()
+    bf = int(x.dtype == torch.bfloat16)
+    lib = kernels()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        qkv = torch.empty(b, t, 3 * d, dtype=torch.float32, device=x.device)
+        check(lib.sc_fab_gemm(x.data_ptr(), w_in.data_ptr(),
+                              b_in.float().contiguous().data_ptr(), qkv.data_ptr(),
+                              b * t, 3 * d, d, d, dh ** -0.5, bf, 0, stream),
+              "fused_attention_block qkv projection")
+        ctx = torch.empty(b, t, d, dtype=x.dtype, device=x.device)
+        check(lib.sc_fab_attention(qkv.data_ptr(), kb.data_ptr(), ctx.data_ptr(),
+                                   b, t, n_heads, dh, bf, stream),
+              "fused_attention_block attention")
+        out = ctx
+        if fuse_out:
+            out = torch.empty(b, t, d, dtype=x.dtype, device=x.device)
+            check(lib.sc_fab_gemm(ctx.data_ptr(), w_out.data_ptr(),
+                                  b_out.float().contiguous().data_ptr(), out.data_ptr(),
+                                  b * t, d, d, 0, 1.0, bf, bf, stream),
+                  "fused_attention_block out projection")
+    LAUNCHES += 1
+    return out
+
+
+class _ForwardOnly(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out):
+        if x.device.type == "cpu":
+            return plain_fused_attention_block(x, w_in, b_in, w_out, b_out,
+                                               key_padding_bias, n_heads, fuse_out)
+        if x.device.type != "cuda":
+            raise NotImplementedError(f"fused_attention_block on {x.device.type}")
+        return _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "fused_attention_block is forward-only (frozen towers and serving); "
+            "the training backward (K2) is not ported yet")
+
+
+def fused_attention_block(
+    x: torch.Tensor,
+    w_in: torch.Tensor, b_in: torch.Tensor,
+    w_out: torch.Tensor, b_out: torch.Tensor,
+    key_padding_bias: Optional[torch.Tensor] = None,
+    *,
+    n_heads: int,
+    fuse_out: bool = True,
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    attn_bias: Optional[torch.Tensor] = None,
+    attn_gate: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """x (B, T, D); w_in (3D, D), b_in (3D,), w_out (D, D), b_out (D,) in
+    torch's (out, in) layout; key_padding_bias (B, T) additive fp32 (-1e30 at
+    pads). Returns (B, T, D) in x's dtype: the out-projected block output, or
+    the attention context when `fuse_out` is False."""
+    if (dropout_rate > 0.0 and not deterministic) or attn_bias is not None \
+            or attn_gate is not None:
+        raise NotImplementedError(
+            "fused_attention_block: dropout, attn_bias and attn_gate are "
+            "training-path modes, not ported yet")
+    return _ForwardOnly.apply(x, w_in, b_in, w_out, b_out, key_padding_bias,
+                              n_heads, fuse_out)

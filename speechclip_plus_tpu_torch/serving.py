@@ -1,0 +1,126 @@
+"""Batched inference + retrieval serving (port of ``speechclip_plus_tpu/serving.py``).
+
+A device-resident, L2-normalized image index and the speech -> top-k query
+(speech encode -> feature pick -> cosine scores -> top-k). Reference
+anchors: retrieval scoring `avssl/model/kwClip.py:448-482`, feature choice
+`retrieval.audio_feat_src`.
+
+In JAX, XLA drops everything the chosen feature does not read
+(`serving.py:114-127`). Eager PyTorch drops nothing, so the parallel query
+calls `KWClip.encode_parallel` (tower + branch attention only) and the
+cascaded query `encode_speech` (everything).
+
+`submit` does not block: the padded batch is pinned, copied with
+`non_blocking=True`, the query is enqueued behind it, and
+`PendingSearch.done()` polls a CUDA event. Text queries (`search_text`) need
+a BPE vocabulary the repository does not ship; they come in a later slice.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .api import SpeechCLIP
+
+__all__ = ["RetrievalIndex", "SpeechRetriever", "PendingSearch", "build_image_index"]
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    x = x.float()
+    return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+
+
+class RetrievalIndex:
+    """Device-resident L2-normalized (N, E) fp32 image embeddings + ids."""
+
+    def __init__(self, feats: torch.Tensor, ids: Sequence[int]):
+        if feats.ndim != 2 or len(ids) != feats.shape[0]:
+            raise ValueError(f"feats {tuple(feats.shape)} vs {len(ids)} ids")
+        self.feats = _l2_normalize(feats)
+        self.ids = np.asarray(ids)
+
+    def __len__(self) -> int:
+        return int(self.feats.shape[0])
+
+
+@torch.inference_mode()
+def build_image_index(speechclip: SpeechCLIP, images, ids: Sequence[int],
+                      batch_size: int = 256) -> RetrievalIndex:
+    """Embed (N, H, W, 3) preprocessed images (numpy or torch) through the
+    frozen image tower in batches; duplicate ids should be deduped by the
+    caller (the reference keeps one image per id)."""
+    model, dev = speechclip.model, speechclip.device
+    feats = []
+    for i in range(0, images.shape[0], batch_size):
+        chunk = torch.as_tensor(images[i: i + batch_size]).to(dev, torch.float32)
+        feats.append(model.encode_image_raw(chunk).float())
+    return RetrievalIndex(torch.cat(feats), ids)
+
+
+class PendingSearch:
+    """Handle for an in-flight retrieval query."""
+
+    def __init__(self, index: RetrievalIndex, scores: torch.Tensor, idx: torch.Tensor,
+                 keep_alive=()):
+        self._index, self._scores, self._idx = index, scores, idx
+        self._keep_alive = keep_alive  # pinned host buffers of the upload
+        self._event = None
+        if scores.is_cuda:
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def done(self) -> bool:
+        """Non-blocking completion poll."""
+        return self._event is None or self._event.query()
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Block until the query finishes; returns (ids, scores), each (B, k)."""
+        if self._event is not None:
+            self._event.synchronize()
+        self._keep_alive = ()
+        return self._index.ids[self._idx.cpu().numpy()], self._scores.cpu().numpy()
+
+
+class SpeechRetriever:
+    """Speech -> top-k image retrieval."""
+
+    def __init__(self, speechclip: SpeechCLIP, index: RetrievalIndex,
+                 feat_src: Optional[str] = None):
+        if feat_src is None:
+            feat_src = speechclip.cfg.retrieval_audio_feat_src
+        if feat_src not in ("parallel", "cascaded"):
+            raise ValueError(f"unknown feat_src {feat_src!r}")
+        self.sc, self.index, self.feat_src = speechclip, index, feat_src
+
+    def search(self, wavs: Sequence[np.ndarray], k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k image ids + cosine scores per waveform (ragged float32 or
+        int16 PCM input)."""
+        return self.submit(wavs, k).result()
+
+    @torch.inference_mode()
+    def submit(self, wavs: Sequence[np.ndarray], k: int = 10) -> PendingSearch:
+        """Enqueue a query batch without waiting for the device."""
+        k = min(int(k), len(self.index))
+        wav, wav_len, host = self.sc.to_device(wavs, non_blocking=True)
+        model = self.sc.model
+        if self.feat_src == "parallel":
+            feat = model.encode_parallel(wav, wav_len)
+        else:
+            feat = model.encode_speech(wav, wav_len)["cascaded_audio_feat"]
+        scores = _l2_normalize(feat) @ self.index.feats.T          # (B, N) cosines
+        top_scores, top_idx = torch.topk(scores, k, dim=-1)
+        return PendingSearch(self.index, top_scores, top_idx, keep_alive=host)
+
+    def search_stream(self, batches, k: int = 10, depth: int = 2):
+        """Pipelined bulk retrieval: yields (ids, scores) per input batch, in
+        order, with up to `depth` query batches in flight."""
+        pending: deque = deque()
+        for wavs in batches:
+            while len(pending) >= depth:
+                yield pending.popleft().result()
+            pending.append(self.submit(wavs, k))
+        while pending:
+            yield pending.popleft().result()

@@ -1,0 +1,94 @@
+"""Model construction from a reference-format YAML config.
+
+Port of ``speechclip_plus_tpu/tasks/builder.py``: resolve the reduced subword
+vocabulary (``config.clip.reduce_subword_embbedding``, mapped onto this
+repository's `assets/`), build the typed config and the model, initialize it
+from a seed with an explicit `torch.Generator`, and set keyword BN from the
+token-table statistics. No weight files ship with the repository, so the
+towers are seeded random weights at full width, as the JAX builder leaves
+them when the files are missing (``:164-187``).
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..config import ConfigNode
+from ..data.tokenizer import ReducedVocab
+from ..models.kwclip import KWClip, KWClipConfig, init_kw_bn_from_token_embedding
+
+__all__ = ["build_model_from_config", "resolve_reduced_vocab", "init_params"]
+
+_REPO_ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
+
+
+def resolve_reduced_vocab(cfg: ConfigNode) -> Optional[ReducedVocab]:
+    path = getattr(cfg.clip, "reduce_subword_embbedding", None)
+    if not path:
+        return None
+    if not os.path.exists(path):
+        # reference layout (./avssl/data/<ds>_stat/<file>.npy) and bare
+        # config paths map onto this repository's assets/ and root
+        parent = os.path.basename(os.path.dirname(path))
+        for alt in (os.path.join(_REPO_ROOT, "assets", parent, os.path.basename(path)),
+                    os.path.join(_REPO_ROOT, path)):
+            if os.path.exists(alt):
+                path = alt
+                break
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"reduce_subword_embbedding file not found: {path}")
+    return ReducedVocab.from_npy(
+        path, sot_original=int(getattr(cfg.clip, "sot_original", 49406)),
+        eot_original=int(getattr(cfg.clip, "eot_original", 49407)))
+
+
+# parameters whose init is not the fan-in rule: (name suffix, std or constant)
+_NORMAL_STD = {
+    "cls": 1.0,
+    "class_embedding": 0.02,
+    "visual.positional_embedding": 0.02,
+    "text.positional_embedding": 0.01,
+    "token_embedding.weight": 0.02,
+}
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init on the CPU: fan-in normal for weights (lecun, as flax),
+    zeros for biases, ones/zeros for norms, CLIP's stds for embeddings."""
+    norms = tuple(m for m in model.modules()
+                  if isinstance(m, (nn.LayerNorm, nn.GroupNorm)))
+    norm_weights = {id(m.weight) for m in norms}
+    for name, p in model.named_parameters():
+        if id(p) in norm_weights:
+            p.fill_(1.0)
+        elif name.endswith("bias") or name in ("weightedsum", "clip.logit_scale"):
+            p.zero_()
+        elif name.endswith(("proj", "text_projection")) and p.ndim == 2:
+            p.copy_(torch.randn(p.shape, generator=generator) * p.shape[0] ** -0.5)
+        else:
+            std = next((v for k, v in _NORMAL_STD.items() if name.endswith(k)), None)
+            if std is None:
+                std = 1.0 / math.sqrt(max(1, p[0].numel()))
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+def build_model_from_config(
+    cfg: ConfigNode, *, device="cpu", seed: int = 0,
+) -> Tuple[KWClip, KWClipConfig, Optional[ReducedVocab]]:
+    """Returns (model in eval mode on `device`, model_cfg, reduced_vocab)."""
+    vocab = resolve_reduced_vocab(cfg)
+    if vocab is not None:
+        model_cfg = KWClipConfig.from_config(
+            cfg, vocab_size=len(vocab), sot_id=int(vocab.sot_reduced),
+            eot_id=int(vocab.eot_reduced))
+    else:
+        model_cfg = KWClipConfig.from_config(cfg)
+    model = KWClip(model_cfg)
+    init_params(model, torch.Generator().manual_seed(seed))
+    init_kw_bn_from_token_embedding(model)
+    return model.to(device).eval(), model_cfg, vocab

@@ -1,0 +1,104 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All `csrc/*.cu` files are compiled by `nvcc` for `sm_90a` into one shared
+library with a plain C interface, loaded with `ctypes` at first use. The
+library is named by a hash of the sources and the flags, so it is rebuilt
+only when they change. The build directory is `build/kernels/` at the root of
+the checkout (listed in `.gitignore`). Nothing here runs at import time:
+machines without `nvcc` import this module and never call `kernels()`.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+__all__ = ["KernelBuildError", "kernels", "build_seconds", "check"]
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build", "kernels")
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+_build_seconds = 0.0
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc failed or could not be found; the message carries its stderr."""
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in srcs:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return srcs, h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sc_fab_gemm.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
+    lib.sc_fab_attention.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.sc_vq_splits.argtypes = []
+    lib.sc_vq_row_chunk.argtypes = []
+    for fn in (lib.sc_fab_gemm, lib.sc_fab_attention, lib.sc_vq_fwd,
+               lib.sc_vq_splits, lib.sc_vq_row_chunk):
+        fn.restype = ctypes.c_int
+    lib.sc_error_string.argtypes = [i]
+    lib.sc_error_string.restype = ctypes.c_char_p
+
+
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library; builds it on the first call if needed."""
+    global _lib, _build_seconds
+    if _lib is not None:
+        return _lib
+    srcs, digest = _sources()
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    so = os.path.join(_BUILD_DIR, f"libspeechclip_kernels_{digest}.so")
+    if not os.path.exists(so):
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *_FLAGS, "-o", tmp, *srcs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        with open(so + ".log", "w") as f:  # -Xptxas -v: registers, smem, spills
+            f.write(proc.stderr)
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        _build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(so)
+    _declare(lib)
+    _lib = lib
+    return lib
+
+
+def build_seconds() -> float:
+    """Seconds the nvcc build took in this process (0 if it was cached)."""
+    return _build_seconds
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a non-zero cudaError_t."""
+    if err != 0:
+        msg = kernels().sc_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
