@@ -16,9 +16,10 @@ compute the same function in the parity tests. The layout rules:
     stores (``models/hubert.py:627-680``); it is copied as is.
   - Keyword-BN `batch_stats` become the running-statistic buffers.
 
-Every parameter and buffer of the target must be filled exactly once;
-anything left over raises, as does any shape mismatch. Plain numpy: the
-bridge imports neither JAX nor the JAX package.
+Strict both ways: every parameter and buffer of the target must be filled
+exactly once, and every leaf of the JAX variables must be read; anything
+left over on either side raises, as does any shape mismatch. Plain numpy:
+the bridge imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +30,44 @@ import torch
 from torch import nn
 
 __all__ = ["load_jax_variables", "load_hubert", "load_clip"]
+
+
+class _Tree:
+    """Read-tracking view of a nested dict of arrays: records the path of
+    every leaf read through it, so `unread()` lists what nothing consumed."""
+
+    def __init__(self, tree, path: str = "", seen=None, index=None):
+        self._tree, self._path, self._index = tree, path, index
+        self._seen = set() if seen is None else seen
+
+    def _wrap(self, key, value):
+        path = f"{self._path}/{key}"
+        if hasattr(value, "items"):
+            return _Tree(value, path, self._seen, self._index)
+        self._seen.add(path)
+        return value if self._index is None else np.asarray(value)[self._index]
+
+    def layer(self, i: int) -> "_Tree":
+        """Layer i of a scanned (stacked along a leading L axis) subtree."""
+        return _Tree(self._tree, self._path, self._seen, i)
+
+    def __getitem__(self, key):
+        return self._wrap(key, self._tree[key])
+
+    def get(self, key, default=None):
+        return self[key] if key in self._tree else default
+
+    def items(self):
+        return [(k, self._wrap(k, v)) for k, v in self._tree.items()]
+
+    def unread(self):
+        def leaves(tree, path):
+            for k, v in tree.items():
+                if hasattr(v, "items"):
+                    yield from leaves(v, f"{path}/{k}")
+                else:
+                    yield f"{path}/{k}"
+        return sorted(p for p in leaves(self._tree, self._path) if p not in self._seen)
 
 
 class _Filler:
@@ -71,13 +110,6 @@ class _Filler:
             raise ValueError(f"not filled from the JAX variables: {sorted(self.todo.values())}")
 
 
-def _slice(tree, i):
-    """Layer i of a scanned (stacked) layer tree."""
-    if hasattr(tree, "items"):
-        return {k: _slice(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
-
-
 def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
     fe = p["feature_extractor"]
     for i, conv in enumerate(mod.feature_extractor.conv_layers):
@@ -89,7 +121,7 @@ def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
     f.conv1d(mod.pos_conv.conv, p["pos_conv"]["conv"])
     f.norm(mod.encoder_layer_norm, p["encoder_layer_norm"])
     for i, layer in enumerate(mod.layers):
-        t = _slice(p["layers"]["layer"], i)
+        t = p["layers"]["layer"].layer(i)
         w = np.concatenate([np.asarray(t[n]["kernel"]) for n in ("q_proj", "k_proj", "v_proj")], 1)
         b = np.concatenate([np.asarray(t[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")])
         f.put(layer.self_attn.in_proj_weight, w.T)
@@ -103,7 +135,7 @@ def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
 
 def _fill_blocks(f: _Filler, transformer, p: Dict) -> None:
     for i, block in enumerate(transformer.blocks):
-        t = _slice(p["blocks"]["block"], i)
+        t = p["blocks"]["block"].layer(i)
         f.norm(block.ln_1, t["ln_1"])
         f.packed_mha(block.attn, t["attn"])
         f.norm(block.ln_2, t["ln_2"])
@@ -145,27 +177,37 @@ def _fill_branch(f: _Filler, mod, p: Dict, stats: Dict) -> None:
     f.put(head.bn_layer.running_var, stats["head"]["bn_layer"]["var"])
 
 
+def _finish(f: _Filler, *trees: _Tree) -> None:
+    f.finish()
+    unread = [p for t in trees for p in t.unread()]
+    if unread:
+        raise ValueError(f"JAX leaves the port does not read: {unread}")
+
+
 def load_hubert(module: nn.Module, params: Dict) -> None:
     """Fill a `HubertModel` from the JAX `audio_encoder` params subtree."""
-    f = _Filler(module)
-    _fill_hubert(f, module, params)
-    f.finish()
+    f, p = _Filler(module), _Tree(params)
+    _fill_hubert(f, module, p)
+    _finish(f, p)
 
 
 def load_clip(module: nn.Module, params: Dict) -> None:
     """Fill a `ClipModel` from the JAX `clip` params subtree."""
-    f = _Filler(module)
-    _fill_clip(f, module, params)
-    f.finish()
+    f, p = _Filler(module), _Tree(params)
+    _fill_clip(f, module, p)
+    _finish(f, p)
 
 
 def load_jax_variables(model: nn.Module, variables: Dict) -> None:
     """Fill a `KWClip` from the JAX model's {'params', 'batch_stats'}."""
-    p, stats = variables["params"], variables.get("batch_stats", {})
+    p = _Tree(variables["params"], "params")
+    stats = _Tree(variables.get("batch_stats", {}), "batch_stats")
     f = _Filler(model)
     f.put(model.weightedsum, p["weightedsum"])
+    if hasattr(model, "criterion_log_inv_temp"):
+        f.put(model.criterion_log_inv_temp, p["criterion_log_inv_temp"])
     _fill_hubert(f, model.audio_encoder, p["audio_encoder"])
     _fill_clip(f, model.clip, p["clip"])
     _fill_branch(f, model.cascaded_branch, p["cascaded_branch"],
                  stats.get("cascaded_branch", {}))
-    f.finish()
+    _finish(f, p, stats)

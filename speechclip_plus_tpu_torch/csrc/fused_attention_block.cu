@@ -1,10 +1,11 @@
-// Fused attention block, forward only (K1), for Hopper (sm_90a).
+// Fused attention block, forward (K1), for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_kernel` of
 // speechclip_plus_tpu/nn/fused_attention_block.py:118 (launched by
-// `_pallas_fwd`, :203), in both of its forward modes on the serving path:
-// out-projection fused (HuBERT and ViT towers) and context-only (the branch
-// self-attention, reached through fused_attention_block_vjp._attn_core).
+// `_pallas_fwd`, :203), in both of its forward modes: out-projection fused
+// (HuBERT and ViT towers) and context-only (the branch self-attention,
+// reached through fused_attention_block_vjp._attn_core), each with or
+// without in-kernel attention dropout (`keep_thresh`, :141-145, :183-186).
 //
 // What bounds it on the H100. The TPU kernel kept a whole (T, 3D) qkv row in
 // VMEM (about 1.4 MB of bf16 at HuBERT shapes); an SM has 227 KB of shared
@@ -28,6 +29,15 @@
 //      rows are computed and dropped, and masked keys carry -1e30 (ragged
 //      keys -2e30), never -inf, so no NaN can appear.
 //
+//
+// Dropout. The keep mask of weight (b, h, i, j) is the counter hash of
+// dropout_mask.cuh, seeded from a device (seed, offset) pair, so the
+// backward (K2, fused_attention_block_bwd.cu) regenerates it. The online
+// softmax accumulates o += (mask * e / keep) v while l sums e unmasked:
+// after the final o / l this is JAX's w = p * mask / keep (:183-186). The
+// context-only mode can also write the per-row log-sum-exp (B, H, T) fp32
+// that K2 recomputes p from.
+//
 // Simple first: the attention products are fp32 FMAs from shared memory,
 // not tensor cores, and nothing is pipelined (no cp.async, TMA or wgmma);
 // the fp32 qkv buffer costs twice the bytes of a bf16 one.
@@ -36,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "dropout_mask.cuh"
 
 using namespace nvcuda;
 
@@ -195,10 +207,12 @@ constexpr size_t attention_smem_bytes() {
 // tx + 16 j (j < 4), for the output head columns tx + 16 c (c < DH / 16).
 // The 16 threads of a row group are the two halves of one warp, so row
 // reductions are xor-shuffles with offsets below 16.
+// seed == nullptr: no dropout. lse == nullptr: no log-sum-exp output.
 template <typename TO, int DH>
 __global__ void __launch_bounds__(A_THREADS) attention_kernel(
     const float* __restrict__ qkv, const float* __restrict__ key_bias,
-    TO* __restrict__ ctx, int Tn, int H) {
+    TO* __restrict__ ctx, int Tn, int H, const int64_t* __restrict__ seed,
+    uint32_t keep_thresh, float inv_keep, float* __restrict__ lse) {
   extern __shared__ float smem[];
   constexpr int LD = DH + 1, CW = DH / 16, LP = AK + 1;
   float* Qs = smem;
@@ -215,6 +229,16 @@ __global__ void __launch_bounds__(A_THREADS) attention_kernel(
   for (int e = tid; e < AQ * DH; e += A_THREADS) {
     const int r = e / DH, c = e % DH, t = q0 + r;
     Qs[r * LD + c] = t < Tn ? base[(size_t)t * row_stride + c] : 0.f;
+  }
+
+  const bool drop = seed != nullptr;
+  uint32_t offset = 0, row_key[4];
+  if (drop) {
+    const uint32_t sd = (uint32_t)seed[0];
+    offset = (uint32_t)seed[1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      row_key[i] = sc_row_key(sd, ((int64_t)b * H + h) * Tn + q0 + ty * 4 + i);
   }
 
   float o[4][CW];
@@ -263,6 +287,11 @@ __global__ void __launch_bounds__(A_THREADS) attention_kernel(
       for (int i = 0; i < 4; ++i) s[i][j] = t < Tn ? s[i][j] + bj : RAGGED_KEY;
     }
 
+    uint32_t col_key[4];
+    if (drop) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) col_key[j] = sc_col_key(offset, k0 + tx + 16 * j);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -275,8 +304,10 @@ __global__ void __launch_bounds__(A_THREADS) attention_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
-        ps += p;
-        Ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
+        ps += p;  // the normalizer sums every weight, kept or dropped
+        float pv = p;
+        if (drop) pv = sc_keep(row_key[i], col_key[j], keep_thresh) ? p * inv_keep : 0.f;
+        Ps[(ty * 4 + i) * LP + tx + 16 * j] = pv;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -310,19 +341,23 @@ __global__ void __launch_bounds__(A_THREADS) attention_kernel(
     TO* out = ctx + ((size_t)b * Tn + t) * D + (size_t)h * DH;
 #pragma unroll
     for (int c = 0; c < CW; ++c) out[tx + 16 * c] = from_f<TO>(o[i][c] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Tn + t] = m_run[i] + logf(l_run[i]);
   }
 }
 
 template <typename TO, int DH>
 cudaError_t launch_attention(const float* qkv, const float* key_bias, void* ctx,
-                             int B, int Tn, int H, cudaStream_t stream) {
+                             int B, int Tn, int H, const int64_t* seed,
+                             uint32_t keep_thresh, float inv_keep, float* lse,
+                             cudaStream_t stream) {
   const size_t smem = attention_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<TO, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tn + AQ - 1) / AQ, H, B);
   attention_kernel<TO, DH><<<grid, A_THREADS, smem, stream>>>(
-      qkv, key_bias, static_cast<TO*>(ctx), Tn, H);
+      qkv, key_bias, static_cast<TO*>(ctx), Tn, H, seed, keep_thresh, inv_keep, lse);
   return cudaGetLastError();
 }
 
@@ -363,20 +398,25 @@ int sc_fab_gemm(const void* a, const void* w, const float* bias, void* c,
 
 // ctx (B, T, H*dh), fp32 or bf16 (ctx_bf16), = per-head
 // softmax(q k^T + key_bias) v over the packed fp32 qkv (B, T, 3*H*dh) buffer
-// (q already scaled). key_bias (B, T) fp32.
+// (q already scaled). key_bias (B, T) fp32. With `seed` (device int64
+// [seed, offset]; null for none) the weights go through the dropout mask
+// of dropout_mask.cuh with `keep_thresh`, kept ones scaled by `inv_keep`.
+// `lse` (B, H, T) fp32 receives the per-row log-sum-exp when not null.
 int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
                      int B, int Tn, int H, int dh, int ctx_bf16,
-                     cudaStream_t stream) {
+                     const int64_t* seed, unsigned int keep_thresh, float inv_keep,
+                     float* lse, cudaStream_t stream) {
   if (B <= 0 || Tn <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err;
+#define SC_ATTN(TO, DHV) \
+  launch_attention<TO, DHV>(qkv, key_bias, ctx, B, Tn, H, seed, keep_thresh, inv_keep, lse, stream)
   if (dh == 64)
-    err = ctx_bf16 ? launch_attention<bf16, 64>(qkv, key_bias, ctx, B, Tn, H, stream)
-                   : launch_attention<float, 64>(qkv, key_bias, ctx, B, Tn, H, stream);
+    err = ctx_bf16 ? SC_ATTN(bf16, 64) : SC_ATTN(float, 64);
   else if (dh == 96)
-    err = ctx_bf16 ? launch_attention<bf16, 96>(qkv, key_bias, ctx, B, Tn, H, stream)
-                   : launch_attention<float, 96>(qkv, key_bias, ctx, B, Tn, H, stream);
+    err = ctx_bf16 ? SC_ATTN(bf16, 96) : SC_ATTN(float, 96);
   else
     err = cudaErrorInvalidValue;
+#undef SC_ATTN
   return (int)err;
 }
 

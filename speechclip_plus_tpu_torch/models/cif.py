@@ -1,22 +1,29 @@
-"""CIF downsampler, eval path: alpha net + integrate-and-fire.
+"""CIF downsampler: alpha net + integrate-and-fire.
 
 Port of ``speechclip_plus_tpu/models/cif.py`` (reference
 ``avssl/module/cif.py:24-155``). The alpha head is Conv1d (k=3) in the
-compute dtype, then ReLU, then Linear(1) and sigmoid in fp32 (JAX
-``models/cif.py:96-119``, dtype set at ``models/kwclip.py:519-525``); alphas
-are zeroed at padding and integrated into at most `max_feat_len` keyword
-slots by ``ops/cif.py``. Train-time alpha scaling comes with the training
-step.
+compute dtype with fp32 master weights, dropout 0.5, ReLU, dropout 0.5, then
+Linear(1) and sigmoid in fp32 (JAX ``models/cif.py:96-119``, dtype set at
+``models/kwclip.py:519-525``); alphas are zeroed at padding and integrated
+into at most `max_feat_len` keyword slots by ``ops/cif.py``.
+
+Training (JAX ``:121-132``): `quantity_out` is the alpha sum before scaling;
+while `global_step < scaling_step` the alphas are scaled toward the target
+length; there is no tail handling. The dropout rate is 0.5 as in JAX, which
+hard-codes it (``:109``, ``:115``); the YAML's `conv_cif_dropout` is parsed
+and not read there either (ROADMAP queue C).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cif import MAX_FEAT_LEN, integrate_and_fire
+from ..nn.dropout import dropout
+from ..ops.cif import MAX_FEAT_LEN, integrate_and_fire, scale_alpha
 
 __all__ = ["CifConfig", "CIF"]
 
@@ -31,7 +38,10 @@ class CifConfig:
     apply_tail_handling: bool = True
     tail_handling_firing_threshold: float = 0.5
     max_feat_len: int = MAX_FEAT_LEN
-    dtype: torch.dtype = torch.float32
+    apply_scaling: bool = True
+    scaling_step: int = -1  # stop scaling at this optimizer step (-1: never)
+    quantity_loss_weight: float = 1.0
+    compute_dtype: torch.dtype = torch.float32
 
     @staticmethod
     def from_config(node) -> "CifConfig":
@@ -42,6 +52,8 @@ class CifConfig:
                 or int(d.get("conv_cif_layer_num", d.get("num_layer", 1))) != 1 \
                 or int(d.get("cif_output_dim", width)) != width:
             raise NotImplementedError("CIF other than one conv layer without output proj")
+        if d.get("using_gt_len", False):
+            raise NotImplementedError("CIF target lengths from captions (using_gt_len)")
         return CifConfig(
             cif_threshold=float(d.get("cif_threshold", 1.0)),
             encoder_embed_dim=width,
@@ -49,6 +61,9 @@ class CifConfig:
             apply_tail_handling=bool(d.get("apply_tail_handling", True)),
             tail_handling_firing_threshold=float(d.get("tail_handling_firing_threshold", 0.5)),
             max_feat_len=int(d.get("max_feat_len", MAX_FEAT_LEN)),
+            apply_scaling=bool(d.get("apply_scaling", True)),
+            scaling_step=int(d.get("scaling_step", -1)),
+            quantity_loss_weight=float(d.get("quantity_loss_weight", 1.0)),
         )
 
 
@@ -57,19 +72,36 @@ class CIF(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, k = cfg.encoder_embed_dim, cfg.conv_cif_width
-        self.conv = nn.Conv1d(d, d, k, padding=k // 2, dtype=cfg.dtype)
+        self.conv = nn.Conv1d(d, d, k, padding=k // 2)
         self.weight_proj = nn.Linear(d, 1)
 
-    def forward(self, audio_feat: torch.Tensor, pad_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """audio_feat (B, S, D), pad_mask (B, S) bool (True = pad)."""
-        c = self.cfg
-        x = torch.relu(self.conv(audio_feat.to(c.dtype).transpose(1, 2)))
+    def forward(self, audio_feat: torch.Tensor, pad_mask: torch.Tensor,
+                target_lengths: Optional[torch.Tensor] = None, global_step=None, *,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """audio_feat (B, S, D), pad_mask (B, S) bool (True = pad);
+        target_lengths (B,) and the optimizer step drive the train-time
+        scaling; `generator` turns the dropouts on."""
+        c, cd = self.cfg, self.cfg.compute_dtype
+        conv = self.conv
+        x = F.conv1d(audio_feat.to(cd).transpose(1, 2), conv.weight.to(cd), conv.bias.to(cd),
+                     padding=conv.padding)
+        x = torch.relu(dropout(x, 0.5, generator))
+        x = dropout(x, 0.5, generator)
         alpha = torch.sigmoid(self.weight_proj(x.transpose(1, 2).float()))[..., 0]
         alpha = alpha.masked_fill(pad_mask, 0.0)
-        result = {"quantity_out": alpha.sum(dim=1)}
+        result = {"quantity_out": alpha.sum(dim=1), "orig_alpha": alpha}
+        if training and c.apply_scaling and target_lengths is not None:
+            scaled = scale_alpha(alpha, target_lengths, c.cif_threshold)
+            if c.scaling_step < 0 or global_step is None or int(global_step) < c.scaling_step:
+                alpha = scaled
         result.update(integrate_and_fire(
             audio_feat, alpha, threshold=c.cif_threshold, max_feat_len=c.max_feat_len,
-            is_inference=True, apply_tail_handling=c.apply_tail_handling,
+            is_inference=not training, apply_tail_handling=c.apply_tail_handling,
             tail_handling_firing_threshold=c.tail_handling_firing_threshold))
         result["input_feats_pad_mask"] = pad_mask
+        if target_lengths is not None:
+            result["target_len"] = target_lengths
+            result["dsample_len_diff"] = (result["dsample_feats_length"].float()
+                                          - target_lengths.float()).abs().mean()
         return result

@@ -1,14 +1,20 @@
 """HuBERT-base acoustic tower (the fairseq `FairseqHubert` base path).
 
 Port of ``speechclip_plus_tpu/models/hubert.py`` (reference
-``avssl/module/speech_encoder_plus.py:29-107``), forward only and eval mode:
+``avssl/module/speech_encoder_plus.py:29-107``), forward only (the tower is
+frozen):
 
   conv frontend (GroupNorm on layer 0 only, exact-erf GELU) -> LayerNorm ->
   post_extract_proj -> zero padded frames -> + weight-normed pos_conv
   (k=128, 16 groups) -> encoder LayerNorm -> 12 post-norm layers.
 
 Each layer's attention is the fused attention block with the out-projection
-fused in (K1). The softmax-weighted sum over the 13 hidden states is
+fused in (K1). In training (a generator passed) the tower runs its dropouts
+at the JAX sites, all p=0.1 for HuBERT-base: features after the projection
+(JAX ``:967``), the encoder input (``:982``), the two residual branches
+(``:920``, ``:928-929``) and the attention weights inside K1;
+`activation_dropout` is 0 (``:917``). The reference trains with dropout on
+in the frozen tower (`audio_encoder.frozen_dropout`, default true). The softmax-weighted sum over the 13 hidden states is
 accumulated inside the layer loop (JAX ``:1016-1044``), so no (13, B, T, D)
 stack exists. The pos-conv weight norm is materialized to one kernel, as the
 JAX side stores it (``:627-680``): the tower is frozen.
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.attention import MultiheadAttention, padding_bias
+from ..nn.dropout import dropout
 from ..nn.transformer import LayerNorm
 
 __all__ = ["HubertConfig", "HubertModel", "downsample_padding_mask"]
@@ -43,6 +50,8 @@ class HubertConfig:
     ffn_dim: int = 3072
     conv_pos: int = 128
     conv_pos_groups: int = 16
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
     dtype: torch.dtype = torch.float32
 
     @property
@@ -134,16 +143,22 @@ class HubertEncoderLayer(nn.Module):
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
+        self.cfg = cfg
         d, dt = cfg.d_model, cfg.dtype
-        self.self_attn = MultiheadAttention(d, cfg.n_heads, fuse_out=True, dtype=dt)
+        self.self_attn = MultiheadAttention(d, cfg.n_heads, fuse_out=True, dtype=dt,
+                                            dropout=cfg.attention_dropout)
         self.self_attn_layer_norm = LayerNorm(d, dtype=dt)
         self.fc1 = nn.Linear(d, cfg.ffn_dim, dtype=dt)
         self.fc2 = nn.Linear(cfg.ffn_dim, d, dtype=dt)
         self.final_layer_norm = LayerNorm(d, dtype=dt)
 
-    def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.self_attn_layer_norm(x + self.self_attn(x, key_padding_bias=key_padding_bias))
-        return self.final_layer_norm(x + self.fc2(F.gelu(self.fc1(x))))
+    def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        c, g = self.cfg, generator
+        attn = self.self_attn(x, key_padding_bias=key_padding_bias, generator=g)
+        x = self.self_attn_layer_norm(x + dropout(attn, c.dropout, g))
+        h = F.gelu(self.fc1(x))  # activation_dropout is 0 (JAX :917)
+        return self.final_layer_norm(x + dropout(self.fc2(h), c.dropout, g))
 
 
 class HubertModel(nn.Module):
@@ -161,20 +176,25 @@ class HubertModel(nn.Module):
         self.layers = nn.ModuleList(HubertEncoderLayer(cfg) for _ in range(cfg.n_layers))
 
     def forward(self, wav: torch.Tensor, wav_padding_mask: torch.Tensor,
-                layer_weights: torch.Tensor) -> dict:
+                layer_weights: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> dict:
         """wav (B, T), wav_padding_mask (B, T) bool (True = pad), layer_weights
-        (L+1,) fp32 softmax weights. Returns the last hidden state `x`, the fp32
-        `weighted_sum` (B, T', D) and the frame `padding_mask` (B, T')."""
+        (L+1,) fp32 softmax weights; `generator` turns the dropouts on.
+        Returns the last hidden state `x`, the fp32 `weighted_sum` (B, T', D)
+        and the frame `padding_mask` (B, T'). The hidden states take no
+        gradient (frozen tower): the weighted sum's only gradient is into
+        `layer_weights`, which keeps each fp32 hidden state for it."""
+        p, g = self.cfg.dropout, generator
         feats = self.feature_extractor(wav)
         pad = downsample_padding_mask(wav_padding_mask, feats.shape[1])
         feats = self.layer_norm(feats)
         if self.post_extract_proj is not None:
             feats = self.post_extract_proj(feats)
-        x = feats.masked_fill(pad[:, :, None], 0.0)
-        x = self.encoder_layer_norm(x + self.pos_conv(x))
+        x = dropout(feats, p, g).masked_fill(pad[:, :, None], 0.0)
+        x = dropout(self.encoder_layer_norm(x + self.pos_conv(x)), p, g)
         bias = padding_bias(pad)
-        acc = layer_weights[0] * x.float()
+        acc = layer_weights[0] * x.float().detach()
         for i, layer in enumerate(self.layers):
-            x = layer(x, bias)
-            acc = acc + layer_weights[i + 1] * x.float()
+            x = layer(x, bias, g)
+            acc = acc + layer_weights[i + 1] * x.float().detach()
         return {"x": x, "weighted_sum": acc, "padding_mask": pad}

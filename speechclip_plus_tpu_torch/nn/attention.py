@@ -4,12 +4,21 @@ Port of ``speechclip_plus_tpu/nn/attention.py``. Parameters follow
 torch.nn.MultiheadAttention: `in_proj_weight` (3D, D), `in_proj_bias` (3D,),
 `out_proj` Linear(D, D). q is scaled by 1/sqrt(dh) before q kᵀ.
 
+Parameters are stored in `dtype` and cast to `compute_dtype` inside
+`forward`, as flax's `dtype=` does: the trainable branch stores fp32 master
+weights and computes in bf16 under `trainer.precision: bf16`; the frozen
+towers store and compute in one dtype. The fp32 `in_proj_bias` reaches the
+kernels uncast (the TPU kernel added an fp32 bias, JAX
+``nn/fused_attention_block_vjp.py:468``).
+
 Self-attention without a per-head mask goes through the fused attention
-block (K1, ``nn/fused_attention_block.py``): with the out-projection fused in
-for the frozen towers (`fuse_out=True`), or context-only followed by a plain
-`ctx @ Wo + bo` for the branch (`fuse_out=False`, as in
-``speechclip_plus_tpu/nn/fused_attention_block_vjp.py:511``). An additive
-`attn_mask` (the CLIP text tower's causal mask) takes the plain path.
+block (K1, ``nn/fused_attention_block.py``): forward-only with the
+out-projection fused in for the frozen towers (`fuse_out=True`), or the
+differentiable context-only block with its backward kernel (K2,
+``nn/fused_attention_block_vjp.py``) for the branch (`fuse_out=False`).
+Attention dropout at `dropout` runs inside the kernels when a generator is
+passed. An additive `attn_mask` (the CLIP text tower's causal mask) takes the
+plain path, with plain autograd.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .fused_attention_block import fused_attention_block
+from .fused_attention_block_vjp import fused_attention_block_vjp
 
 __all__ = ["MultiheadAttention", "dot_product_attention", "padding_bias"]
 
@@ -47,30 +57,39 @@ def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None):
 
 class MultiheadAttention(nn.Module):
     def __init__(self, d_model: int, nhead: int, *, fuse_out: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} not divisible by nhead {nhead}")
         self.d_model, self.nhead, self.fuse_out = d_model, nhead, fuse_out
+        self.compute_dtype = compute_dtype or dtype
+        self.dropout = float(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, dtype=dtype))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, dtype=dtype))
         self.out_proj = nn.Linear(d_model, d_model, dtype=dtype)
 
     def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor] = None,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, T, D) -> (B, T, D) in the module's dtype.
+                attn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, T, D) -> (B, T, D) in the compute dtype.
         key_padding_bias: (B, T) fp32 additive (`padding_bias`).
-        attn_mask: (T, T) additive fp32 mask shared by batch and heads."""
-        x = x.to(self.in_proj_weight.dtype)
-        w_out, b_out = self.out_proj.weight, self.out_proj.bias
+        attn_mask: (T, T) additive fp32 mask shared by batch and heads.
+        generator: attention dropout at `self.dropout` (None: none)."""
+        cd = self.compute_dtype
+        x = x.to(cd)
+        w_in = self.in_proj_weight.to(cd)
+        w_out, b_out = self.out_proj.weight.to(cd), self.out_proj.bias.to(cd)
         if attn_mask is None:
-            ctx = fused_attention_block(
-                x.contiguous(), self.in_proj_weight, self.in_proj_bias,
-                w_out, b_out, key_padding_bias, n_heads=self.nhead,
-                fuse_out=self.fuse_out)
-            return ctx if self.fuse_out else F.linear(ctx, w_out, b_out)
+            attend = fused_attention_block if self.fuse_out else fused_attention_block_vjp
+            kw = {"fuse_out": True} if self.fuse_out else {}
+            return attend(x.contiguous(), w_in, self.in_proj_bias, w_out, b_out,
+                          key_padding_bias, n_heads=self.nhead, dropout_rate=self.dropout,
+                          generator=generator, **kw)
+        if self.dropout > 0.0 and generator is not None:
+            raise NotImplementedError("attention dropout with an attn_mask")
         b, t, d = x.shape
-        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).split(d, dim=-1)
+        q, k, v = F.linear(x, w_in, self.in_proj_bias.to(cd)).split(d, dim=-1)
         split = lambda a: a.reshape(b, t, self.nhead, -1).transpose(1, 2)
         bias = attn_mask.float()
         if key_padding_bias is not None:

@@ -1,11 +1,11 @@
-"""Fused attention block, forward only (K1): QKV proj -> attention [-> out proj].
+"""Fused attention block, forward (K1): QKV proj -> attention [-> out proj].
 
 Port of ``speechclip_plus_tpu/nn/fused_attention_block.py`` (Pallas
 `_kernel`, :118). Per layer it computes, for x (B, T, D) in its native
 layout:
 
     qkv = x Wqkvᵀ + bqkv,  q scaled by 1/sqrt(dh)
-    ctx = concat_h softmax(q_h k_hᵀ + key_bias) v_h
+    ctx = concat_h dropout(softmax(q_h k_hᵀ + key_bias)) v_h
     out = ctx Woᵀ + bo        (fuse_out=True; else ctx is returned)
 
 On a CUDA tensor it runs the hand-written kernels in
@@ -16,10 +16,18 @@ no fallback from one to the other. Both compute in fp32, keep qkv in fp32
 and round the context and the output to x's dtype (the TPU kernel rounded
 qkv to bf16 as well).
 
-Forward only: the frozen towers never need its gradient; a backward raises,
-as ``_fused_bwd`` does on the JAX side. Dropout, per-head `attn_bias` and
-the WavLM `attn_gate` are training-path modes of the TPU kernel that come
-with the training step; asking for them raises.
+Dropout on the attention weights (`dropout_rate` with a `generator`; None
+means deterministic) uses the counter-based mask of ``ops/random.py``: one
+(seed, offset) pair per call, drawn from the generator. The context-only
+mode also serves the branch attention's autograd function
+(``nn/fused_attention_block_vjp.py``) through `attention_forward`, which
+returns what the backward kernel (K2) needs: the fp32 qkv buffer and the
+per-row log-sum-exp.
+
+`fused_attention_block` itself is forward-only: the frozen towers never need
+its gradient, and a backward raises, as ``_fused_bwd`` does on the JAX side.
+The per-head `attn_bias` and the WavLM `attn_gate` modes are not ported yet;
+asking for them raises.
 """
 from __future__ import annotations
 
@@ -28,7 +36,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fused_attention_block", "plain_fused_attention_block", "LAUNCHES"]
+from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
+
+__all__ = ["fused_attention_block", "attention_forward", "plain_fused_attention_block",
+           "LAUNCHES"]
 
 # wrapper calls that ran the kernels on the card (one per call, whatever the
 # number of CUDA launches it makes)
@@ -38,23 +49,34 @@ _HEAD_DIMS = (64, 96)
 
 
 def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
-                                n_heads: int, fuse_out: bool = True):
+                                n_heads: int, fuse_out: bool = True, seeds=None,
+                                keep_prob: float = 1.0, return_aux: bool = False):
     """Plain PyTorch twin of the kernels: fp32 arithmetic on the operands'
-    values, qkv kept fp32; the context and the output rounded to x's dtype."""
+    values, qkv kept fp32; the context and the output rounded to x's dtype.
+    `seeds` (the (2,) int64 [seed, offset]) turns on dropout at `keep_prob`.
+    `return_aux` (context-only) returns (ctx, qkv with q scaled, lse (B, H, T))."""
     b, t, d = x.shape
     dh = d // n_heads
     qkv = F.linear(x.float(), w_in.float(), b_in.float())
+    qkv = torch.cat([qkv[..., :d] * dh ** -0.5, qkv[..., d:]], dim=-1)
     q, k, v = (a.reshape(b, t, n_heads, dh).transpose(1, 2) for a in qkv.split(d, dim=-1))
-    s = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
+    s = torch.matmul(q, k.transpose(-1, -2))
     if key_padding_bias is not None:
-        s = s + key_padding_bias[:, None, None, :]
-    ctx = torch.matmul(torch.softmax(s, dim=-1), v).transpose(1, 2).reshape(b, t, d)
+        s = s + key_padding_bias.float()[:, None, None, :]
+    w = torch.softmax(s, dim=-1)
+    if seeds is not None:
+        keep = attention_keep_mask(seeds, b, n_heads, t, keep_prob)
+        w = torch.where(keep, w / keep_prob, 0.0)
+    ctx = torch.matmul(w, v).transpose(1, 2).reshape(b, t, d).to(x.dtype)
+    if return_aux:
+        return ctx, qkv, torch.logsumexp(s, dim=-1)
     if fuse_out:
-        ctx = F.linear(ctx.to(x.dtype).float(), w_out.float(), b_out.float())
-    return ctx.to(x.dtype)
+        return F.linear(ctx.float(), w_out.float(), b_out.float()).to(x.dtype)
+    return ctx
 
 
-def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out):
+def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
+            seeds=None, keep_prob=1.0, return_aux=False):
     global LAUNCHES
     from ..utils.cuda_build import check, kernels
 
@@ -80,6 +102,9 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out):
         key_padding_bias = torch.zeros(b, t, dtype=torch.float32, device=x.device)
     if tuple(key_padding_bias.shape) != (b, t):
         raise ValueError(f"key_padding_bias {tuple(key_padding_bias.shape)}; want {(b, t)}")
+    if seeds is not None and (seeds.device != x.device or seeds.dtype != torch.int64
+                              or tuple(seeds.shape) != (2,)):
+        raise ValueError("fused_attention_block: seeds must be (2,) int64 on x's device")
     kb = key_padding_bias.to(torch.float32).contiguous()
     bf = int(x.dtype == torch.bfloat16)
     lib = kernels()
@@ -91,8 +116,13 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out):
                               b * t, 3 * d, d, d, dh ** -0.5, bf, 0, stream),
               "fused_attention_block qkv projection")
         ctx = torch.empty(b, t, d, dtype=x.dtype, device=x.device)
+        lse = (torch.empty(b, n_heads, t, dtype=torch.float32, device=x.device)
+               if return_aux else None)
         check(lib.sc_fab_attention(qkv.data_ptr(), kb.data_ptr(), ctx.data_ptr(),
-                                   b, t, n_heads, dh, bf, stream),
+                                   b, t, n_heads, dh, bf,
+                                   None if seeds is None else seeds.data_ptr(),
+                                   keep_threshold(keep_prob), 1.0 / keep_prob,
+                                   None if lse is None else lse.data_ptr(), stream),
               "fused_attention_block attention")
         out = ctx
         if fuse_out:
@@ -102,24 +132,38 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out):
                                   b * t, d, d, 0, 1.0, bf, bf, stream),
                   "fused_attention_block out projection")
     LAUNCHES += 1
-    return out
+    return (ctx, qkv, lse) if return_aux else out
+
+
+def _run(*args, **kw):
+    x = args[0]
+    if x.device.type == "cpu":
+        return plain_fused_attention_block(*args, **kw)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"fused_attention_block on {x.device.type}")
+    return _launch(*args, **kw)
 
 
 class _ForwardOnly(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out):
-        if x.device.type == "cpu":
-            return plain_fused_attention_block(x, w_in, b_in, w_out, b_out,
-                                               key_padding_bias, n_heads, fuse_out)
-        if x.device.type != "cuda":
-            raise NotImplementedError(f"fused_attention_block on {x.device.type}")
-        return _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out)
+    def forward(ctx, x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
+                seeds, keep_prob):
+        return _run(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
+                    seeds=seeds, keep_prob=keep_prob)
 
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
             "fused_attention_block is forward-only (frozen towers and serving); "
-            "the training backward (K2) is not ported yet")
+            "the branch attention's gradient is fused_attention_block_vjp (K2)")
+
+
+def attention_forward(x, w_in, b_in, key_padding_bias, *, n_heads: int, seeds=None,
+                      keep_prob: float = 1.0):
+    """Context-only K1 for a backward: (ctx in x's dtype, fp32 qkv (B, T, 3D)
+    with q scaled, fp32 lse (B, H, T)). No autograd."""
+    return _run(x, w_in, b_in, None, None, key_padding_bias, n_heads, False,
+                seeds=seeds, keep_prob=keep_prob, return_aux=True)
 
 
 def fused_attention_block(
@@ -131,18 +175,20 @@ def fused_attention_block(
     n_heads: int,
     fuse_out: bool = True,
     dropout_rate: float = 0.0,
-    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
     attn_bias: Optional[torch.Tensor] = None,
     attn_gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x (B, T, D); w_in (3D, D), b_in (3D,), w_out (D, D), b_out (D,) in
     torch's (out, in) layout; key_padding_bias (B, T) additive fp32 (-1e30 at
     pads). Returns (B, T, D) in x's dtype: the out-projected block output, or
-    the attention context when `fuse_out` is False."""
-    if (dropout_rate > 0.0 and not deterministic) or attn_bias is not None \
-            or attn_gate is not None:
+    the attention context when `fuse_out` is False. Attention dropout at
+    `dropout_rate` when a `generator` is given."""
+    if attn_bias is not None or attn_gate is not None:
         raise NotImplementedError(
-            "fused_attention_block: dropout, attn_bias and attn_gate are "
-            "training-path modes, not ported yet")
+            "fused_attention_block: attn_bias and attn_gate are not ported yet")
+    seeds, keep_prob = None, 1.0
+    if dropout_rate > 0.0 and generator is not None:
+        seeds, keep_prob = draw_seed(generator), 1.0 - float(dropout_rate)
     return _ForwardOnly.apply(x, w_in, b_in, w_out, b_out, key_padding_bias,
-                              n_heads, fuse_out)
+                              n_heads, fuse_out, seeds, keep_prob)

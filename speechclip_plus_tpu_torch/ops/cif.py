@@ -1,4 +1,4 @@
-"""Continuous Integrate-and-Fire, eval path.
+"""Continuous Integrate-and-Fire.
 
 Port of ``speechclip_plus_tpu/ops/cif.py`` (reference
 ``avssl/module/cif.py:24-311``) in its bin-overlap form: output bin t takes
@@ -7,7 +7,10 @@ from source frame s the overlap of the frame's alpha interval
 one batched fp32 matmul `W @ inputs` with a static (B, MAX_FEAT_LEN, D)
 output. The last bin has an open upper edge (the reference's right-index
 clipping). Inference tail handling extends one fire when the residual mass
-reaches the tail threshold.
+reaches the tail threshold; training (`is_inference=False`) keeps the raw
+bins, and `scale_alpha` scales the alphas toward the target length first.
+Gradients flow through the cumulative sums into the overlap weights, as in
+JAX (torch and JAX split the gradient of min/max ties alike).
 """
 from __future__ import annotations
 
@@ -15,9 +18,18 @@ from typing import Dict
 
 import torch
 
-__all__ = ["MAX_FEAT_LEN", "integrate_and_fire"]
+__all__ = ["MAX_FEAT_LEN", "integrate_and_fire", "scale_alpha"]
 
 MAX_FEAT_LEN = 75  # reference avssl/module/cif.py:11
+
+
+def scale_alpha(alpha: torch.Tensor, target_lengths: torch.Tensor, threshold: float = 1.0,
+                eps: float = 1e-5) -> torch.Tensor:
+    """Train-time scaling so that sum(alpha) == threshold * target_len + eps
+    (JAX ``ops/cif.py:37-49``, reference ``cif.py:127-129``)."""
+    alpha_sum = alpha.sum(dim=1, keepdim=True)
+    desired = threshold * target_lengths.to(alpha.dtype)[:, None] + eps
+    return alpha * desired / alpha_sum.clamp_min(1e-12)
 
 
 def integrate_and_fire(

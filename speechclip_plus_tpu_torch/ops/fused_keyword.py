@@ -1,21 +1,22 @@
-"""Fused cosine-score -> VQ statistics, forward (K3).
+"""Fused cosine-score -> VQ statistics (K3) and straight-through backward (K3b).
 
-Port of the forward of ``speechclip_plus_tpu/ops/fused_keyword.py`` (Pallas
-`_fwd_kernel`, :92, reached by `fused_cosine_vq`, :290): the keyword head's
+Port of ``speechclip_plus_tpu/ops/fused_keyword.py``: the keyword head's
 cosine scores against the normalized CLIP token table and the statistics of
-SimpleVectorQuantizer in its eval (hard) form, without an (N, V) tensor in
-device memory.
+SimpleVectorQuantizer in its hard form, without an (N, V) tensor in device
+memory, forward (Pallas `_fwd_kernel`, :92) and backward (`_bwd_kernel`,
+:123, the straight-through estimator of `_st_gather`, :253-287).
 
 `cosine_vq_stats` returns, for rows x (N, D) and the normalized table en
 (V, D): the masked argmax k (N,), the per-row entropy ent (N,) and the column
-sums of softmax(s) psum (V,). On a CUDA tensor it runs the hand-written
-kernels in ``csrc/fused_keyword.cu``; on a CPU tensor it runs
-`plain_cosine_vq_stats`, the same function in plain PyTorch. The gather
-`emb[k]` and the perplexity and entropy reductions stay plain torch, as they
-are XLA outside the kernel in JAX (:334-366).
-
-Forward only: the straight-through backward (K3b) comes with the training
-step; a backward raises.
+sums of softmax(s) psum (V,). `st_backward` returns, for the keyword
+cotangent g (N, D): dx = (dz / t) en and dt = Σ dz (-s / t²), with
+u = (g enᵀ) ‖emb‖, p = softmax(s / t), dz = p (u - Σ p u). On a CUDA tensor
+each runs its hand-written kernels in ``csrc/fused_keyword.cu``; on a CPU
+tensor its plain PyTorch twin. The gather `emb[k]` and the perplexity and
+entropy reductions stay plain torch, as they are XLA outside the kernel in
+JAX (:334-366). The codebook gets no gradient: the token table is frozen in
+every reference configuration, and `fused_cosine_vq` refuses a table that
+requires one.
 """
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ from typing import Dict, Sequence
 
 import torch
 
-__all__ = ["cosine_vq_stats", "plain_cosine_vq_stats", "fused_cosine_vq", "LAUNCHES"]
+__all__ = ["cosine_vq_stats", "plain_cosine_vq_stats", "st_backward", "plain_st_backward",
+           "fused_cosine_vq", "LAUNCHES", "BWD_LAUNCHES"]
 
-# wrapper calls that ran the kernels on the card
+# wrapper calls that ran the kernels on the card: K3 (forward), K3b (backward)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _MASK_VALUE = -1e30
 
@@ -89,26 +92,94 @@ def _launch(xn, en, mask):
     return k, ent, psum
 
 
-class _ForwardOnly(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, xn, en, mask):
-        if xn.device.type == "cpu":
-            return plain_cosine_vq_stats(xn, en, mask)
-        if xn.device.type != "cuda":
-            raise NotImplementedError(f"cosine_vq_stats on {xn.device.type}")
-        return _launch(xn, en, mask)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "cosine_vq_stats is forward-only; the straight-through backward "
-            "(K3b) is not ported yet")
-
-
 def cosine_vq_stats(xn: torch.Tensor, en: torch.Tensor, mask: torch.Tensor):
     """xn (N, D), en (V, D) in the compute dtype, mask (V,) int32 ->
-    (k (N,) int32, ent (N,) fp32, psum (V,) fp32)."""
-    return _ForwardOnly.apply(xn, en, mask)
+    (k (N,) int32, ent (N,) fp32, psum (V,) fp32). No gradient (the
+    statistics are taken on a stop-gradient basis, as in JAX)."""
+    xn, en = xn.detach(), en.detach()
+    if xn.device.type == "cpu":
+        return plain_cosine_vq_stats(xn, en, mask)
+    if xn.device.type != "cuda":
+        raise NotImplementedError(f"cosine_vq_stats on {xn.device.type}")
+    return _launch(xn, en, mask)
+
+
+def plain_st_backward(xn, g, en, norms, mask, temp: float):
+    """Plain PyTorch twin of K3b: fp32 products on the operands' values, with
+    dz / t rounded to the compute dtype before its product, as the kernel.
+    Returns (dx (N, D) fp32, dt () fp32)."""
+    live = ~mask.bool()[None, :]
+    s = xn.float() @ en.float().T
+    p = torch.softmax(torch.where(live, s / temp, -torch.inf), dim=-1)
+    u = (g.float() @ en.float().T) * norms[None, :]
+    dz = p * (u - (p * u).sum(dim=-1, keepdim=True))
+    dz = torch.where(live, dz, 0.0)
+    dt = (dz * (-s / (temp * temp))).sum()
+    dx = (dz / temp).to(xn.dtype).float() @ en.float()
+    return dx, dt
+
+
+def _launch_bwd(xn, g, en, norms, mask, temp):
+    global BWD_LAUNCHES
+    from ..utils.cuda_build import check, kernels
+
+    n, d = xn.shape
+    v = en.shape[0]
+    if xn.dtype not in (torch.float32, torch.bfloat16) or g.dtype != xn.dtype \
+            or en.dtype != xn.dtype or norms.dtype != torch.float32:
+        raise TypeError(f"st_backward: dtypes x {xn.dtype}, g {g.dtype}, en {en.dtype}, "
+                        f"norms {norms.dtype}")
+    if tuple(g.shape) != (n, d) or en.shape[1] != d or tuple(norms.shape) != (v,) \
+            or tuple(mask.shape) != (v,) or mask.dtype != torch.int32:
+        raise ValueError(f"st_backward: shapes x {tuple(xn.shape)}, g {tuple(g.shape)}, "
+                         f"en {tuple(en.shape)}, norms {tuple(norms.shape)}, "
+                         f"mask {tuple(mask.shape)} {mask.dtype}")
+    for t in (xn, g, en, norms, mask):
+        if t.device != xn.device or not t.is_contiguous():
+            raise ValueError("st_backward: inputs must be contiguous on one device")
+    lib = kernels()
+    f32 = dict(dtype=torch.float32, device=xn.device)
+    with torch.cuda.device(xn.device):
+        dx = torch.empty(n, d, **f32)
+        dt_part = torch.empty(-(-n // 32), **f32)  # one partial per 32-row tile
+        dt = torch.empty(1, **f32)
+        check(lib.sc_vq_bwd(xn.data_ptr(), g.data_ptr(), en.data_ptr(), norms.data_ptr(),
+                            mask.data_ptr(), n, v, d, float(temp),
+                            int(xn.dtype == torch.bfloat16), dx.data_ptr(),
+                            dt_part.data_ptr(), dt.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream),
+              "st_backward")
+    BWD_LAUNCHES += 1
+    return dx, dt[0]
+
+
+def st_backward(xn: torch.Tensor, g: torch.Tensor, en: torch.Tensor, norms: torch.Tensor,
+                mask: torch.Tensor, temp: float):
+    """K3b: xn, g (N, D) and en (V, D) in the compute dtype, norms (V,) fp32
+    = ‖emb‖, mask (V,) int32, temp > 0 -> (dx (N, D) fp32, dt () fp32)."""
+    if xn.device.type == "cpu":
+        return plain_st_backward(xn, g, en, norms, mask, temp)
+    if xn.device.type != "cuda":
+        raise NotImplementedError(f"st_backward on {xn.device.type}")
+    return _launch_bwd(xn, g, en, norms, mask, temp)
+
+
+class _STGather(torch.autograd.Function):
+    """keywords = emb[k] from the exact fp32 table; backward K3b into xn
+    (the JAX `_st_gather` custom_vjp). The fixed temperature takes no
+    gradient, so dt is computed and dropped."""
+
+    @staticmethod
+    def forward(ctx, flat, embf, en, norms, mask, temp, k):
+        ctx.save_for_backward(flat, en, norms, mask)
+        ctx.temp = temp
+        return embf[k]
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, en, norms, mask = ctx.saved_tensors
+        dx, _ = st_backward(flat, g.to(flat.dtype).contiguous(), en, norms, mask, ctx.temp)
+        return dx.to(flat.dtype), None, None, None, None, None, None
 
 
 def fused_cosine_vq(
@@ -118,25 +189,34 @@ def fused_cosine_vq(
     *,
     prob_msk: Sequence[int] = (0, 2, 3),
     dtype: torch.dtype = torch.bfloat16,
+    training: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Cosine score + SimpleVectorQuantizer, eval (hard) form.
+    """Cosine score + SimpleVectorQuantizer, hard form.
 
     xn: (B, K, D) L2-normalized keyword vectors; emb: (V, D) raw fp32 token
-    embedding (also the codebook); temp: the VQ temperature (reported only).
+    embedding (also the codebook; frozen); temp: the fixed VQ temperature.
+    `training` gives the keywords the straight-through gradient (K3b).
     Returns the JAX `fused_cosine_vq` result dict without `subword_prob`
-    (the (B, K, V) one-hot nothing on the serving path reads)."""
+    (the (B, K, V) one-hot nothing reads)."""
+    if emb.requires_grad:
+        raise ValueError("fused_cosine_vq: the codebook must be frozen (no codebook gradient)")
     b, kk, d = xn.shape
     v = emb.shape[0]
     n = b * kk
     embf = emb.float()
-    en = (embf / embf.norm(dim=-1, keepdim=True).clamp_min(1e-8)).to(dtype)
+    norms = embf.norm(dim=-1).clamp_min(1e-8)
+    en = (embf / norms[:, None]).to(dtype).contiguous()
     mask = column_mask(v, prob_msk, xn.device)
-    k, ent, psum = cosine_vq_stats(xn.reshape(n, d).to(dtype).contiguous(),
-                                   en.contiguous(), mask)
+    flat = xn.reshape(n, d).to(dtype).contiguous()
+    k, ent, psum = cosine_vq_stats(flat, en, mask)
     k = k.long()
     avg_probs = psum / n
     hard_probs = torch.bincount(k, minlength=v).float() / n
     perplexity = lambda p: torch.exp(-(p * torch.log(p + 1e-7)).sum())
+    if training:
+        keywords = _STGather.apply(flat, embf, en, norms.contiguous(), mask, float(temp), k)
+    else:
+        keywords = embf[k]
     result = {
         "num_vars": v,
         "prob_perplexity": perplexity(avg_probs),
@@ -144,7 +224,7 @@ def fused_cosine_vq(
         "ent_per_t": ent.reshape(b, kk).mean(dim=0),
         "temp": torch.as_tensor(temp, dtype=torch.float32, device=xn.device),
         "targets": k.reshape(b, kk, 1),
-        "keywords": embf[k].reshape(b, kk, d),
+        "keywords": keywords.reshape(b, kk, d),
     }
     result["diversity_loss"] = (v - result["prob_perplexity"]) / v
     return result

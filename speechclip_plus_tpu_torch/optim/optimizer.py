@@ -1,0 +1,98 @@
+"""Optimizer and schedule wiring.
+
+Port of ``speechclip_plus_tpu/optim/optimizer.py`` (reference
+``avssl/model/kwClip.py:646-674``): one Adam over the trainable parameters
+only (the frozen towers are excluded), with the trainer's global-norm clip
+and the LR schedule stepped per optimizer step. JAX's optax chain is
+clip_by_global_norm -> add_decayed_weights (torch Adam's coupled L2) ->
+scale_by_adam -> lr schedule; here:
+
+  - `torch.optim.Adam` (β 0.9/0.999, eps 1e-8) with `weight_decay` as its
+    coupled L2, which adds wd·p to the gradient before the moments;
+  - the clip uses optax's formula g·min(1, c/‖g‖) over the trainable
+    gradients, not torch's `clip_grad_norm_` (c/(‖g‖+1e-6));
+  - the learning rate is set from the schedule before each Adam step, at the
+    optimizer step count (optax's `scale_by_learning_rate` count).
+
+Gradient accumulation (optax.MultiSteps in JAX) is counted by the train step
+(``parallel/train_step.py``).
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..ops.schedulers import get_schedule
+
+__all__ = ["Optimizer", "trainable_parameters", "global_norm", "build_optimizer",
+           "build_optimizer_from_config"]
+
+
+def trainable_parameters(model: nn.Module):
+    """(name, parameter) pairs that take gradients (the frozen towers have
+    `requires_grad=False`)."""
+    return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors, in fp32 (optax.global_norm)."""
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+class Optimizer:
+    """Adam with coupled L2 over `params`, global-norm clip and an LR
+    schedule. `apply(grads, step)` takes the (mean) gradient of one
+    optimizer step, aligned with `params`."""
+
+    def __init__(self, params: Sequence[nn.Parameter], *, lr: float, weight_decay: float,
+                 schedule: Callable[[int], float], gradient_clip_val: float = 0.0):
+        self.params: List[nn.Parameter] = list(params)
+        self.schedule = schedule
+        self.gradient_clip_val = float(gradient_clip_val or 0.0)
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=weight_decay)
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor], step: int) -> None:
+        if self.gradient_clip_val > 0:
+            # optax clip_by_global_norm: g * min(1, c / |g|), on the device
+            scale = torch.clamp(self.gradient_clip_val / global_norm(grads), max=1.0)
+            grads = [g * scale for g in grads]
+        for p, g in zip(self.params, grads):
+            p.grad = g.to(p.dtype)
+        for group in self.adam.param_groups:
+            group["lr"] = self.schedule(step)
+        self.adam.step()
+        for p in self.params:
+            p.grad = None
+
+
+def build_optimizer(model: nn.Module, *, optim_name: str = "Adam", lr: float = 1e-4,
+                    weight_decay: float = 1e-6, scheduler_name: str = "linear_warmup_decay",
+                    scheduler_args: Optional[dict] = None,
+                    gradient_clip_val: float = 4.0) -> Optimizer:
+    """Adam over the model's trainable parameters (reference trainer settings)."""
+    if optim_name.lower() != "adam":
+        raise NotImplementedError(f"optimizer {optim_name!r} (the port has Adam)")
+    schedule = get_schedule(scheduler_name, lr, **(scheduler_args or {}))
+    return Optimizer([p for _, p in trainable_parameters(model)], lr=lr,
+                     weight_decay=weight_decay, schedule=schedule,
+                     gradient_clip_val=gradient_clip_val)
+
+
+def build_optimizer_from_config(model: nn.Module, cfg_node) -> Optimizer:
+    """From the reference YAML's `audio_encoder.optim`, `audio_encoder.scheduler`
+    and `trainer.gradient_clip_val` (JAX `build_optimizer_from_config`)."""
+    optim = cfg_node.audio_encoder.optim
+    sched = cfg_node.audio_encoder.scheduler
+    sched_d = sched.to_dict() if hasattr(sched, "to_dict") else dict(sched)
+    name = sched_d.pop("name")
+    args = optim.args.to_dict() if hasattr(optim.args, "to_dict") else dict(optim.args)
+    return build_optimizer(
+        model, optim_name=optim.name, lr=float(args.get("lr", 1e-4)),
+        weight_decay=float(args.get("weight_decay", 0.0)), scheduler_name=name,
+        scheduler_args={k: (int(v) if k in ("warmup", "max_step") else float(v))
+                        for k, v in sched_d.items()},
+        gradient_clip_val=float(getattr(cfg_node.trainer, "gradient_clip_val", 0.0) or 0.0))

@@ -64,6 +64,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                   if isinstance(m, (nn.LayerNorm, nn.GroupNorm)))
     norm_weights = {id(m.weight) for m in norms}
     for name, p in model.named_parameters():
+        if name == "criterion_log_inv_temp":
+            continue  # log(1/T), set by the model
         if id(p) in norm_weights:
             p.fill_(1.0)
         elif name.endswith("bias") or name in ("weightedsum", "clip.logit_scale"):

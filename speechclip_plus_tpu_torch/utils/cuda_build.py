@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All `csrc/*.cu` files are compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface, loaded with `ctypes` at first use. The
-library is named by a hash of the sources and the flags, so it is rebuilt
-only when they change. The build directory is `build/kernels/` at the root of
+Each `csrc/*.cu` file is compiled by its own `nvcc -c` for `sm_90a`, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with `ctypes` at first use. The library is named
+by a hash of the sources, the headers and the flags, so it is rebuilt only
+when they change. The build directory is `build/kernels/` at the root of
 the checkout (listed in `.gitignore`). Nothing here runs at import time:
 machines without `nvcc` import this module and never call `kernels()`.
 """
@@ -22,8 +23,8 @@ __all__ = ["KernelBuildError", "kernels", "build_seconds", "check"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build", "kernels")
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _build_seconds = 0.0
@@ -44,7 +45,7 @@ def _nvcc() -> str:
 def _sources():
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for path in srcs:
+    for path in sorted(srcs + glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     return srcs, h.hexdigest()[:16]
@@ -52,13 +53,16 @@ def _sources():
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    u = ctypes.c_uint
     lib.sc_fab_gemm.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
-    lib.sc_fab_attention.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sc_fab_attention.argtypes = [p, p, p, i, i, i, i, i, p, u, f, p, p]
+    lib.sc_fab_attention_bwd.argtypes = [p, p, p, p, p, p, p, u, f, f, p, i, i, i, i, i, p]
     lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.sc_vq_bwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p, p, p, p]
     lib.sc_vq_splits.argtypes = []
     lib.sc_vq_row_chunk.argtypes = []
-    for fn in (lib.sc_fab_gemm, lib.sc_fab_attention, lib.sc_vq_fwd,
-               lib.sc_vq_splits, lib.sc_vq_row_chunk):
+    for fn in (lib.sc_fab_gemm, lib.sc_fab_attention, lib.sc_fab_attention_bwd,
+               lib.sc_vq_fwd, lib.sc_vq_bwd, lib.sc_vq_splits, lib.sc_vq_row_chunk):
         fn.restype = ctypes.c_int
     lib.sc_error_string.argtypes = [i]
     lib.sc_error_string.restype = ctypes.c_char_p
@@ -74,17 +78,33 @@ def kernels() -> ctypes.CDLL:
     so = os.path.join(_BUILD_DIR, f"libspeechclip_kernels_{digest}.so")
     if not os.path.exists(so):
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *_FLAGS, "-o", tmp, *srcs]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        with open(so + ".log", "w") as f:  # -Xptxas -v: registers, smem, spills
-            f.write(proc.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        nvcc = _nvcc()
+        tmpdir = tempfile.mkdtemp(dir=_BUILD_DIR)
+        procs = []
+        try:
+            objs = [os.path.join(tmpdir, os.path.basename(src) + ".o") for src in srcs]
+            procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", src, "-o", obj],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for src, obj in zip(srcs, objs)]
+            logs = []
+            for src, proc in zip(srcs, procs):
+                _, err = proc.communicate()
+                logs.append(f"== {os.path.basename(src)}\n{err}")
+                if proc.returncode != 0:
+                    raise KernelBuildError(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
+            tmp = os.path.join(tmpdir, "lib.so")
+            link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise KernelBuildError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            with open(so + ".log", "w") as f:  # -Xptxas -v: registers, smem, spills
+                f.write("\n".join(logs))
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+            shutil.rmtree(tmpdir, ignore_errors=True)
         _build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     _declare(lib)

@@ -107,8 +107,8 @@ def test_backward_raises():
         out.sum().backward()
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(dropout_rate=0.1, deterministic=False),
+@pytest.mark.parametrize("kwargs", [  # the dropout mode is ported: test_torch_dropout_optim.py
+    dict(attn_gate=torch.zeros(2, 4, 16)),
     dict(attn_bias=torch.zeros(16, 16)),
     dict(attn_bias=torch.zeros(16, 16), attn_gate=torch.zeros(2, 4, 16)),
 ])

@@ -49,7 +49,8 @@ def test_kw_bn_dynamic_eval_matches():
     want, _ = jkw_bn.kw_bn_dynamic(
         jnp.asarray(x), {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
         {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}, training=False)
-    got = kw_bn.kw_bn_dynamic(*(torch.from_numpy(a) for a in (x, scale, bias, mean, var)))
+    got, stats = kw_bn.kw_bn_dynamic(*(torch.from_numpy(a) for a in (x, scale, bias, mean, var)))
+    assert stats is None  # eval: the running statistics stay
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
