@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py                  # every phase (needs one H100)
     python3 chip_smoke.py --phase kernels  # build + kernel-vs-plain checks only
-    python3 chip_smoke.py --phase profile  # device time by kernel: 3 serving
-                                           # cells and 1 training cell
+    python3 chip_smoke.py --phase profile  # device time by kernel: serving
+                                           # cells and 3 training cells
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
      speechclip_plus_tpu_torch/csrc and report the build time;
   2. every kernel against its plain PyTorch twin on the card, at the main
      paths' shapes, in bf16 and fp32 (TF32 off), with the stated tolerances
-     and median times over 20 runs (CUDA events): K1 (serving shapes, the
-     ViT at B=128 and 256, and with dropout at the training shapes), K2
-     (p=0.1 and p=0, and against finite differences in fp32 at T=321), K3
-     (N=600 and the training N=9600), K3b; K2 and K3b repeat bit for bit;
-     the dropout mask's keep rate;
+     and median times over 20 runs (CUDA events), beside the one library call
+     (or the labelled composite of library calls) that computes the same
+     function and beside its bound, the least time the card could take: K1
+     (serving shapes, the ViT at B=128 and 256, with dropout at the training
+     shapes, and with the per-head bias alone and gated, p=0 and 0.1, at the
+     WavLM shape), K2 (p=0.1 and p=0, and against finite differences in fp32
+     at T=321), K3 (N=600 and the training N=9600), K3b, K4 (out and lse at
+     B=8 T=1499 and B=128 T=320), K5 (p=0 and 0.1, and against K1's
+     context-only mode with one seed: the same mask), K6 (B=128 x 102400);
+     K1, K2, K3b, K4, K5 and K6 repeat bit for bit; the dropout mask's keep
+     rate;
   3. build hybrid+ base (config/speechclip_plus/base/hybrid_plus.yaml, bf16,
      seeded random weights) on cuda:0;
   4. image index from 1000 seeded random 224x224 images in batches of 256;
@@ -23,18 +29,31 @@ Phases, each fatal on failure:
      SpeechRetriever (parallel and cascaded), search_stream and
      SpeechCLIP.encode_speech, with launch-counter checks;
   6. training: hybrid+ base bf16, B=128 crops of 102400 samples (bench.py's
-     batch), 3 warm-up and 10 timed steps with cached image features, then
+     batch), 3 warm-up and 5 timed steps with cached image features, then
      with live images; finite loss and gradients, every trainable tensor
      moved, every frozen one bit-identical, keyword-BN statistics moved,
      launch counts equal to the plan;
   7. slice parity: the fp32 model on the card (kernels) against the same
      weights on the CPU (plain twins): serving features and retrieval, and
-     one training step (B=2, dropout off): loss, gradients, parameters.
+     one training step (B=2, dropout off): loss, gradients, parameters;
+  A. hybrid+ with the WavLM-Base+ tower (hybrid_plus_wavlm.yaml; K1 in its
+     gate mode in every tower layer): serving at B = 1, 8, 64 for both
+     feature sources, the training phase with cached image features, and the
+     card-vs-CPU parity of serving and of one training step;
+  B. hybrid+ base with `audio_encoder.fused_attention: true` and
+     `fused_attention_block: false` (K5 in every tower layer): the training
+     phase with cached image features and serving at B = 8;
+  C. the HuBERT-base tower with `use_flash_attention` (K4 in every layer) on
+     B=8 x 480000 samples (30 s), against the same tower through K1 (fp32:
+     1e-4 abs; bf16: 5e-2 of the RMS), with both routes' times;
+  D. `ops.conv_frontend.conv0` (K6; no model calls it) on the WavLM tower's
+     layer-0 weights at B=128 x 102400, against the tower's own convolution.
 
-Prints a JSON line of kernel results (launch counts of phases 5 and 6; not
-printed by --phase kernels, which drives no path) before the last line,
-and as the last line {"ok": true, "device": {...}}. Exits non-zero, printing
-no result, when there is no CUDA device or any phase fails.
+Prints a JSON line of kernel results (the launch counts of the paths, each
+counted from 0; not printed by --phase kernels, which drives no path) before
+the last line, and as the last line {"ok": true, "device": {...}}. Exits
+non-zero, printing no result, when there is no CUDA device or any phase
+fails.
 """
 from __future__ import annotations
 
@@ -49,8 +68,13 @@ import time
 import numpy as np
 
 CONFIG = "config/speechclip_plus/base/hybrid_plus.yaml"
+WAVLM_CONFIG = "config/speechclip_plus/base/hybrid_plus_wavlm.yaml"
 RATE = 16000
-REPS = 10  # timed requests per serving cell
+REPS = 5  # timed requests per serving cell
+
+# published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -86,19 +110,88 @@ def median_ms(torch, fn, runs=20, warmup=3):
 
 
 TRAIN_BATCH, TRAIN_WAV = 128, 102400  # bench.py's training shapes
-WARMUP_STEPS, TIMED_STEPS = 3, 10
+WARMUP_STEPS, TIMED_STEPS = 3, 5
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops, moved_bytes, dtype):
+    """The least time the card could take: the larger of the operations over
+    the peak rate of their type and the bytes (each input read once, each
+    output written once) over the memory rate."""
+    ops_ms = flops / PEAK_FLOPS[str(dtype)[6:]] * 1e3
+    bytes_ms = moved_bytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def block_flops(b, t, d, heads, fuse_out):
+    """qkv projection + the two attention products [+ out projection]."""
+    return 2 * b * t * d * 3 * d + 4 * b * t * t * d + (2 * b * t * d * d if fuse_out else 0)
+
+
+def timing_text(r):
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    return (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+
+
+KERNEL_COUNTERS = {  # kernel name -> (module under speechclip_plus_tpu_torch, counter)
+    "fused_attention_block": ("nn.fused_attention_block", "LAUNCHES"),
+    "fused_attention_block_bwd": ("nn.fused_attention_block_vjp", "LAUNCHES"),
+    "fused_cosine_vq": ("ops.fused_keyword", "LAUNCHES"),
+    "fused_cosine_vq_bwd": ("ops.fused_keyword", "BWD_LAUNCHES"),
+    "flash_attention": ("nn.flash", "LAUNCHES"),
+    "fused_attention_dropout": ("nn.fused_attention", "LAUNCHES"),
+    "conv0": ("ops.conv_frontend", "LAUNCHES"),
+}
+
+
+def _counter(name):
+    import importlib
+    module, attr = KERNEL_COUNTERS[name]
+    return importlib.import_module("speechclip_plus_tpu_torch." + module), attr
+
+
+def reset_counts():
+    """Every wrapper's launch count to 0: a path is counted from here."""
+    for name in KERNEL_COUNTERS:
+        setattr(*_counter(name), 0)
+
+
+def read_counts(torch, label, expect):
+    """The launch counts since `reset_counts`, which must equal the plan
+    (`expect`; kernels it does not name must not have run)."""
+    torch.cuda.synchronize()
+    counts = {name: getattr(*_counter(name)) for name in KERNEL_COUNTERS}
+    expect = {name: expect.get(name, 0) for name in KERNEL_COUNTERS}
+    short = lambda d: {k: v for k, v in d.items() if v}
+    print(f"[launches] {label}: {short(counts)} (expected {short(expect)})")
+    require(counts == expect, f"launch counters do not match the plan of {label}")
+    return counts
 
 # ------------------------------------------------------------- phase 2 ----
 
-def library_block(torch, x, w_in, b_in, w_out, b_out, bias, heads, fuse_out):
-    """The block in bf16 arithmetic through cuBLAS and SDPA, timed beside the
-    kernel for scale (the plain twin computes in fp32, like the kernel)."""
+def library_block(torch, x, w_in, b_in, w_out, b_out, bias, heads, fuse_out, p=0.0,
+                  ab=None, gate=None):
+    """The block as a composite of library calls (cuBLAS + SDPA) in x's dtype,
+    timed beside the kernel (the plain twin computes in fp32, like the
+    kernel). A per-head bias, gated or not, becomes SDPA's (B, H, T, T) mask;
+    dropout is SDPA's own (another mask than the kernel's)."""
     F = torch.nn.functional
     b, t, d = x.shape
     q, k, v = (a.reshape(b, t, heads, -1).transpose(1, 2)
                for a in F.linear(x, w_in, b_in).split(d, dim=-1))
-    mask = None if bias is None else bias[:, None, None, :].to(x.dtype)
-    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask).transpose(1, 2).reshape(b, t, d)
+    mask = None if bias is None else bias[:, None, None, :]
+    if ab is not None:
+        full = ab[None] if gate is None else gate[..., None] * ab[None]
+        mask = full if mask is None else mask + full
+    if mask is not None:
+        mask = mask.to(x.dtype)
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p)
+    ctx = ctx.transpose(1, 2).reshape(b, t, d)
     return F.linear(ctx, w_out, b_out) if fuse_out else ctx
 
 
@@ -124,30 +217,18 @@ def check_attention(torch, fab, name, b, t, d, heads, fuse_out, padded, dtype, g
     want = fab.plain_fused_attention_block(*f32, heads, fuse_out)
     twin_err = (got - plain().float()).abs().max().item()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
     require(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
-    if dtype == torch.float32:
-        tol, ok = "abs <= 1e-4", err <= 1e-4
-    else:
-        # a correctly rounded bf16 result is already up to half an ulp of its
-        # largest values away, which exceeds 2e-2 * RMS when max/RMS > ~5; the
-        # tolerance applies to the error beyond that rounding
-        _, exp = torch.frexp(want)
-        half_ulp = torch.ldexp(torch.ones_like(want), exp - 9)
-        rms = want.pow(2).mean().sqrt().item()
-        excess = ((got - want).abs() - half_ulp).clamp_min(0).max().item()
-        tol = (f"abs/rms(plain) = {err / rms:.3e}; beyond half a bf16 ulp "
-               f"{excess / rms:.3e} <= 2e-2; vs the bf16 twin {twin_err:.3e}")
-        ok = excess / rms <= 2e-2
-    ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
-    lib = ""
-    if dtype == torch.bfloat16:  # for scale only: bf16 arithmetic, library kernels
-        lib_ms = median_ms(torch, lambda: library_block(torch, *args, heads, fuse_out))
-        lib = f", bf16 cuBLAS+SDPA {lib_ms:.4f} ms"
-    print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}) "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}")
+    err, ok, tol = compare(torch, got, want, dtype, fp32_abs=1e-4)
+    if dtype == torch.bfloat16:
+        tol += f"; vs the bf16 twin {twin_err:.3e}"
+    moved = nbytes(x, w_in, b_in, bias, got.to(dtype)) + (nbytes(w_out, b_out) if fuse_out else 0)
+    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           **bound(block_flops(b, t, d, heads, fuse_out), moved, dtype),
+           "library_ms": median_ms(torch, lambda: library_block(torch, *args, heads, fuse_out)),
+           "library": "composite: cuBLAS linear + SDPA [+ cuBLAS linear]"}
+    print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}) {timing_text(row)}")
     require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return row
 
 
 def check_vq(torch, fk, vocab, n, dtype, gen):
@@ -174,31 +255,37 @@ def check_vq(torch, fk, vocab, n, dtype, gen):
     psum_err = (p1 - p0).abs().max().item()
     require(torch.allclose(e1, e0, rtol=1e-3, atol=0), f"K3 {dtype}: ent off (rtol 1e-3)")
     require(torch.allclose(p1, p0, rtol=1e-3, atol=0), f"K3 {dtype}: psum off (rtol 1e-3)")
-    ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+    # one N x D x V product; no single library call computes targets, entropy
+    # and column sums without the (N, V) tensor
+    row = {"max_abs_err": max(ent_err, psum_err), "max_abs_err_of": "ent, psum",
+           "ent_max_abs_err": ent_err, "psum_max_abs_err": psum_err,
+           "target_mismatches_decided": mismatches, "decided_rows": int(decided.sum()),
+           "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           **bound(2 * n * d * v, nbytes(x, en, mask, k1, e1, p1), dtype), "library_ms": None}
     print(f"[kernel] K3 cosine_vq N={n} D={d} V={v} {str(dtype)[6:]}: targets equal on "
           f"{int(decided.sum())}/{n} decided rows, ent max_abs_err={ent_err:.3e}, "
-          f"psum max_abs_err={psum_err:.3e} (rtol 1e-3) kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max(ent_err, psum_err), "max_abs_err_of": "ent, psum",
-            "ent_max_abs_err": ent_err, "psum_max_abs_err": psum_err,
-            "target_mismatches_decided": mismatches, "decided_rows": int(decided.sum()),
-            "ms": ms, "plain_ms": plain_ms}
+          f"psum max_abs_err={psum_err:.3e} (rtol 1e-3) {timing_text(row)}")
+    return row
 
 
-def compare(torch, got, want, dtype):
-    """(max abs error, ok, tolerance text). fp32: abs <= 1e-4 x max(1, RMS);
-    bf16: the error beyond half a bf16 ulp of the plain value <= 2e-2 x RMS
-    (K1's tolerances)."""
+def compare(torch, got, want, dtype, fp32_abs=None):
+    """(max abs error, ok, tolerance text). fp32: abs <= 1e-4 x max(1, RMS), or
+    <= `fp32_abs`; bf16: the error beyond half a bf16 ulp of the plain value
+    <= 2e-2 x RMS (K1's tolerances). A correctly rounded bf16 result is
+    already up to half an ulp of its largest values away, which exceeds
+    2e-2 x RMS when max/RMS > ~5, so the tolerance applies to the error beyond
+    that rounding."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     rms = want.pow(2).mean().sqrt().item()
     if dtype == torch.float32:
-        bound = 1e-4 * max(1.0, rms)
-        return err, err <= bound, f"abs <= {bound:.2e}"
+        limit = fp32_abs if fp32_abs is not None else 1e-4 * max(1.0, rms)
+        return err, err <= limit, f"abs <= {limit:.2e}"
     _, exp = torch.frexp(want)
     half_ulp = torch.ldexp(torch.ones_like(want), exp - 9)
     excess = ((got - want).abs() - half_ulp).clamp_min(0).max().item()
-    return err, excess <= 2e-2 * rms, f"beyond half a bf16 ulp {excess / rms:.3e} x RMS <= 2e-2"
+    return (err, excess <= 2e-2 * rms,
+            f"abs/rms(plain) = {err / rms:.3e}; beyond half a bf16 ulp {excess / rms:.3e} <= 2e-2")
 
 
 def block_inputs(torch, b, t, d, dtype, gen, padded=True):
@@ -245,11 +332,17 @@ def check_attention_dropout(torch, fab, name, b, t, d, heads, fuse_out, dtype, g
     torch.cuda.synchronize()
     require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite kernel output")
     err, ok, tol = compare(torch, got, want, dtype)
-    ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+    moved = nbytes(*args[:3], args[5], got)
+    moved += nbytes(*args[3:5]) if fuse_out else b * t * 3 * d * 4 + b * heads * t * 4
+    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           **bound(block_flops(b, t, d, heads, fuse_out), moved, dtype),
+           "library_ms": median_ms(torch, lambda: library_block(torch, *args, heads, fuse_out,
+                                                                p=0.1)),
+           "library": "composite: cuBLAS linear + SDPA with dropout_p [+ cuBLAS linear]"}
     print(f"[kernel] {name} p=0.1 {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), lse "
-          f"max_abs_err={lse_err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"max_abs_err={lse_err:.3e} {timing_text(row)}")
     require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return row
 
 
 def check_keep_rate(torch):
@@ -293,12 +386,16 @@ def check_attention_bwd(torch, fab, vjp, dtype, p, gen):
     require(bool(torch.isfinite(got.float()).all()), "K2: non-finite dqkv")
     require(torch.equal(got, again), f"K2 {dtype} p={p}: two runs differ")
     err, ok, tol = compare(torch, got, want, dtype)
-    ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+    # five T x T x dh products per head (s, dp, dv, dq, dk); no single library
+    # call takes the saved qkv, lse and the counter mask
+    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           **bound(10 * b * t * t * d, nbytes(qkv, bias, dctx, ctx, lse, got), dtype),
+           "library_ms": None}
     print(f"[kernel] K2 attention backward B={b} T={t} D={d} H={heads} p={p} "
           f"{str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), bit-identical rerun; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{timing_text(row)}")
     require(ok, f"K2 {dtype} p={p}: error {err} over tolerance ({tol})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return row
 
 
 def check_attention_fd(torch, vjp, gen):
@@ -358,15 +455,197 @@ def check_vq_bwd(torch, fk, vocab, dtype, gen):
     del s, p, u
     dt_err = abs(dt.item() - dt0.item())
     tol = 1e-4 if dtype == torch.float32 else 1e-2
-    ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+    # three N x D x V products (s, u, dx); no single library call
+    row = {"max_abs_err": err, "max_abs_err_of": "dx", "dt_abs_err": dt_err,
+           "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           **bound(6 * n * d * v, nbytes(x, g, en, norms, mask, dx, dt), dtype),
+           "library_ms": None}
     print(f"[kernel] K3b ST backward N={n} D={d} V={v} {str(dtype)[6:]}: dx max_abs_err="
           f"{err:.3e} (<= {tol:g} x RMS {rms:.3e}), dt {dt.item():.6e} vs {dt0.item():.6e} "
           f"(err {dt_err:.3e} <= 1e-4 x sum|terms| {dt_scale:.3e}), bit-identical rerun; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{timing_text(row)}")
     require(err <= tol * rms, f"K3b {dtype}: dx error {err} > {tol} x RMS {rms}")
     require(dt_err <= 1e-4 * dt_scale, f"K3b {dtype}: dt error {dt_err}")
-    return {"max_abs_err": err, "max_abs_err_of": "dx", "dt_abs_err": dt_err,
-            "ms": ms, "plain_ms": plain_ms}
+    return row
+
+
+def check_attention_bias(torch, fab, gated, p, dtype, gen):
+    """K1 at the WavLM shape (B=128, T=320, D=768, H=12, fused-out) with the
+    per-head bias alone or gated, with or without dropout, against its twin
+    on the same (seed, offset); the context-only mode's lse with the bias."""
+    from speechclip_plus_tpu_torch.ops.random import draw_seed
+
+    b, t, d, heads = 128, 320, 768, 12
+    name = f"K1 fused-out WavLM B={b} T={t} D={d} H={heads} {'gate' if gated else 'bias'} p={p}"
+    args = block_inputs(torch, b, t, d, dtype, gen)
+    ab = torch.randn(heads, t, t, generator=gen, device="cuda")
+    gate = 1.0 + torch.rand(b, heads, t, generator=gen, device="cuda") if gated else None
+    kw = dict(attn_bias=ab, attn_gate=gate)
+    if p:
+        kw.update(seeds=draw_seed(torch.Generator(device="cuda").manual_seed(13)),
+                  keep_prob=1.0 - p)
+    f32 = [a.float() for a in args[:5]] + [args[5]]
+    kern = lambda: fab._run(*args, heads, True, **kw)
+    plain = lambda: fab.plain_fused_attention_block(*args, heads, True, **kw)
+    got, again = kern(), kern()
+    want = fab.plain_fused_attention_block(*f32, heads, True, **kw)
+    _, _, lse = fab._run(*args[:3], None, None, args[5], heads, False, return_aux=True, **kw)
+    _, _, lse0 = fab.plain_fused_attention_block(*f32[:3], None, None, args[5], heads, False,
+                                                 return_aux=True, **kw)
+    torch.cuda.synchronize()
+    lse_err = (lse - lse0).abs().max().item()
+    del lse, lse0
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite kernel output")
+    require(torch.equal(got, again), f"{name} {dtype}: two runs differ")
+    require(lse_err <= 1e-4, f"{name}: lse error {lse_err} > 1e-4")
+    err, ok, tol = compare(torch, got, want, dtype)
+    del want
+    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           **bound(block_flops(b, t, d, heads, True), nbytes(*args, ab, gate, got), dtype),
+           "library_ms": median_ms(torch, lambda: library_block(
+               torch, *args, heads, True, p=p, ab=ab, gate=gate)),
+           "library": "composite: cuBLAS linear + (B, H, T, T) mask + SDPA + cuBLAS linear"}
+    print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), lse max_abs_err="
+          f"{lse_err:.3e}, bit-identical rerun; {timing_text(row)}")
+    require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
+    return row
+
+
+def packed_qkv(torch, b, h, t, dh, dtype, gen):
+    """q, k, v (B, H, T, dh) as the tower gives them: strided views of one
+    packed (B, T, 3D) projection; and a ragged key bias."""
+    qkv = torch.randn(b, t, 3, h, dh, generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device="cuda")
+    lens[0] = t
+    kb = torch.where(torch.arange(t, device="cuda")[None] >= lens[:, None], -1e30, 0.0)
+    return q, k, v, kb
+
+
+def check_fused_attention(torch, b, t, p, dtype, gen):
+    """K5 at the tower's shape against its twin on the same (seed, offset);
+    library: SDPA with the key mask (and its own dropout for p > 0)."""
+    from speechclip_plus_tpu_torch.nn import fused_attention as fa
+    from speechclip_plus_tpu_torch.ops.random import draw_seed
+
+    h, dh = 12, 64
+    name = f"K5 fused_attention_dropout B={b} H={h} T={t} dh={dh} p={p}"
+    q, k, v, kb = packed_qkv(torch, b, h, t, dh, dtype, gen)
+    seeds = draw_seed(torch.Generator(device="cuda").manual_seed(17)) if p else None
+    kern = lambda: fa._run(q, k, v, kb, seeds, 1.0 - p)
+    plain = lambda: fa.plain_fused_attention_dropout(q, k, v, kb, seeds, 1.0 - p)
+    got, again = kern(), kern()
+    want = fa.plain_fused_attention_dropout(q.float(), k.float(), v.float(), kb, seeds, 1.0 - p)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite kernel output")
+    require(torch.equal(got, again), f"{name} {dtype}: two runs differ")
+    err, ok, tol = compare(torch, got, want, dtype)
+    del want
+    mask = kb[:, None, None, :].to(dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           **bound(4 * b * h * t * t * dh, nbytes(q, k, v, kb, got), dtype),
+           "library_ms": median_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=p)),
+           "library": "scaled_dot_product_attention with a key mask"
+                      + (" and dropout_p" if p else "")}
+    print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), bit-identical "
+          f"rerun; {timing_text(row)}")
+    require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
+    return row
+
+
+def check_flash(torch, b, t, dtype, gen):
+    """K4 (out and lse) against its twin; library: SDPA with the key mask."""
+    from speechclip_plus_tpu_torch.nn import flash
+
+    h, dh = 12, 64
+    name = f"K4 flash_attention B={b} H={h} T={t} dh={dh}"
+    q, k, v, kb = packed_qkv(torch, b, h, t, dh, dtype, gen)
+    kern = lambda: flash.flash_forward(q, k, v, kb)
+    plain = lambda: flash.plain_flash_attention(q, k, v, kb)
+    (got, lse), (again, lse2) = kern(), kern()
+    want, lse0 = flash.plain_flash_attention(q.float(), k.float(), v.float(), kb)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got.float()).all() and torch.isfinite(lse).all()),
+            f"{name}: non-finite kernel output")
+    require(torch.equal(got, again) and torch.equal(lse, lse2), f"{name} {dtype}: two runs differ")
+    lse_err = (lse - lse0).abs().max().item()
+    require(lse_err <= 1e-4, f"{name}: lse error {lse_err} > 1e-4")
+    err, ok, tol = compare(torch, got, want, dtype)
+    del want, lse0
+    mask = kb[:, None, None, :].to(dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {"max_abs_err": err, "lse_max_abs_err": lse_err, "ms": median_ms(torch, kern),
+           "plain_ms": median_ms(torch, plain),
+           **bound(4 * b * h * t * t * dh, nbytes(q, k, v, kb, got, lse), dtype),
+           "library_ms": median_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask)),
+           "library": "scaled_dot_product_attention with a key mask (no lse output)"}
+    print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), lse max_abs_err="
+          f"{lse_err:.3e} (<= 1e-4), bit-identical rerun; {timing_text(row)}")
+    require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
+    return row
+
+
+def check_same_mask(torch, fab, dtype, gen):
+    """K5 on the q, k, v that K1's context-only mode projects, with one
+    (seed, offset): the same mask, so the same context (K1's tolerances; K1
+    rounds its context to x's dtype)."""
+    from speechclip_plus_tpu_torch.nn import fused_attention as fa
+    from speechclip_plus_tpu_torch.ops.random import draw_seed
+
+    b, t, d, heads = 16, 320, 768, 12
+    x, w_in, b_in, _, _, kb = block_inputs(torch, b, t, d, dtype, gen)
+    seeds = draw_seed(torch.Generator(device="cuda").manual_seed(19))
+    ctx, qkv, _ = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads, seeds=seeds,
+                                        keep_prob=0.9)
+    q, k, v = qkv.view(b, t, 3, heads, d // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    q = q * (d // heads) ** 0.5  # K1's buffer holds q scaled; K5 scales q itself
+    merge = lambda o: o.transpose(1, 2).reshape(b, t, d)
+    same = merge(fa._run(q, k, v, kb, seeds, 0.9))
+    other = merge(fa._run(q, k, v, kb, seeds + 1, 0.9))
+    torch.cuda.synchronize()
+    err, ok, tol = compare(torch, ctx, same, dtype)
+    differ = (other - same).abs().max().item()
+    print(f"[kernel] K5 vs K1 context-only, one (seed, offset), B={b} T={t} p=0.1 "
+          f"{str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}); another seed differs by {differ:.3e}")
+    require(ok, f"K5 and K1 draw different masks from one seed ({dtype}): {err}")
+    require(differ > 1e-2, "K5: another seed gave the same context")
+
+
+def check_conv0(torch, dtype, gen):
+    """K6 at B=128 x 102400 samples, C=512, k=10, s=5 against its twin;
+    library: F.conv1d (whose output is channel-first, (B, C, T0))."""
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    b, t, c, k, s = TRAIN_BATCH, TRAIN_WAV, 512, 10, 5
+    name = f"K6 conv0 B={b} T={t} C={c} k={k} s={s}"
+    wav = torch.randn(b, t, generator=gen, device="cuda").to(dtype)
+    kernel = (torch.randn(k, 1, c, generator=gen, device="cuda") * k ** -0.5).to(dtype)
+    kern = lambda: cf.conv0(wav, kernel, stride=s, out_dtype=dtype)
+    plain = lambda: cf.plain_conv0(wav, kernel, s, dtype)
+    got = kern()
+    require(torch.equal(got, kern()), f"{name} {dtype}: two runs differ")
+    want = cf.plain_conv0(wav, kernel, s, torch.float32)
+    torch.cuda.synchronize()
+    t0 = (t - k) // s + 1
+    require(tuple(got.shape) == (b, t0, c) and got.dtype == dtype, f"{name}: {tuple(got.shape)}")
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite kernel output")
+    err, ok, tol = compare(torch, got, want, dtype)
+    del want
+    weight = kernel.permute(2, 1, 0).contiguous()
+    conv1d = torch.nn.functional.conv1d
+    lib = conv1d(wav[:, None], weight, stride=s).transpose(1, 2)
+    lib_err = (lib.float() - got.float()).abs().max().item()
+    del lib
+    row = {"max_abs_err": err, "ms": median_ms(torch, kern),
+           "plain_ms": median_ms(torch, plain, runs=5, warmup=1),
+           **bound(2 * b * t0 * c * k, nbytes(wav, kernel, got), dtype),
+           "library_ms": median_ms(torch, lambda: conv1d(wav[:, None], weight, stride=s)),
+           "library": "F.conv1d (channel-first output)"}
+    print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), vs F.conv1d "
+          f"{lib_err:.3e}, bit-identical rerun; {timing_text(row)}")
+    require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
+    return row
 
 
 def phase_kernels(torch):
@@ -396,9 +675,19 @@ def phase_kernels(torch):
         # K3 at a serving batch (B=8) and at the training batch (B=128)
         for b in (8, 128):
             rows[("vq", b, dtype)] = check_vq(torch, fk, vocab, b * 75, dtype, gen)
+        # the tower's block at the training batch: no dropout and no bias, with
+        # dropout, and the WavLM modes beside them at the same shape
+        rows[("hubert_128", dtype)] = check_attention(
+            torch, fab, "K1 fused-out HuBERT B=128 T=320 D=768 H=12", 128, 320, 768, 12,
+            True, True, dtype, gen)
         rows[("hubert_drop", dtype)] = check_attention_dropout(
             torch, fab, "K1 fused-out HuBERT B=128 T=320 D=768 H=12", 128, 320, 768, 12,
             True, dtype, gen)
+        for gated in (False, True):
+            for p in (0.0, 0.1):
+                rows[("gate" if gated else "bias", p, dtype)] = check_attention_bias(
+                    torch, fab, gated, p, dtype, gen)
+                torch.cuda.empty_cache()
         rows[("branch_drop", dtype)] = check_attention_dropout(
             torch, fab, "K1 context-only branch B=128 T=321 D=768 H=8", 128, 321, 768, 8,
             False, dtype, gen)
@@ -406,28 +695,68 @@ def phase_kernels(torch):
             rows[("k2", dtype, p)] = check_attention_bwd(torch, fab, vjp, dtype, p, gen)
         rows[("k3b", dtype)] = check_vq_bwd(torch, fk, vocab, dtype, gen)
         torch.cuda.empty_cache()
+        for p in (0.0, 0.1):
+            rows[("k5", 128, p, dtype)] = check_fused_attention(torch, 128, 320, p, dtype, gen)
+        rows[("k5", 8, 0.0, dtype)] = check_fused_attention(torch, 8, 320, 0.0, dtype, gen)
+        check_same_mask(torch, fab, dtype, gen)
+        for b, t in ((8, 1499), (128, 320)):
+            rows[("k4", b, dtype)] = check_flash(torch, b, t, dtype, gen)
+        torch.cuda.empty_cache()
+        rows[("k6", dtype)] = check_conv0(torch, dtype, gen)
+        torch.cuda.empty_cache()
     check_keep_rate(torch)
     check_attention_fd(torch, vjp, gen)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
+    csrc = "speechclip_plus_tpu_torch/csrc/"
+    jax_pkg = "speechclip_plus_tpu/"
+    wavlm = "WavLM B=128 T=320 D=768 H=12 fused-out, bf16, "
     return [
         {"name": "fused_attention_block", "route": "cuda",
-         "source": "speechclip_plus_tpu_torch/csrc/fused_attention_block.cu",
-         "replaces": "speechclip_plus_tpu/nn/fused_attention_block.py:118",
+         "source": csrc + "fused_attention_block.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block.py:118",
          "shape": "HuBERT B=128 T=320 D=768 H=12 fused-out, dropout 0.1, bf16",
-         **rows[("hubert_drop", bf)]},
+         **rows[("hubert_drop", bf)],
+         "modes": [
+             {"shape": "HuBERT B=128 T=320 D=768 H=12 fused-out, no dropout, bf16",
+              **rows[("hubert_128", bf)]},
+             {"shape": wavlm + "bias only, no dropout", **rows[("bias", 0.0, bf)]},
+             {"shape": wavlm + "bias only, dropout 0.1", **rows[("bias", 0.1, bf)]},
+             {"shape": wavlm + "gated bias, no dropout", **rows[("gate", 0.0, bf)]},
+             {"shape": wavlm + "gated bias, dropout 0.1", **rows[("gate", 0.1, bf)]},
+             {"shape": "WavLM B=128 T=320 fused-out, fp32, gated bias, dropout 0.1",
+              **rows[("gate", 0.1, f32)]},
+             {"shape": "branch B=128 T=321 D=768 H=8 context-only + lse, dropout 0.1, bf16",
+              **rows[("branch_drop", bf)]},
+             {"shape": "HuBERT B=8 T=319 fused-out, no dropout, bf16", **rows[("hubert", bf)]},
+             {"shape": "ViT B=128 T=50 fused-out, bf16", **rows[("vit", 128, bf)]},
+         ]},
         {"name": "fused_attention_block_bwd", "route": "cuda",
-         "source": "speechclip_plus_tpu_torch/csrc/fused_attention_block_bwd.cu",
-         "replaces": "speechclip_plus_tpu/nn/fused_attention_block_vjp.py:104",
-         "shape": "branch B=128 T=321 D=768 H=8, dropout 0.1, bf16", **rows[("k2", bf, 0.1)]},
-        {"name": "fused_cosine_vq", "route": "cuda",
-         "source": "speechclip_plus_tpu_torch/csrc/fused_keyword.cu",
-         "replaces": "speechclip_plus_tpu/ops/fused_keyword.py:92",
+         "source": csrc + "fused_attention_block_bwd.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block_vjp.py:104",
+         "shape": "branch B=128 T=321 D=768 H=8, dropout 0.1, bf16", **rows[("k2", bf, 0.1)],
+         "modes": [{"shape": "same, no dropout", **rows[("k2", bf, 0.0)]}]},
+        {"name": "fused_cosine_vq", "route": "cuda", "source": csrc + "fused_keyword.cu",
+         "replaces": jax_pkg + "ops/fused_keyword.py:92",
          "shape": "N=9600 D=512 V=8112 bf16", **rows[("vq", 128, bf)],
          "at_serving_shape": {"shape": "N=600 D=512 V=8112 bf16", **rows[("vq", 8, bf)]}},
-        {"name": "fused_cosine_vq_bwd", "route": "cuda",
-         "source": "speechclip_plus_tpu_torch/csrc/fused_keyword.cu",
-         "replaces": "speechclip_plus_tpu/ops/fused_keyword.py:123",
+        {"name": "fused_cosine_vq_bwd", "route": "cuda", "source": csrc + "fused_keyword.cu",
+         "replaces": jax_pkg + "ops/fused_keyword.py:123",
          "shape": "N=9600 D=512 V=8112 bf16", **rows[("k3b", bf)]},
+        {"name": "flash_attention", "route": "cuda", "source": csrc + "flash.cu",
+         "replaces": jax_pkg + "nn/flash.py:47",
+         "shape": "B=8 H=12 T=1499 dh=64 bf16, out + lse", **rows[("k4", 8, bf)],
+         "modes": [{"shape": "B=128 H=12 T=320 dh=64 bf16", **rows[("k4", 128, bf)]},
+                   {"shape": "B=8 H=12 T=1499 dh=64 fp32", **rows[("k4", 8, f32)]}]},
+        {"name": "fused_attention_dropout", "route": "cuda", "source": csrc + "fused_attention.cu",
+         "replaces": jax_pkg + "nn/fused_attention.py:67",
+         "shape": "B=128 H=12 T=320 dh=64 bf16, dropout 0.1", **rows[("k5", 128, 0.1, bf)],
+         "modes": [{"shape": "B=128, no dropout, bf16", **rows[("k5", 128, 0.0, bf)]},
+                   {"shape": "B=8, no dropout, bf16 (serving)", **rows[("k5", 8, 0.0, bf)]},
+                   {"shape": "B=128, dropout 0.1, fp32", **rows[("k5", 128, 0.1, f32)]}]},
+        {"name": "conv0", "route": "cuda", "source": csrc + "conv_frontend.cu",
+         "replaces": jax_pkg + "ops/conv_frontend.py:45",
+         "shape": "B=128 T=102400 C=512 k=10 s=5 bf16", **rows[("k6", bf)],
+         "modes": [{"shape": "same, fp32", **rows[("k6", f32)]}]},
     ]
 
 
@@ -448,41 +777,71 @@ def check_search(ids, scores, b, k, index_ids, what):
     require(np.isin(ids, index_ids).all(), f"{what}: ids outside the index")
 
 
-def phase_model(torch, counters):
-    from speechclip_plus_tpu_torch.api import SpeechCLIP
+def build(torch, config, device="cuda", precision=None, **audio_keys):
+    """(cfg, model, model_cfg) of hybrid+ from a YAML config with seeded random
+    weights; `audio_keys` are set under `audio_encoder` as a YAML would."""
     from speechclip_plus_tpu_torch.config import load_config
-    from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
     from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
 
-    fab, fk = counters
+    cfg = load_config(config)
+    for key, value in audio_keys.items():
+        setattr(cfg.audio_encoder, key, value)
+    if precision is not None:
+        cfg.trainer.precision = precision
+    model, model_cfg, _ = build_model_from_config(cfg, device=device, seed=0)
+    return cfg, model, model_cfg
+
+
+def add_counts(total, per_call, times=1):
+    for name, n in per_call.items():
+        total[name] = total.get(name, 0) + n * times
+
+
+def speech_query_plan(tower, cascaded):
+    """Kernel launches of one speech query: the tower's 12 layers (K1, or K5
+    around plain projections), the branch attention (K1) and, for the
+    cascaded feature, the fused cosine-VQ (K3)."""
+    plan = ({"fused_attention_block": 13} if tower == "k1"
+            else {"fused_attention_dropout": 12, "fused_attention_block": 1})
+    if cascaded:
+        plan["fused_cosine_vq"] = 1
+    return plan
+
+
+def phase_model(torch, label, config, *, tower="k1", batches=(1, 8, 64), wires=(False, True),
+                n_img=1000, stream=True, **audio_keys):
+    """Phases 3-5 for one configuration: build, image index, serving cells."""
+    from speechclip_plus_tpu_torch.api import SpeechCLIP
+    from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
+
     t0 = time.perf_counter()
-    model, model_cfg, vocab = build_model_from_config(load_config(CONFIG), device="cuda", seed=0)
+    _, model, _ = build(torch, config, **audio_keys)
     torch.cuda.synchronize()
-    print(f"[build] hybrid+ base bf16 on cuda:0 in {time.perf_counter() - t0:.1f} s "
+    print(f"[build] {label}: hybrid+ bf16 on cuda:0 in {time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
     sc = SpeechCLIP(model, "cuda")
 
-    n_img, batch = 1000, 256
+    batch = 256
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = torch.randn(n_img, 224, 224, 3, generator=gen, device="cuda")
     index_ids = np.arange(n_img) + 10000
 
-    # every launch the main path makes is counted from here on
-    fab.LAUNCHES = fk.LAUNCHES = 0
-    expect_k1 = expect_k3 = 0
+    # every launch the path makes is counted from here on
+    reset_counts()
+    expect = {}
     t0 = time.perf_counter()
     index = build_image_index(sc, images, index_ids, batch_size=batch)
     torch.cuda.synchronize()
-    expect_k1 += 12 * -(-n_img // batch)
+    add_counts(expect, {"fused_attention_block": 12}, -(-n_img // batch))
     require(len(index) == n_img and bool(torch.isfinite(index.feats).all()), "index")
-    print(f"[index] {n_img} images in {time.perf_counter() - t0:.2f} s")
+    print(f"[index] {label}: {n_img} images in {time.perf_counter() - t0:.2f} s")
 
     rng = np.random.RandomState(0)
     retrievers = {src: SpeechRetriever(sc, index, feat_src=src)
                   for src in ("parallel", "cascaded")}
     lat = {}
-    for b in (1, 8, 64):
-        for int16 in (False, True):
+    for b in batches:
+        for int16 in wires:
             wavs = ragged_wavs(rng, b, int16)
             for src, r in retrievers.items():
                 times = []
@@ -490,49 +849,41 @@ def phase_model(torch, counters):
                     t0 = time.perf_counter()
                     ids, scores = r.search(wavs, k=10)
                     times.append(time.perf_counter() - t0)
-                    expect_k1 += 13
-                    expect_k3 += src == "cascaded"
-                    check_search(ids, scores, b, 10, index_ids, f"{src} B={b}")
+                    add_counts(expect, speech_query_plan(tower, src == "cascaded"))
+                    check_search(ids, scores, b, 10, index_ids, f"{label} {src} B={b}")
                 lat[(src, b, int16)] = (times[1:], max(len(w) for w in wavs))
             out = sc.encode_speech(wavs)
-            expect_k1 += 13
-            expect_k3 += 1
+            add_counts(expect, speech_query_plan(tower, True))
             for key, width in (("parallel_audio_feat", 512), ("cascaded_audio_feat", 512)):
                 f = out[key]
                 require(tuple(f.shape) == (b, width) and bool(torch.isfinite(f.float()).all()),
-                        f"encode_speech {key} B={b}: {tuple(f.shape)}")
+                        f"{label} encode_speech {key} B={b}: {tuple(f.shape)}")
             klen = out["dsample_results"]["dsample_feats_length"]
             require(bool(((klen >= 1) & (klen <= 75)).all()), "keywords_len out of [1, 75]")
     for (src, b, int16), (times, longest) in sorted(lat.items()):
         med = float(np.median(times))
-        print(f"[serve] {src:9s} B={b:2d} {'int16' if int16 else 'fp32 '} (longest "
+        print(f"[serve] {label} {src:9s} B={b:2d} {'int16' if int16 else 'fp32 '} (longest "
               f"{longest} samples): median {med * 1e3:.2f} ms/request, max "
               f"{max(times) * 1e3:.2f} ms (n={len(times)}), {b / med:.1f} utterances/s")
 
-    batches = [ragged_wavs(rng, 8, False) for _ in range(6)]
-    t0 = time.perf_counter()
-    streamed = list(retrievers["cascaded"].search_stream(batches, k=10, depth=2))
-    sec = time.perf_counter() - t0
-    expect_k1 += 13 * len(batches)
-    expect_k3 += len(batches)
-    require(len(streamed) == len(batches), "search_stream lost a batch")
-    for (ids, scores), wavs in zip(streamed, batches):
-        check_search(ids, scores, len(wavs), 10, index_ids, "search_stream")
-    ids0, _ = retrievers["cascaded"].search(batches[-1], k=10)
-    expect_k1 += 13
-    expect_k3 += 1
-    require((ids0 == streamed[-1][0]).all(), "search_stream differs from search")
-    print(f"[serve] search_stream depth=2, 6 x B=8 cascaded: {48 / sec:.1f} utterances/s")
+    if stream:
+        batches_ = [ragged_wavs(rng, 8, False) for _ in range(6)]
+        t0 = time.perf_counter()
+        streamed = list(retrievers["cascaded"].search_stream(batches_, k=10, depth=2))
+        sec = time.perf_counter() - t0
+        require(len(streamed) == len(batches_), "search_stream lost a batch")
+        for (ids, scores), wavs in zip(streamed, batches_):
+            check_search(ids, scores, len(wavs), 10, index_ids, "search_stream")
+        ids0, _ = retrievers["cascaded"].search(batches_[-1], k=10)
+        add_counts(expect, speech_query_plan(tower, True), len(batches_) + 1)
+        require((ids0 == streamed[-1][0]).all(), "search_stream differs from search")
+        print(f"[serve] {label} search_stream depth=2, 6 x B=8 cascaded: "
+              f"{48 / sec:.1f} utterances/s")
 
-    torch.cuda.synchronize()
-    launches = {"fused_attention_block": fab.LAUNCHES, "fused_cosine_vq": fk.LAUNCHES}
-    print(f"[launches] K1 {fab.LAUNCHES} (expected {expect_k1}), "
-          f"K3 {fk.LAUNCHES} (expected {expect_k3})")
-    require(fab.LAUNCHES == expect_k1 and fk.LAUNCHES == expect_k3,
-            "launch counters do not match the serving path")
+    counts = read_counts(torch, f"{label} serving", expect)
     del model, sc, index, retrievers, images
     torch.cuda.empty_cache()
-    return launches
+    return counts
 
 
 # ------------------------------------------------------------ phase 6 ----
@@ -551,18 +902,15 @@ def train_batch(torch, b, t, image_size, seed):
             "id": torch.arange(b, device=dev)}
 
 
-def phase_train(torch, counters):
-    from speechclip_plus_tpu_torch.config import load_config
+def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"), **audio_keys):
+    """Phase 6 for one configuration: B=128 x 102400 training steps."""
     from speechclip_plus_tpu_torch.optim.optimizer import (
         build_optimizer_from_config, trainable_parameters)
     from speechclip_plus_tpu_torch.parallel.train_step import (
         create_train_state, make_train_step)
-    from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
 
-    fab, vjp, fk = counters
-    cfg = load_config(CONFIG)
     t0 = time.perf_counter()
-    model, model_cfg, _ = build_model_from_config(cfg, device="cuda", seed=0)
+    cfg, model, model_cfg = build(torch, config, **audio_keys)
     optimizer = build_optimizer_from_config(model, cfg)
     state = create_train_state(optimizer)
     step_fn = make_train_step(model, optimizer, int(cfg.trainer.accumulate_grad_batches or 1))
@@ -575,9 +923,9 @@ def phase_train(torch, counters):
     cached = {k: v for k, v in batch.items() if k != "image"}
     with torch.no_grad():  # the product default: frozen image features cached once
         cached["image_feat"] = model.encode_image_raw(batch["image"])
-    live = batch
+    batches = {"cached": cached, "live": batch}
     torch.cuda.synchronize()
-    print(f"[train] hybrid+ base bf16 on cuda:0 built in {time.perf_counter() - t0:.1f} s: "
+    print(f"[train] {label}: hybrid+ bf16 on cuda:0 built in {time.perf_counter() - t0:.1f} s: "
           f"{sum(p.numel() for _, p in trainable) / 1e6:.2f} M trainable (fp32: "
           f"{all(p.dtype == torch.float32 for _, p in trainable)}), "
           f"{sum(p.numel() for p in frozen.values()) / 1e6:.1f} M frozen; "
@@ -588,11 +936,16 @@ def phase_train(torch, counters):
     finite = []
     hooks = [p.register_hook(lambda g: finite.append(torch.isfinite(g).all()))
              for _, p in trainable]
-    expect = {"fused_attention_block": 0, "fused_attention_block_bwd": 0,
-              "fused_cosine_vq": 0, "fused_cosine_vq_bwd": 0}
+    # one step: the tower's 12 layers (K1, or K5), the branch attention forward
+    # (K1) and backward (K2), the cosine-VQ forward (K3) and backward (K3b);
+    # with live images the ViT's 12 layers (K1) as well
+    step_plan = {**speech_query_plan(tower, True), "fused_attention_block_bwd": 1,
+                 "fused_cosine_vq_bwd": 1}
+    expect, result = {}, {}
     # every launch the training path makes is counted from here on
-    fab.LAUNCHES = vjp.LAUNCHES = fk.LAUNCHES = fk.BWD_LAUNCHES = 0
-    for cell, b in (("cached", cached), ("live", live)):
+    reset_counts()
+    for cell in cells:
+        b = batches[cell]
         for i in range(WARMUP_STEPS):
             metrics = step_fn(state, b, gen)
             if i == 0:
@@ -610,24 +963,21 @@ def phase_train(torch, counters):
         sec = (time.perf_counter() - t0) / TIMED_STEPS
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n = WARMUP_STEPS + TIMED_STEPS
-        expect["fused_attention_block"] += n * (13 + (12 if cell == "live" else 0))
-        for k in ("fused_attention_block_bwd", "fused_cosine_vq", "fused_cosine_vq_bwd"):
-            expect[k] += n
+        add_counts(expect, step_plan, n)
+        if cell == "live":
+            add_counts(expect, {"fused_attention_block": 12}, n)
         loss = torch.stack(losses).float().cpu()
         gn = float(metrics["grad_norm"])
-        print(f"[train] {cell:6s} images: {sec * 1e3:.2f} ms/step, "
+        result[cell] = sec * 1e3
+        print(f"[train] {label} {cell:6s} images: {sec * 1e3:.2f} ms/step, "
               f"{TRAIN_BATCH / sec:.1f} pairs/s, peak {peak:.2f} GiB allocated "
               f"(n={TIMED_STEPS} after {WARMUP_STEPS} warm-up); loss {loss[0]:.4f} -> "
               f"{loss[-1]:.4f}, grad_norm {gn:.4f}, c_cl {float(metrics['train_c_cl_loss']):.4f}, "
               f"p_cl {float(metrics['train_p_cl_loss']):.4f}, quantity "
               f"{float(metrics['train_quantity_loss']):.4f}")
-        require(bool(torch.isfinite(loss).all()), f"train {cell}: non-finite loss")
-        require(gn > 0 and np.isfinite(gn), f"train {cell}: grad_norm {gn}")
-    torch.cuda.synchronize()
-    counts = {"fused_attention_block": fab.LAUNCHES, "fused_attention_block_bwd": vjp.LAUNCHES,
-              "fused_cosine_vq": fk.LAUNCHES, "fused_cosine_vq_bwd": fk.BWD_LAUNCHES}
-    print(f"[launches] training: {counts} (expected {expect})")
-    require(counts == expect, "launch counters do not match the training plan")
+        require(bool(torch.isfinite(loss).all()), f"train {label} {cell}: non-finite loss")
+        require(gn > 0 and np.isfinite(gn), f"train {label} {cell}: grad_norm {gn}")
+    counts = read_counts(torch, f"{label} training", expect)
     require(len(finite) == len(trainable) and bool(torch.stack(finite).all()),
             "a gradient is not finite")
     unchanged = [n for n, p in trainable if torch.equal(p, before[n])]
@@ -637,30 +987,116 @@ def phase_train(torch, counters):
     require(not moved, f"frozen tensors changed: {moved[:5]}")
     require(not torch.equal(bn.running_mean, bn_before[0])
             and not torch.equal(bn.running_var, bn_before[1]), "keyword-BN statistics did not move")
-    print(f"[train] checks: {len(trainable)} trainable tensors all changed and all finite "
-          f"gradients; {len(frozen)} frozen tensors bit-identical; keyword-BN running "
+    print(f"[train] {label} checks: {len(trainable)} trainable tensors all changed and all "
+          f"finite gradients; {len(frozen)} frozen tensors bit-identical; keyword-BN running "
           f"statistics moved; state.step {state.step}")
-    del model, optimizer, state, step_fn, frozen, before, cached, live, batch
+    del model, optimizer, state, step_fn, frozen, before, cached, batches, batch
     torch.cuda.empty_cache()
+    return counts, result
+
+
+def phase_tower_flash(torch):
+    """Path C: the HuBERT-base tower with `use_flash_attention` (K4 in every
+    layer) on B=8 x 480000 samples, deterministic, against the same weights
+    through the K1 route."""
+    from speechclip_plus_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from speechclip_plus_tpu_torch.tasks.builder import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, t = 8, 480000
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    wav = torch.randn(b, t, generator=gen, device="cuda")
+    wav_len = t - torch.randint(0, t // 3, (b,), generator=gen, device="cuda")
+    wav_len[0] = t
+    pad = torch.arange(t, device="cuda")[None] >= wav_len[:, None]
+    wav = wav.masked_fill(pad, 0.0)
+    weights = torch.full((13,), 1.0 / 13, device="cuda")
+    counts = None
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_tower = HubertModel(HubertConfig(use_flash_attention=True,
+                                               fused_attention_block=False, dtype=dtype))
+        init_params(flash_tower, torch.Generator().manual_seed(0))
+        flash_tower = flash_tower.to("cuda").eval()
+        block_tower = HubertModel(HubertConfig(dtype=dtype)).to("cuda").eval()
+        block_tower.load_state_dict(flash_tower.state_dict())
+        with torch.inference_mode():
+            reset_counts()
+            got = flash_tower(wav, pad, weights)
+            run = lambda tower: (tower(wav, pad, weights), torch.cuda.synchronize())
+            n = 3
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run(flash_tower)
+            flash_ms = (time.perf_counter() - t0) / n * 1e3
+            counts = read_counts(torch, f"path C tower {str(dtype)[6:]}",
+                                 {"flash_attention": 12 * (n + 1)})
+            want = block_tower(wav, pad, weights)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run(block_tower)
+            block_ms = (time.perf_counter() - t0) / n * 1e3
+        frames = got["x"].shape[1]
+        require(tuple(got["x"].shape) == (b, frames, 768) and frames == 1499,
+                f"path C: {tuple(got['x'].shape)}")
+        require(bool(torch.equal(got["padding_mask"], want["padding_mask"])), "path C: masks")
+        worst = 0.0
+        for key in ("x", "weighted_sum"):
+            a, w = got[key].float(), want[key].float()
+            require(bool(torch.isfinite(a).all()), f"path C {key}: non-finite")
+            err = (a - w).abs().max().item()
+            rel = ((a - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt()).item()
+            worst = max(worst, err if dtype == torch.float32 else rel)
+        tol = "max abs <= 1e-4" if dtype == torch.float32 else "rms(diff)/rms <= 5e-2"
+        print(f"[path C] HuBERT-base tower B={b} x {t} samples ({frames} frames) "
+              f"{str(dtype)[6:]}: K4 route vs K1 route {worst:.3e} ({tol}); K4 route "
+              f"{flash_ms:.2f} ms/forward, K1 route {block_ms:.2f} ms/forward (n={n})")
+        require(worst <= (1e-4 if dtype == torch.float32 else 5e-2),
+                f"path C {dtype}: K4 and K1 routes differ by {worst}")
+        del flash_tower, block_tower, got, want
+        torch.cuda.empty_cache()
     return counts
 
 
-def phase_train_parity(torch):
+def phase_conv0(torch):
+    """Path D: the public `conv0` (K6), which no model calls, on the WavLM
+    tower's layer-0 weights at the training batch, against the tower's own
+    layer-0 convolution (cuDNN, TF32 off)."""
+    from speechclip_plus_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from speechclip_plus_tpu_torch.ops.conv_frontend import conv0
+    from speechclip_plus_tpu_torch.tasks.builder import init_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    tower = HubertModel(HubertConfig.wavlm_base())
+    init_params(tower, torch.Generator().manual_seed(0))
+    conv = tower.feature_extractor.conv_layers[0].to("cuda")
+    wav = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, 8, seed=2)["wav"]
+    reset_counts()
+    got = conv0(wav, conv.weight.detach().permute(2, 1, 0), stride=conv.stride[0])
+    counts = read_counts(torch, "path D conv0", {"conv0": 1})
+    with torch.no_grad():
+        want = conv(wav[:, None]).transpose(1, 2)
+    err = (got - want).abs().max().item()
+    print(f"[path D] conv0 B={TRAIN_BATCH} x {TRAIN_WAV} fp32 on the tower's layer-0 weights: "
+          f"{tuple(got.shape)}, vs the tower's convolution max_abs_err={err:.3e} (<= 1e-4)")
+    require(tuple(got.shape) == (TRAIN_BATCH, 20479, 512) and bool(torch.isfinite(got).all()),
+            f"path D: {tuple(got.shape)}")
+    require(err <= 1e-4, f"path D: conv0 differs from the tower's convolution by {err}")
+    return counts
+
+
+def phase_train_parity(torch, label, config):
     """One training step (B=2, fp32, training statistics on, dropout off) on
     the card and on the CPU from the same weights."""
-    from speechclip_plus_tpu_torch.config import load_config
     from speechclip_plus_tpu_torch.optim.optimizer import (
         build_optimizer_from_config, trainable_parameters)
     from speechclip_plus_tpu_torch.parallel.train_step import (
         create_train_state, make_train_step)
-    from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(CONFIG)
-    cfg.trainer.precision = 32
     t0 = time.perf_counter()
-    cpu_model, model_cfg, _ = build_model_from_config(cfg, device="cpu", seed=0)
+    cfg, cpu_model, model_cfg = build(torch, config, device="cpu", precision=32)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = train_batch(torch, 2, 48000, model_cfg.clip.image_resolution, seed=3)
     batch["wav_len"] = torch.tensor([48000, 36000], device="cuda")
@@ -689,7 +1125,7 @@ def phase_train_parity(torch):
             continue
         worst = min(worst, torch.nn.functional.cosine_similarity(a, b, dim=0).item())
     perr = max((pg[n] - pc[n]).abs().max().item() for n in pc)
-    print(f"[parity] training step fp32 B=2, card vs CPU: loss {lg:.7f} vs {lc:.7f} (rel "
+    print(f"[parity] {label} training step fp32 B=2, card vs CPU: loss {lg:.7f} vs {lc:.7f} (rel "
           f"{rel:.2e}), min gradient cosine {worst:.7f} over {len(gc) - len(zero)} tensors "
           f"({len(zero)} at rounding noise: {zero}), updated parameters max_abs_err "
           f"{perr:.2e} ({time.perf_counter() - t0:.1f} s)")
@@ -698,18 +1134,16 @@ def phase_train_parity(torch):
     require(perr <= 1e-5, f"updated parameters differ by {perr} > 1e-5")
 
 
-def phase_parity(torch):
+def phase_parity(torch, label, config):
+    """Serving on the card (kernels) against the same fp32 weights on the CPU
+    (plain twins): features, keyword counts, VQ targets and top-10 ids."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
-    from speechclip_plus_tpu_torch.config import load_config
     from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
-    from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(CONFIG)
-    cfg.trainer.precision = 32
     t0 = time.perf_counter()
-    cpu_model, _, _ = build_model_from_config(cfg, device="cpu", seed=0)
+    _, cpu_model, _ = build(torch, config, device="cpu", precision=32)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     cpu, gpu = SpeechCLIP(cpu_model, "cpu"), SpeechCLIP(gpu_model, "cuda")
     wavs = ragged_wavs(np.random.RandomState(7), 2, False)
@@ -723,7 +1157,7 @@ def phase_parity(torch):
     ta, tb = a["vq_results"]["targets"].cpu()[..., 0], b["vq_results"]["targets"][..., 0]
     valid = torch.arange(ta.shape[1])[None] < lb[:, None]
     agree = (ta == tb)[valid].float().mean().item()
-    print(f"[parity] fp32 card vs CPU: parallel cosine {cos:.7f}, cascaded cosine "
+    print(f"[parity] {label} fp32 card vs CPU: parallel cosine {cos:.7f}, cascaded cosine "
           f"{cos_c:.7f}, keywords_len {la.tolist()} vs {lb.tolist()}, VQ targets agree "
           f"on {agree * 100:.2f}% of valid slots")
     require(cos >= 0.9999, f"parallel cosine {cos} < 0.9999")
@@ -745,7 +1179,7 @@ def phase_parity(torch):
         ia, _ = SpeechRetriever(gpu, index, feat_src=src).search(wavs, k=10)
         ib, _ = SpeechRetriever(cpu, cpu_index, feat_src=src).search(wavs, k=10)
         require((ia == ib).all(), f"{src} top-10 ids differ: {ia} vs {ib}")
-    print(f"[parity] image feature cosine {cos_i:.7f}; top-10 ids equal for parallel and "
+    print(f"[parity] {label} image feature cosine {cos_i:.7f}; top-10 ids equal for parallel and "
           f"cascaded over a 1000-image index ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -778,40 +1212,48 @@ def profile_cell(torch, label, fn, n=3):
 
 
 def phase_profile(torch):
-    """Device time by kernel for three serving cells and one training cell
-    (B=128 x 102400 samples, cached image features)."""
+    """Device time by kernel: three serving cells of hybrid+ base and one of
+    the WavLM model, and one training cell (B=128 x 102400 samples, cached
+    image features) for each of the HuBERT tower through K1, the WavLM tower
+    and the HuBERT tower through K5."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
-    from speechclip_plus_tpu_torch.config import load_config
     from speechclip_plus_tpu_torch.optim.optimizer import build_optimizer_from_config
     from speechclip_plus_tpu_torch.parallel.train_step import (
         create_train_state, make_train_step)
     from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
-    from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
 
-    cfg = load_config(CONFIG)
-    model, model_cfg, _ = build_model_from_config(cfg, device="cuda", seed=0)
-    sc = SpeechCLIP(model, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = torch.randn(1000, 224, 224, 3, generator=gen, device="cuda")
-    index = build_image_index(sc, images, np.arange(1000), batch_size=256)
     rng = np.random.RandomState(0)
-    for src, b in (("parallel", 8), ("cascaded", 8), ("cascaded", 64)):
-        r = SpeechRetriever(sc, index, feat_src=src)
-        wavs = [(0.1 * rng.randn(102400)).astype(np.float32) for _ in range(b)]
-        for _ in range(2):
-            r.search(wavs, k=10)
-        profile_cell(torch, f"{src} B={b} x 6.4 s query", lambda: r.search(wavs, k=10))
-    del sc, index, images
-    optimizer = build_optimizer_from_config(model, cfg)
-    state = create_train_state(optimizer)
-    step_fn = make_train_step(model, optimizer)
-    batch = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, model_cfg.clip.image_resolution, seed=0)
-    with torch.no_grad():
-        batch["image_feat"] = model.encode_image_raw(batch.pop("image"))
-    for _ in range(WARMUP_STEPS):
-        step_fn(state, batch, gen)
-    profile_cell(torch, f"train step B={TRAIN_BATCH} x {TRAIN_WAV} cached images",
-                 lambda: step_fn(state, batch, gen))
+    k5 = dict(fused_attention=True, fused_attention_block=False)
+    for label, config, keys, cells in (
+            ("HuBERT (K1 route)", CONFIG, {}, (("parallel", 8), ("cascaded", 8), ("cascaded", 64))),
+            ("WavLM", WAVLM_CONFIG, {}, (("parallel", 8),)),
+            ("HuBERT (K5 route)", CONFIG, k5, ())):
+        cfg, model, model_cfg = build(torch, config, **keys)
+        sc = SpeechCLIP(model, "cuda")
+        index = build_image_index(sc, images, np.arange(1000), batch_size=256)
+        for src, b in cells:
+            r = SpeechRetriever(sc, index, feat_src=src)
+            wavs = [(0.1 * rng.randn(102400)).astype(np.float32) for _ in range(b)]
+            for _ in range(2):
+                r.search(wavs, k=10)
+            profile_cell(torch, f"{label} {src} B={b} x 6.4 s query",
+                         lambda: r.search(wavs, k=10))
+        del sc, index
+        optimizer = build_optimizer_from_config(model, cfg)
+        state = create_train_state(optimizer)
+        step_fn = make_train_step(model, optimizer)
+        batch = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, model_cfg.clip.image_resolution,
+                            seed=0)
+        with torch.no_grad():
+            batch["image_feat"] = model.encode_image_raw(batch.pop("image"))
+        for _ in range(WARMUP_STEPS):
+            step_fn(state, batch, gen)
+        profile_cell(torch, f"{label} train step B={TRAIN_BATCH} x {TRAIN_WAV} cached images",
+                     lambda: step_fn(state, batch, gen))
+        del model, optimizer, state, step_fn, batch
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -829,9 +1271,6 @@ def main() -> int:
         return 2
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     try:
-        from speechclip_plus_tpu_torch.nn import fused_attention_block as fab
-        from speechclip_plus_tpu_torch.nn import fused_attention_block_vjp as vjp
-        from speechclip_plus_tpu_torch.ops import fused_keyword as fk
         from speechclip_plus_tpu_torch.utils import cuda_build
 
         print(card_line())
@@ -844,15 +1283,35 @@ def main() -> int:
             return 0
         rows = phase_kernels(torch)
         if args.phase == "all":
-            by_path = {"serve": phase_model(torch, (fab, fk)),
-                       "train": phase_train(torch, (fab, vjp, fk))}
-            phase_parity(torch)
-            phase_train_parity(torch)
-            # the counts of the serving (phase 5) and training (phase 6) runs,
-            # each counted from 0; phase 2's comparison launches are not in them
+            by_path, ms = {}, {}
+            hubert, wavlm = "HuBERT (K1 route)", "path A WavLM"
+            by_path["serve"] = phase_model(torch, hubert, CONFIG)
+            by_path["train"], ms["hubert"] = phase_train(torch, hubert, CONFIG)
+            phase_parity(torch, hubert, CONFIG)
+            phase_train_parity(torch, hubert, CONFIG)
+            by_path["A_serve"] = phase_model(torch, wavlm, WAVLM_CONFIG, wires=(False,),
+                                             n_img=256, stream=False)
+            by_path["A_train"], ms["wavlm"] = phase_train(torch, wavlm, WAVLM_CONFIG,
+                                                          cells=("cached",))
+            phase_parity(torch, wavlm, WAVLM_CONFIG)
+            phase_train_parity(torch, wavlm, WAVLM_CONFIG)
+            k5 = dict(tower="k5", fused_attention=True, fused_attention_block=False)
+            by_path["B_train"], ms["k5"] = phase_train(torch, "path B HuBERT (K5 route)", CONFIG,
+                                                       cells=("cached",), **k5)
+            by_path["B_serve"] = phase_model(torch, "path B HuBERT (K5 route)", CONFIG,
+                                             batches=(8,), wires=(False,), n_img=256,
+                                             stream=False, **k5)
+            print(f"[train] cached images, ms/step in this run: HuBERT through K1 "
+                  f"{ms['hubert']['cached']:.2f}, HuBERT through K5 {ms['k5']['cached']:.2f}, "
+                  f"WavLM through K1's gate mode {ms['wavlm']['cached']:.2f}")
+            by_path["C_tower"] = phase_tower_flash(torch)
+            by_path["D_conv0"] = phase_conv0(torch)
+            # the counts of the paths' runs, each counted from 0; phase 2's
+            # comparison launches are not in them
             print(json.dumps({"kernels": [
-                {**r, "launches": sum(c.get(r["name"], 0) for c in by_path.values()),
-                 "launches_by_path": {p: c.get(r["name"], 0) for p, c in by_path.items()}}
+                {**r, "launches": sum(c[r["name"]] for c in by_path.values()),
+                 "launches_by_path": {p: c[r["name"]] for p, c in by_path.items()
+                                      if c[r["name"]]}}
                 for r in rows]}))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -11,6 +11,8 @@ compute the same function in the parity tests. The layout rules:
     leading L axis (`layers/layer`, `transformer/blocks/block`) and are
     unstacked here.
   - HuBERT's separate q/k/v projections become the packed `in_proj`.
+  - WavLM adds the shared `rel_attn_embed` table and, per scanned layer,
+    `gru_rel_pos_linear` and `gru_rel_pos_const`.
   - LayerNorm / GroupNorm `scale` is torch's `weight`.
   - The pos-conv kernel is the weight-norm-materialized one the JAX side
     stores (``models/hubert.py:627-680``); it is copied as is.
@@ -120,6 +122,8 @@ def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
         f.linear(mod.post_extract_proj, p["post_extract_proj"])
     f.conv1d(mod.pos_conv.conv, p["pos_conv"]["conv"])
     f.norm(mod.encoder_layer_norm, p["encoder_layer_norm"])
+    if mod.cfg.rel_pos_bias:  # WavLM: the one shared relative-position table
+        f.put(mod.rel_attn_embed, p["rel_attn_embed"])
     for i, layer in enumerate(mod.layers):
         t = p["layers"]["layer"].layer(i)
         w = np.concatenate([np.asarray(t[n]["kernel"]) for n in ("q_proj", "k_proj", "v_proj")], 1)
@@ -131,6 +135,9 @@ def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
         f.linear(layer.fc1, t["fc1"])
         f.linear(layer.fc2, t["fc2"])
         f.norm(layer.final_layer_norm, t["final_layer_norm"])
+        if mod.cfg.rel_pos_bias:
+            f.linear(layer.gru_rel_pos_linear, t["gru_rel_pos_linear"])
+            f.put(layer.gru_rel_pos_const, t["gru_rel_pos_const"])
 
 
 def _fill_blocks(f: _Filler, transformer, p: Dict) -> None:

@@ -5,7 +5,10 @@
 // `_pallas_fwd`, :203), in both of its forward modes: out-projection fused
 // (HuBERT and ViT towers) and context-only (the branch self-attention,
 // reached through fused_attention_block_vjp._attn_core), each with or
-// without in-kernel attention dropout (`keep_thresh`, :141-145, :183-186).
+// without in-kernel attention dropout (`keep_thresh`, :141-145, :183-186),
+// and with the optional per-head additive bias `ab` (:169-179; a causal
+// mask, WavLM's relative position bias) times the optional per-row WavLM
+// gate (:173-177).
 //
 // What bounds it on the H100. The TPU kernel kept a whole (T, 3D) qkv row in
 // VMEM (about 1.4 MB of bf16 at HuBERT shapes); an SM has 227 KB of shared
@@ -21,14 +24,18 @@
 //      Unlike the TPU kernel, a bf16 block keeps qkv in fp32: with bf16 q,
 //      k and v the branch context missed its tolerance (PERF.md). The
 //      context is rounded to x's dtype, as in the TPU kernel.
-//   2. attention_kernel: grid (query tile, head, batch). It reads q/k/v as
-//      strided head slices of the (B, T, 3D) buffer, with no transposes (the
-//      point of the TPU design), and runs an online softmax in fp32 over key
-//      tiles held in shared memory, so no (T, T) score tensor reaches device
-//      memory. The ragged T edge is masked (no padding to 16), padded query
-//      rows are computed and dropped, and masked keys carry -1e30 (ragged
-//      keys -2e30), never -inf, so no NaN can appear.
-//
+//   2. attention_kernel (attention_core.cuh, shared with K4 and K5): grid
+//      (query tile, head, batch). It reads q/k/v as strided head slices of
+//      the (B, T, 3D) buffer, with no transposes (the point of the TPU
+//      design), and runs an online softmax in fp32 over key tiles held in
+//      shared memory, so no (T, T) score tensor reaches device memory. The
+//      ragged T edge is masked (no padding to 16), padded query rows are
+//      computed and dropped, and masked keys carry -1e30 (ragged keys
+//      -2e30), never -inf, so no NaN can appear. The per-head bias is added
+//      per score tile from an fp32 (H | 1, T, T) tensor (4.9 MB at the
+//      WavLM shape, resident in L2), scaled by gate[b, h, i]: the
+//      (B, H, T, T) gated bias never exists. The TPU kernel rounded it to
+//      bf16 to fit VMEM; here it stays fp32.
 //
 // Dropout. The keep mask of weight (b, h, i, j) is the counter hash of
 // dropout_mask.cuh, seeded from a device (seed, offset) pair, so the
@@ -47,17 +54,11 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include "dropout_mask.cuh"
+#include "attention_core.cuh"
 
 using namespace nvcuda;
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 // ---------------------------------------------------------------- GEMM ----
 // C[M, N] = (A[M, K] . W[N, K]^T + bias[N]) * (n < scale_cols ? scale : 1)
@@ -191,176 +192,6 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
   }
 }
 
-// ----------------------------------------------------------- attention ----
-
-constexpr int AQ = 64, AK = 64, A_THREADS = 256;
-constexpr float RAGGED_KEY = -2e30f;  // below the -1e30 padding bias
-constexpr float INIT_MAX = -3e38f;
-
-template <int DH>
-constexpr size_t attention_smem_bytes() {
-  return sizeof(float) * (AQ * (DH + 1) + AK * (DH + 1) + AK * DH + AQ * (AK + 1));
-}
-
-// Block = 64 query rows of one (batch, head). Thread (ty, tx), ty < 16,
-// tx < 16, owns query rows ty*4 .. ty*4+3; for scores it owns key columns
-// tx + 16 j (j < 4), for the output head columns tx + 16 c (c < DH / 16).
-// The 16 threads of a row group are the two halves of one warp, so row
-// reductions are xor-shuffles with offsets below 16.
-// seed == nullptr: no dropout. lse == nullptr: no log-sum-exp output.
-template <typename TO, int DH>
-__global__ void __launch_bounds__(A_THREADS) attention_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ key_bias,
-    TO* __restrict__ ctx, int Tn, int H, const int64_t* __restrict__ seed,
-    uint32_t keep_thresh, float inv_keep, float* __restrict__ lse) {
-  extern __shared__ float smem[];
-  constexpr int LD = DH + 1, CW = DH / 16, LP = AK + 1;
-  float* Qs = smem;
-  float* Ks = Qs + AQ * LD;
-  float* Vs = Ks + AK * LD;
-  float* Ps = Vs + AK * DH;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const size_t row_stride = 3 * (size_t)D;
-  const float* base = qkv + (size_t)b * Tn * row_stride + (size_t)h * DH;
-  const float* kb = key_bias + (size_t)b * Tn;
-
-  for (int e = tid; e < AQ * DH; e += A_THREADS) {
-    const int r = e / DH, c = e % DH, t = q0 + r;
-    Qs[r * LD + c] = t < Tn ? base[(size_t)t * row_stride + c] : 0.f;
-  }
-
-  const bool drop = seed != nullptr;
-  uint32_t offset = 0, row_key[4];
-  if (drop) {
-    const uint32_t sd = (uint32_t)seed[0];
-    offset = (uint32_t)seed[1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      row_key[i] = sc_row_key(sd, ((int64_t)b * H + h) * Tn + q0 + ty * 4 + i);
-  }
-
-  float o[4][CW];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = INIT_MAX;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tn; k0 += AK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int e = tid; e < AK * DH; e += A_THREADS) {
-      const int r = e / DH, c = e % DH, t = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (t < Tn) {
-        const float* row = base + (size_t)t * row_stride + c;
-        kv = row[D];
-        vv = row[2 * D];
-      }
-      Ks[r * LD + c] = kv;
-      Vs[r * DH + c] = vv;
-    }
-    __syncthreads();
-
-    float s[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = k0 + tx + 16 * j;
-      const float bj = t < Tn ? kb[t] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][j] = t < Tn ? s[i][j] + bj : RAGGED_KEY;
-    }
-
-    uint32_t col_key[4];
-    if (drop) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) col_key[j] = sc_col_key(offset, k0 + tx + 16 * j);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps += p;  // the normalizer sums every weight, kept or dropped
-        float pv = p;
-        if (drop) pv = sc_keep(row_key[i], col_key[j], keep_thresh) ? p * inv_keep : 0.f;
-        Ps[(ty * 4 + i) * LP + tx + 16 * j] = pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_run[i] = l_run[i] * alpha + ps;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) o[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < AK; ++kk) {
-      float v[CW];
-#pragma unroll
-      for (int c = 0; c < CW; ++c) v[c] = Vs[kk * DH + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty * 4 + i) * LP + kk];
-#pragma unroll
-        for (int c = 0; c < CW; ++c) o[i][c] = fmaf(p, v[c], o[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= Tn) continue;
-    const float inv = 1.f / l_run[i];
-    TO* out = ctx + ((size_t)b * Tn + t) * D + (size_t)h * DH;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) out[tx + 16 * c] = from_f<TO>(o[i][c] * inv);
-    if (lse != nullptr && tx == 0)
-      lse[((size_t)b * H + h) * Tn + t] = m_run[i] + logf(l_run[i]);
-  }
-}
-
-template <typename TO, int DH>
-cudaError_t launch_attention(const float* qkv, const float* key_bias, void* ctx,
-                             int B, int Tn, int H, const int64_t* seed,
-                             uint32_t keep_thresh, float inv_keep, float* lse,
-                             cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<TO, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tn + AQ - 1) / AQ, H, B);
-  attention_kernel<TO, DH><<<grid, A_THREADS, smem, stream>>>(
-      qkv, key_bias, static_cast<TO*>(ctx), Tn, H, seed, keep_thresh, inv_keep, lse);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -397,25 +228,48 @@ int sc_fab_gemm(const void* a, const void* w, const float* bias, void* c,
 }
 
 // ctx (B, T, H*dh), fp32 or bf16 (ctx_bf16), = per-head
-// softmax(q k^T + key_bias) v over the packed fp32 qkv (B, T, 3*H*dh) buffer
-// (q already scaled). key_bias (B, T) fp32. With `seed` (device int64
-// [seed, offset]; null for none) the weights go through the dropout mask
-// of dropout_mask.cuh with `keep_thresh`, kept ones scaled by `inv_keep`.
-// `lse` (B, H, T) fp32 receives the per-row log-sum-exp when not null.
+// softmax(q k^T + key_bias [+ gate * ab]) v over the packed fp32 qkv
+// (B, T, 3*H*dh) buffer (q already scaled). key_bias (B, T) fp32. `ab` is the
+// fp32 per-head bias (ab_heads, T, T) with ab_heads 1 or H, or null; `gate`
+// the fp32 (B, H, T) factor on it, or null (only with `ab`). With `seed`
+// (device int64 [seed, offset]; null for none) the weights go through the
+// dropout mask of dropout_mask.cuh with `keep_thresh`, kept ones scaled by
+// `inv_keep`. `lse` (B, H, T) fp32 receives the per-row log-sum-exp when
+// not null.
 int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
                      int B, int Tn, int H, int dh, int ctx_bf16,
+                     const float* ab, int ab_heads, const float* gate,
                      const int64_t* seed, unsigned int keep_thresh, float inv_keep,
                      float* lse, cudaStream_t stream) {
-  if (B <= 0 || Tn <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-#define SC_ATTN(TO, DHV) \
-  launch_attention<TO, DHV>(qkv, key_bias, ctx, B, Tn, H, seed, keep_thresh, inv_keep, lse, stream)
+  if (gate != nullptr && ab == nullptr) return (int)cudaErrorInvalidValue;
+  if (ab != nullptr && ab_heads != 1 && ab_heads != H) return (int)cudaErrorInvalidValue;
+  const int64_t D = (int64_t)H * dh;
+  AttnParams p = {};
+  p.q = qkv;
+  p.k = qkv + D;
+  p.v = qkv + 2 * D;
+  p.o = ctx;
+  p.sq = p.sk = p.sv = {(int64_t)Tn * 3 * D, dh, 3 * D};
+  p.so = {(int64_t)Tn * D, dh, D};
+  p.key_bias = key_bias;
+  p.ab = ab;
+  p.ab_head_stride = ab_heads == 1 ? 0 : (int64_t)Tn * Tn;
+  p.gate = gate;
+  p.seed = seed;
+  p.keep_thresh = keep_thresh;
+  p.inv_keep = inv_keep;
+  p.lse = lse;
+  p.q_scale = 1.f;
+  p.T = Tn;
+  p.H = H;
+  cudaError_t err = cudaErrorInvalidValue;
+#define SC_ATTN(TO, DHV)                                            \
+  (ab != nullptr ? launch_attention<float, TO, DHV, true>(p, B, stream) \
+                 : launch_attention<float, TO, DHV, false>(p, B, stream))
   if (dh == 64)
     err = ctx_bf16 ? SC_ATTN(bf16, 64) : SC_ATTN(float, 64);
   else if (dh == 96)
     err = ctx_bf16 ? SC_ATTN(bf16, 96) : SC_ATTN(float, 96);
-  else
-    err = cudaErrorInvalidValue;
 #undef SC_ATTN
   return (int)err;
 }

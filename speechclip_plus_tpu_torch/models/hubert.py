@@ -1,4 +1,4 @@
-"""HuBERT-base acoustic tower (the fairseq `FairseqHubert` base path).
+"""HuBERT-base and WavLM-base acoustic towers (the fairseq base path).
 
 Port of ``speechclip_plus_tpu/models/hubert.py`` (reference
 ``avssl/module/speech_encoder_plus.py:29-107``), forward only (the tower is
@@ -8,34 +8,57 @@ frozen):
   post_extract_proj -> zero padded frames -> + weight-normed pos_conv
   (k=128, 16 groups) -> encoder LayerNorm -> 12 post-norm layers.
 
-Each layer's attention is the fused attention block with the out-projection
-fused in (K1). In training (a generator passed) the tower runs its dropouts
+Each layer's attention takes one of four routes, in the JAX layer's order of
+precedence (``:794-910``):
+
+  1. WavLM through K1 (`rel_pos_bias` and `fused_attention_block`): the
+     shared (H, T, T) relative position bias and the per-row gate are kernel
+     inputs, so the (B, H, T, T) gated bias never exists;
+  2. WavLM plain (`rel_pos_bias` without the fused block): the full gated
+     bias through `dot_product_attention`;
+  3. K1 with the out-projection fused in (`fused_attention_block`, the
+     default: the tower is frozen and the card is the accelerator);
+  4. plain q/k/v/out projections around K5 (`fused_attention_dropout`), K4
+     (`use_flash_attention`, only without attention dropout) or
+     `dot_product_attention`.
+
+WavLM (`rel_pos_bias`): one bucketed relative-position table
+`rel_attn_embed` (buckets, H) owned by the model is gathered to (H, T, T)
+once per forward (``:993-1005``); each layer gates it per head and query
+from its input (`rel_pos_gate`, ``:775-790``).
+
+In training (a generator passed) the tower runs its dropouts
 at the JAX sites, all p=0.1 for HuBERT-base: features after the projection
 (JAX ``:967``), the encoder input (``:982``), the two residual branches
 (``:920``, ``:928-929``) and the attention weights inside K1;
 `activation_dropout` is 0 (``:917``). The reference trains with dropout on
-in the frozen tower (`audio_encoder.frozen_dropout`, default true). The softmax-weighted sum over the 13 hidden states is
-accumulated inside the layer loop (JAX ``:1016-1044``), so no (13, B, T, D)
+in the frozen tower (`audio_encoder.frozen_dropout`, default true). The
+softmax-weighted sum over the 13 hidden states is accumulated inside the layer loop (JAX ``:1016-1044``), so no (13, B, T, D)
 stack exists. The pos-conv weight norm is materialized to one kernel, as the
 JAX side stores it (``:627-680``): the tower is frozen.
 
 Layouts at the public surface follow JAX: waveforms (B, T), features
-(B, T', D). Large / WavLM / data2vec variants are not ported yet.
+(B, T', D). The large family (HuBERT-Large, `wavlm_large`) and data2vec are
+not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.attention import MultiheadAttention, padding_bias
+from ..nn.attention import MultiheadAttention, dot_product_attention, padding_bias
 from ..nn.dropout import dropout
+from ..nn.flash import flash_attention
+from ..nn.fused_attention import fused_attention_dropout
 from ..nn.transformer import LayerNorm
 
-__all__ = ["HubertConfig", "HubertModel", "downsample_padding_mask"]
+__all__ = ["HubertConfig", "HubertModel", "downsample_padding_mask",
+           "relative_position_buckets"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +73,21 @@ class HubertConfig:
     ffn_dim: int = 3072
     conv_pos: int = 128
     conv_pos_groups: int = 16
+    # WavLM's gated relative position bias (JAX ``:78-84``)
+    rel_pos_bias: bool = False
+    rel_buckets: int = 320
+    rel_max_distance: int = 800
     dropout: float = 0.1
     attention_dropout: float = 0.1
+    # K1 per layer (forward only; the tower is frozen). On by default: the
+    # JAX default is "on for a frozen tower on the accelerator"
+    fused_attention_block: bool = True
+    # K5: attention only, in-kernel dropout, plain projections
+    # (`audio_encoder.fused_attention`)
+    fused_attention_dropout: bool = False
+    # K4: the flash forward, for long audio; taken only without attention
+    # dropout (no YAML key, as in the JAX package)
+    use_flash_attention: bool = False
     dtype: torch.dtype = torch.float32
 
     @property
@@ -66,13 +102,21 @@ class HubertConfig:
         return self.n_layers + 1
 
     @staticmethod
+    def wavlm_base() -> "HubertConfig":
+        return HubertConfig(rel_pos_bias=True)
+
+    @staticmethod
     def from_upstream_name(name: str) -> "HubertConfig":
         n = name.lower()
-        if ("hubert" in n or "wav2vec2" in n) and "large" not in n:
-            return HubertConfig()
+        if "large" not in n and "data2vec" not in n:
+            if "wavlm" in n:
+                return HubertConfig.wavlm_base()
+            if "hubert" in n or "wav2vec2" in n:
+                return HubertConfig()
         raise NotImplementedError(
-            f"audio_encoder.name={name!r}: the PyTorch port has the HuBERT-base "
-            "tower only (large, WavLM, data2vec and mel upstreams are later slices)")
+            f"audio_encoder.name={name!r}: the PyTorch port has the HuBERT-base and "
+            "WavLM-base (wavlm_base, wavlm_base_plus) towers (the large family, "
+            "wavlm_large, data2vec and mel upstreams are later slices)")
 
     @staticmethod
     def tiny(**kw) -> "HubertConfig":
@@ -91,6 +135,27 @@ def downsample_padding_mask(wav_padding_mask: torch.Tensor, n_frames: int) -> to
     if extra > 0:
         wav_padding_mask = wav_padding_mask[:, :-extra]
     return wav_padding_mask.reshape(b, n_frames, -1).all(dim=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def relative_position_buckets(t: int, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """WavLM / T5 bucketed relative positions of a (T, T) self-attention, int64
+    on the CPU (JAX ``:683-706``): the sign picks the half, small distances
+    map one to one, large ones log-spaced up to `max_distance`. The log ratio
+    is formed in float32 with the operations in the JAX function's order and
+    truncated, so the bucket edges agree with it; it is always formed on the
+    CPU (another device's log may differ in the last bit, which would move an
+    edge) and cached, being a function of T alone. Do not write to the result."""
+    pos = torch.arange(t)
+    rel = pos[None, :] - pos[:, None]
+    num = num_buckets // 2
+    max_exact = num // 2
+    ad = rel.abs()
+    log_ratio = torch.log(ad.clamp_min(1).to(torch.float32) / max_exact)
+    log_max = torch.log(torch.tensor(max_distance / max_exact, dtype=torch.float32))
+    large = max_exact + (log_ratio / log_max * (num - max_exact)).to(torch.int64)
+    large = large.clamp_max(num - 1)
+    return (rel > 0).to(torch.int64) * num + torch.where(ad < max_exact, ad, large)
 
 
 class ConvFeatureExtractor(nn.Module):
@@ -151,11 +216,54 @@ class HubertEncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, cfg.ffn_dim, dtype=dt)
         self.fc2 = nn.Linear(cfg.ffn_dim, d, dtype=dt)
         self.final_layer_norm = LayerNorm(d, dtype=dt)
+        if cfg.rel_pos_bias:
+            self.gru_rel_pos_linear = nn.Linear(d // cfg.n_heads, 8, dtype=dt)
+            # fp32 like the gate it scales (a flax param without a dtype)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, cfg.n_heads, 1, 1))
+
+    def rel_pos_gate(self, x: torch.Tensor) -> torch.Tensor:
+        """WavLM's per-layer gate on the shared relative position bias, from
+        the layer input split per head (HF `WavLMAttention`): (B, H, T) fp32."""
+        b, t, d = x.shape
+        h = self.cfg.n_heads
+        gh = x.reshape(b, t, h, d // h).transpose(1, 2)
+        proj = self.gru_rel_pos_linear(gh).float().reshape(b, h, t, 2, 4).sum(-1)
+        gate_a, gate_b = torch.sigmoid(proj).split(1, dim=-1)
+        gate = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
+        return gate[..., 0]
+
+    def attention(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator],
+                  position_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        c, att = self.cfg, self.self_attn
+        if position_bias is not None and c.fused_attention_block:
+            return att(x, key_padding_bias=key_padding_bias, generator=generator,
+                       attn_bias=position_bias, attn_gate=self.rel_pos_gate(x))
+        if position_bias is None and c.fused_attention_block:
+            return att(x, key_padding_bias=key_padding_bias, generator=generator)
+        q, k, v = att.project_qkv(x)
+        p = c.attention_dropout
+        if position_bias is not None:
+            bias = self.rel_pos_gate(x)[..., None] * position_bias.float()[None]
+            if key_padding_bias is not None:
+                bias = bias + key_padding_bias[:, None, None, :]
+            out = dot_product_attention(q, k, v, bias, p, generator)
+        elif c.fused_attention_dropout:
+            out = fused_attention_dropout(q, k, v, key_padding_bias, dropout_rate=p,
+                                          generator=generator)
+        elif c.use_flash_attention and (generator is None or p == 0.0):
+            kpm = None if key_padding_bias is None else key_padding_bias < -1e20
+            out = flash_attention(q, k, v, kpm)
+        else:
+            bias = None if key_padding_bias is None else key_padding_bias[:, None, None, :]
+            out = dot_product_attention(q, k, v, bias, p, generator)
+        return att.project_out(out)
 
     def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         c, g = self.cfg, generator
-        attn = self.self_attn(x, key_padding_bias=key_padding_bias, generator=g)
+        attn = self.attention(x, key_padding_bias, g, position_bias)
         x = self.self_attn_layer_norm(x + dropout(attn, c.dropout, g))
         h = F.gelu(self.fc1(x))  # activation_dropout is 0 (JAX :917)
         return self.final_layer_norm(x + dropout(self.fc2(h), c.dropout, g))
@@ -174,6 +282,25 @@ class HubertModel(nn.Module):
         self.pos_conv = PositionalConvEmbedding(cfg)
         self.encoder_layer_norm = LayerNorm(cfg.d_model, dtype=dt)
         self.layers = nn.ModuleList(HubertEncoderLayer(cfg) for _ in range(cfg.n_layers))
+        if cfg.rel_pos_bias:
+            # fp32 in every precision: the (H, T, T) bias is a kernel input in fp32
+            self.rel_attn_embed = nn.Parameter(torch.empty(cfg.rel_buckets, cfg.n_heads))
+            self._buckets = {}  # (T, device) -> the flat bucket index on that device
+
+    def position_bias(self, t: int) -> Optional[torch.Tensor]:
+        """WavLM's shared relative position bias (H, T, T), gathered from the one
+        table once per forward; None for HuBERT."""
+        c = self.cfg
+        if not c.rel_pos_bias:
+            return None
+        dev = self.rel_attn_embed.device
+        if (t, dev) not in self._buckets:
+            if len(self._buckets) >= 16:  # a handful of lengths in practice (length buckets)
+                self._buckets.clear()
+            self._buckets[(t, dev)] = relative_position_buckets(
+                t, c.rel_buckets, c.rel_max_distance).reshape(-1).to(dev)
+        # (T*T, H) gathered rows -> one contiguous (H, T, T) tensor for every layer
+        return self.rel_attn_embed[self._buckets[(t, dev)]].t().reshape(c.n_heads, t, t)
 
     def forward(self, wav: torch.Tensor, wav_padding_mask: torch.Tensor,
                 layer_weights: torch.Tensor,
@@ -193,8 +320,9 @@ class HubertModel(nn.Module):
         x = dropout(feats, p, g).masked_fill(pad[:, :, None], 0.0)
         x = dropout(self.encoder_layer_norm(x + self.pos_conv(x)), p, g)
         bias = padding_bias(pad)
+        position_bias = self.position_bias(x.shape[1])
         acc = layer_weights[0] * x.float().detach()
         for i, layer in enumerate(self.layers):
-            x = layer(x, bias, g)
+            x = layer(x, bias, g, position_bias)
             acc = acc + layer_weights[i + 1] * x.float().detach()
         return {"x": x, "weighted_sum": acc, "padding_mask": pad}

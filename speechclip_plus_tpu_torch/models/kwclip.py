@@ -1,7 +1,7 @@
 """KWClip: the SpeechCLIP+ hybrid+ model.
 
 Port of ``speechclip_plus_tpu/models/kwclip.py`` for the hybrid+ family
-(`HybridBranch_dynamic`): frozen HuBERT tower -> softmax-weighted sum of its
+(`HybridBranch_dynamic`): frozen HuBERT or WavLM tower -> softmax-weighted sum of its
 hidden states -> HybridBranchPlus; the keywords go through the frozen CLIP
 text tower (`encode_keywords`); images through the frozen ViT, or come as
 cached image features.
@@ -101,8 +101,17 @@ class KWClipConfig:
         if getattr(ae, "feat_select_idx", "weighted_sum") != "weighted_sum" \
                 or getattr(ae, "normalize_hiddenstates", False):
             raise NotImplementedError("audio features other than the plain weighted sum")
-        if getattr(ae, "trainable", False) or getattr(ae, "reinit_layers", None) \
-                or getattr(ae, "unfreeze_layers", None) \
+        audio_is_trainable = bool(getattr(ae, "trainable", False)
+                                  or getattr(ae, "reinit_layers", None)
+                                  or getattr(ae, "unfreeze_layers", None))
+        # the tower's attention kernels are forward-only (JAX :383-388, :406-413)
+        fused_attn = getattr(ae, "fused_attention", None)
+        fused_blk = getattr(ae, "fused_attention_block", None)
+        for key, on in (("fused_attention", fused_attn), ("fused_attention_block", fused_blk)):
+            if on and audio_is_trainable:
+                raise ValueError(f"audio_encoder.{key} requires a frozen tower "
+                                 f"(forward-only kernel, nn/{key}.py)")
+        if audio_is_trainable \
                 or getattr(cfg.clip, "image_encoder_trainable", False) \
                 or getattr(cfg.clip, "text_encoder_trainable", False):
             raise NotImplementedError("trainable towers (the port trains frozen towers only)")
@@ -127,6 +136,12 @@ class KWClipConfig:
         # train() undoes its eval()); `frozen_dropout: false` opts out (JAX :353-371)
         if not bool(getattr(ae, "frozen_dropout", True)):
             audio_cfg = dataclasses.replace(audio_cfg, dropout=0.0, attention_dropout=0.0)
+        # `fused_attention` selects K5 around plain projections; the block
+        # kernel K1 is the default for the frozen tower (`false` forces it off)
+        if fused_attn is not None:
+            audio_cfg = dataclasses.replace(audio_cfg, fused_attention_dropout=bool(fused_attn))
+        if fused_blk is not None:
+            audio_cfg = dataclasses.replace(audio_cfg, fused_attention_block=bool(fused_blk))
 
         ta = TransformerArgs.from_config(cb.transformer_args)
         bn = getattr(kw, "batchnorms", None) if kw is not None else None

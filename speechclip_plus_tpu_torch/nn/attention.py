@@ -18,7 +18,15 @@ differentiable context-only block with its backward kernel (K2,
 ``nn/fused_attention_block_vjp.py``) for the branch (`fuse_out=False`).
 Attention dropout at `dropout` runs inside the kernels when a generator is
 passed. An additive `attn_mask` (the CLIP text tower's causal mask) takes the
-plain path, with plain autograd.
+plain path, with plain autograd. `attn_bias` with an optional `attn_gate`
+(WavLM's gated relative position bias) rides inside K1 (fused-out only).
+
+The acoustic tower's other routes compute the projections outside any kernel,
+as the JAX package does: `project_qkv` returns q, k, v as (B, H, T, dh)
+strided views of one packed (B, T, 3D) projection (no transpose copy), the
+attention runs as K5 (``nn/fused_attention.py``), K4 (``nn/flash.py``) or
+`dot_product_attention`, and `project_out` merges the heads and applies the
+out-projection.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.random import attention_keep_mask, draw_seed
 from .fused_attention_block import fused_attention_block
 from .fused_attention_block_vjp import fused_attention_block_vjp
 
@@ -41,17 +50,26 @@ def padding_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(key_padding_mask, _MASK_VALUE, 0.0).to(torch.float32)
 
 
-def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None):
+def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None,
+                          dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None):
     """Scaled dot-product attention on (B, H, T, dh), q scaled inside.
 
     bf16 inputs keep bf16 scores and probabilities (the JAX XLA path's
     precision); the softmax itself runs in fp32. `bias` broadcasts to
-    (B, H, Tq, Tk)."""
+    (B, H, Tq, Tk). With a `generator`, the weights are dropped at
+    `dropout_rate` with the counter mask of ``ops/random.py`` (self-attention
+    only: Tq == Tk)."""
     q = q * (q.shape[-1] ** -0.5)
     scores = torch.matmul(q, k.transpose(-1, -2)).float()
     if bias is not None:
         scores = scores + bias
     weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    if dropout_rate > 0.0 and generator is not None:
+        b, h, t, _ = q.shape
+        keep_prob = 1.0 - float(dropout_rate)
+        keep = attention_keep_mask(draw_seed(generator), b, h, t, keep_prob)
+        weights = torch.where(keep, weights / keep_prob, 0.0)
     return torch.matmul(weights, v)
 
 
@@ -69,20 +87,42 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, dtype=dtype))
         self.out_proj = nn.Linear(d_model, d_model, dtype=dtype)
 
+    def project_qkv(self, x: torch.Tensor):
+        """q, k, v (B, H, T, dh) in the compute dtype: strided views of one
+        packed (B, T, 3D) projection, q unscaled."""
+        cd = self.compute_dtype
+        b, t, d = x.shape
+        qkv = F.linear(x.to(cd), self.in_proj_weight.to(cd), self.in_proj_bias.to(cd))
+        return qkv.view(b, t, 3, self.nhead, d // self.nhead).permute(2, 0, 3, 1, 4).unbind(0)
+
+    def project_out(self, ctx: torch.Tensor) -> torch.Tensor:
+        """(B, H, T, dh) per-head context -> out-projected (B, T, D)."""
+        cd = self.compute_dtype
+        b, h, t, dh = ctx.shape
+        return F.linear(ctx.transpose(1, 2).reshape(b, t, h * dh),
+                        self.out_proj.weight.to(cd), self.out_proj.bias.to(cd))
+
     def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                attn_bias: Optional[torch.Tensor] = None,
+                attn_gate: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, T, D) -> (B, T, D) in the compute dtype.
         key_padding_bias: (B, T) fp32 additive (`padding_bias`).
         attn_mask: (T, T) additive fp32 mask shared by batch and heads.
-        generator: attention dropout at `self.dropout` (None: none)."""
+        generator: attention dropout at `self.dropout` (None: none).
+        attn_bias, attn_gate: K1's per-head bias (H | 1, T, T) and its
+        (B, H, T) gate (fused-out, no attn_mask)."""
         cd = self.compute_dtype
         x = x.to(cd)
         w_in = self.in_proj_weight.to(cd)
         w_out, b_out = self.out_proj.weight.to(cd), self.out_proj.bias.to(cd)
+        if attn_bias is not None and (attn_mask is not None or not self.fuse_out):
+            raise NotImplementedError("attn_bias outside the fused-out block")
         if attn_mask is None:
             attend = fused_attention_block if self.fuse_out else fused_attention_block_vjp
-            kw = {"fuse_out": True} if self.fuse_out else {}
+            kw = ({"fuse_out": True, "attn_bias": attn_bias, "attn_gate": attn_gate}
+                  if self.fuse_out else {})
             return attend(x.contiguous(), w_in, self.in_proj_bias, w_out, b_out,
                           key_padding_bias, n_heads=self.nhead, dropout_rate=self.dropout,
                           generator=generator, **kw)

@@ -5,7 +5,7 @@ Port of ``speechclip_plus_tpu/nn/fused_attention_block.py`` (Pallas
 layout:
 
     qkv = x Wqkvᵀ + bqkv,  q scaled by 1/sqrt(dh)
-    ctx = concat_h dropout(softmax(q_h k_hᵀ + key_bias)) v_h
+    ctx = concat_h dropout(softmax(q_h k_hᵀ + key_bias [+ gate_h · ab_h])) v_h
     out = ctx Woᵀ + bo        (fuse_out=True; else ctx is returned)
 
 On a CUDA tensor it runs the hand-written kernels in
@@ -24,10 +24,17 @@ mode also serves the branch attention's autograd function
 returns what the backward kernel (K2) needs: the fp32 qkv buffer and the
 per-row log-sum-exp.
 
+`attn_bias` is a per-head additive bias shared by the batch, (T, T),
+(1, T, T) or (H, T, T) (a causal mask, WavLM's relative position bias);
+`attn_gate` (B, H, T) multiplies it per query row (WavLM's gated bias
+factorizes as gate(b, h, i) · bias(h, i, j)), so the (B, H, T, T) gated bias
+never exists. Both are kept in fp32: the TPU kernel rounded the gated bias
+to bf16 only to fit its on-chip memory (JAX ``:559-567``); on the card the
+(H, T, T) tensor (4.9 MB at H=12, T=320) stays in L2. Both compose with the
+dropout mode and the log-sum-exp output.
+
 `fused_attention_block` itself is forward-only: the frozen towers never need
 its gradient, and a backward raises, as ``_fused_bwd`` does on the JAX side.
-The per-head `attn_bias` and the WavLM `attn_gate` modes are not ported yet;
-asking for them raises.
 """
 from __future__ import annotations
 
@@ -50,11 +57,13 @@ _HEAD_DIMS = (64, 96)
 
 def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
                                 n_heads: int, fuse_out: bool = True, seeds=None,
-                                keep_prob: float = 1.0, return_aux: bool = False):
+                                keep_prob: float = 1.0, return_aux: bool = False,
+                                attn_bias=None, attn_gate=None):
     """Plain PyTorch twin of the kernels: fp32 arithmetic on the operands'
     values, qkv kept fp32; the context and the output rounded to x's dtype.
     `seeds` (the (2,) int64 [seed, offset]) turns on dropout at `keep_prob`.
-    `return_aux` (context-only) returns (ctx, qkv with q scaled, lse (B, H, T))."""
+    `return_aux` (context-only) returns (ctx, qkv with q scaled, lse (B, H, T)).
+    `attn_bias` (H | 1, T, T) and `attn_gate` (B, H, T) as in the wrapper."""
     b, t, d = x.shape
     dh = d // n_heads
     qkv = F.linear(x.float(), w_in.float(), b_in.float())
@@ -63,6 +72,9 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
     s = torch.matmul(q, k.transpose(-1, -2))
     if key_padding_bias is not None:
         s = s + key_padding_bias.float()[:, None, None, :]
+    if attn_bias is not None:
+        ab = attn_bias.float()[None]
+        s = s + (ab if attn_gate is None else attn_gate.float()[..., None] * ab)
     w = torch.softmax(s, dim=-1)
     if seeds is not None:
         keep = attention_keep_mask(seeds, b, n_heads, t, keep_prob)
@@ -76,7 +88,7 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
 
 
 def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
-            seeds=None, keep_prob=1.0, return_aux=False):
+            seeds=None, keep_prob=1.0, return_aux=False, attn_bias=None, attn_gate=None):
     global LAUNCHES
     from ..utils.cuda_build import check, kernels
 
@@ -106,6 +118,19 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
                               or tuple(seeds.shape) != (2,)):
         raise ValueError("fused_attention_block: seeds must be (2,) int64 on x's device")
     kb = key_padding_bias.to(torch.float32).contiguous()
+    ab = gate = None
+    if attn_bias is not None:
+        if attn_bias.device != x.device or attn_bias.ndim != 3 \
+                or attn_bias.shape[0] not in (1, n_heads) or tuple(attn_bias.shape[1:]) != (t, t):
+            raise ValueError(f"attn_bias {tuple(attn_bias.shape)} on {attn_bias.device}; want "
+                             f"(1 | {n_heads}, {t}, {t}) on {x.device}")
+        ab = attn_bias.to(torch.float32).contiguous()
+    if attn_gate is not None:
+        if ab is None or attn_gate.device != x.device \
+                or tuple(attn_gate.shape) != (b, n_heads, t):
+            raise ValueError(f"attn_gate {tuple(attn_gate.shape)}; want {(b, n_heads, t)} on "
+                             f"{x.device}, with an attn_bias")
+        gate = attn_gate.to(torch.float32).contiguous()
     bf = int(x.dtype == torch.bfloat16)
     lib = kernels()
     with torch.cuda.device(x.device):
@@ -120,6 +145,9 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
                if return_aux else None)
         check(lib.sc_fab_attention(qkv.data_ptr(), kb.data_ptr(), ctx.data_ptr(),
                                    b, t, n_heads, dh, bf,
+                                   None if ab is None else ab.data_ptr(),
+                                   0 if ab is None else ab.shape[0],
+                                   None if gate is None else gate.data_ptr(),
                                    None if seeds is None else seeds.data_ptr(),
                                    keep_threshold(keep_prob), 1.0 / keep_prob,
                                    None if lse is None else lse.data_ptr(), stream),
@@ -147,9 +175,10 @@ def _run(*args, **kw):
 class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
-                seeds, keep_prob):
+                seeds, keep_prob, attn_bias, attn_gate):
         return _run(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
-                    seeds=seeds, keep_prob=keep_prob)
+                    seeds=seeds, keep_prob=keep_prob, attn_bias=attn_bias,
+                    attn_gate=attn_gate)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -183,12 +212,23 @@ def fused_attention_block(
     torch's (out, in) layout; key_padding_bias (B, T) additive fp32 (-1e30 at
     pads). Returns (B, T, D) in x's dtype: the out-projected block output, or
     the attention context when `fuse_out` is False. Attention dropout at
-    `dropout_rate` when a `generator` is given."""
-    if attn_bias is not None or attn_gate is not None:
-        raise NotImplementedError(
-            "fused_attention_block: attn_bias and attn_gate are not ported yet")
+    `dropout_rate` when a `generator` is given. `attn_bias` (T, T), (1, T, T)
+    or (H, T, T) is added to every sequence's scores, times `attn_gate`
+    (B, H, T) per query row when that is given (only with an `attn_bias`)."""
+    t = x.shape[1]
+    if attn_gate is not None and attn_bias is None:
+        raise ValueError("fused_attention_block: attn_gate needs an attn_bias")
+    if attn_bias is not None:
+        if attn_bias.ndim not in (2, 3) or tuple(attn_bias.shape[-2:]) != (t, t) \
+                or (attn_bias.ndim == 3 and attn_bias.shape[0] not in (1, n_heads)):
+            raise ValueError(f"fused_attention_block: attn_bias {tuple(attn_bias.shape)}; "
+                             f"want ({t}, {t}), (1, {t}, {t}) or ({n_heads}, {t}, {t})")
+        attn_bias = attn_bias.reshape(-1, t, t)
+        if attn_gate is not None and tuple(attn_gate.shape) != (x.shape[0], n_heads, t):
+            raise ValueError(f"fused_attention_block: attn_gate {tuple(attn_gate.shape)}; "
+                             f"want {(x.shape[0], n_heads, t)}")
     seeds, keep_prob = None, 1.0
     if dropout_rate > 0.0 and generator is not None:
         seeds, keep_prob = draw_seed(generator), 1.0 - float(dropout_rate)
     return _ForwardOnly.apply(x, w_in, b_in, w_out, b_out, key_padding_bias,
-                              n_heads, fuse_out, seeds, keep_prob)
+                              n_heads, fuse_out, seeds, keep_prob, attn_bias, attn_gate)

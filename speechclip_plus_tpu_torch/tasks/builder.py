@@ -53,6 +53,7 @@ _NORMAL_STD = {
     "visual.positional_embedding": 0.02,
     "text.positional_embedding": 0.01,
     "token_embedding.weight": 0.02,
+    "rel_attn_embed": 0.02,
 }
 
 
@@ -66,7 +67,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     for name, p in model.named_parameters():
         if name == "criterion_log_inv_temp":
             continue  # log(1/T), set by the model
-        if id(p) in norm_weights:
+        if id(p) in norm_weights or name.endswith("gru_rel_pos_const"):
             p.fill_(1.0)
         elif name.endswith("bias") or name in ("weightedsum", "clip.logit_scale"):
             p.zero_()

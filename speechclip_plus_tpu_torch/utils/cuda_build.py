@@ -55,13 +55,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     u = ctypes.c_uint
     lib.sc_fab_gemm.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
-    lib.sc_fab_attention.argtypes = [p, p, p, i, i, i, i, i, p, u, f, p, p]
+    i64p = ctypes.POINTER(ctypes.c_int64)  # host array of element strides
+    lib.sc_fab_attention.argtypes = [p, p, p, i, i, i, i, i, p, i, p, p, u, f, p, p]
+    lib.sc_fused_attention.argtypes = [p, p, p, p, i64p, p, i, i, i, i, i, f, p, u, f, p]
+    lib.sc_flash_attention.argtypes = [p, p, p, p, i64p, p, p, i, i, i, i, i, f, p]
+    lib.sc_conv0.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.sc_fab_attention_bwd.argtypes = [p, p, p, p, p, p, p, u, f, f, p, i, i, i, i, i, p]
     lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
     lib.sc_vq_bwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p, p, p, p]
     lib.sc_vq_splits.argtypes = []
     lib.sc_vq_row_chunk.argtypes = []
     for fn in (lib.sc_fab_gemm, lib.sc_fab_attention, lib.sc_fab_attention_bwd,
+               lib.sc_fused_attention, lib.sc_flash_attention, lib.sc_conv0,
                lib.sc_vq_fwd, lib.sc_vq_bwd, lib.sc_vq_splits, lib.sc_vq_row_chunk):
         fn.restype = ctypes.c_int
     lib.sc_error_string.argtypes = [i]

@@ -7,12 +7,12 @@ tests/test_torch_cuda_kernels.py -q`. The CPU parity of the twins with the
 JAX kernels is in `test_torch_fused_attention_block.py` and
 `test_torch_fused_keyword.py`.
 
-Tolerances: fp32 1e-4 abs (K1) or 1e-4 x max(1, RMS) (K1 with dropout, K2);
-bf16 K1 and K2 error beyond half an ulp of the bf16 output <= 2e-2 x the
-output's RMS; K3 targets equal wherever the top-2 margin exceeds 1e-3 (bf16)
+Tolerances: fp32 1e-4 abs (K1) or 1e-4 x max(1, RMS) (K1 with dropout, bias
+or gate, K2, K4, K5, K6); bf16 K1, K2, K4, K5 and K6 error beyond half an ulp
+of the bf16 output <= 2e-2 x the output's RMS; K4's lse 1e-4 relative; K3 targets equal wherever the top-2 margin exceeds 1e-3 (bf16)
 or 1e-5 (fp32), ent and psum to rtol 1e-3; K3b dx to 1e-4 (fp32) or 1e-2
 (bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes. K2 and K3b repeat
-bit for bit (no float atomics).
+bit for bit (no float atomics), as do K1, K4, K5 and K6.
 """
 import pytest
 import torch
@@ -191,3 +191,219 @@ def test_st_backward_kernel_matches_plain(cuda_device, dtype, n, d, v):
     assert abs(dt.item() - dt0.item()) <= 1e-4 * scale
     dx2, dt2 = fk.st_backward(x, cot, en, norms, mask, 0.1)
     assert torch.equal(dx, dx2) and torch.equal(dt, dt2)  # deterministic
+
+
+# ---- K1's bias and gate modes, K5, K4, K6 ----
+
+def _bias_gate(dev, b, t, heads, shared=False, seed=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ab = torch.randn(1 if shared else heads, t, t, generator=g, device=dev)
+    gate = 1.0 + torch.rand(b, heads, t, generator=g, device=dev)
+    return ab, gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,heads,gated,shared,p", [
+    (8, 320, 768, 12, True, False, 0.0), (8, 320, 768, 12, True, False, 0.1),
+    (8, 320, 768, 12, False, False, 0.0), (4, 77, 512, 8, False, True, 0.0),
+    (3, 37, 128, 2, True, False, 0.3), (128, 320, 768, 12, True, False, 0.1)])
+def test_fused_attention_block_bias_gate_matches_plain(cuda_device, dtype, b, t, d, heads,
+                                                       gated, shared, p):
+    args = _block_args(cuda_device, b, t, d)
+    args[5][-1, :] = -1e30  # a fully padded row stays finite
+    args = [a.to(dtype) if i < 5 else a for i, a in enumerate(args)]
+    ab, gate = _bias_gate(cuda_device, b, t, heads, shared)
+    kw = dict(attn_bias=ab, attn_gate=gate if gated else None)
+    if p:
+        kw.update(seeds=draw_seed(torch.Generator(device=cuda_device).manual_seed(3)),
+                  keep_prob=1.0 - p)
+    before = fab.LAUNCHES
+    got = fab._run(*args, heads, True, **kw)
+    assert fab.LAUNCHES == before + 1
+    want = fab.plain_fused_attention_block(*[a.float() for a in args], heads, True, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+    assert torch.equal(got, fab._run(*args, heads, True, **kw))  # deterministic
+    # context-only with the log-sum-exp output composes with the bias
+    ctx, _, lse = fab._run(*args[:3], None, None, args[5], heads, False, return_aux=True, **kw)
+    ctx0, _, lse0 = fab.plain_fused_attention_block(
+        *[a.float() for a in args[:3]], None, None, args[5], heads, False, return_aux=True, **kw)
+    _close(ctx, ctx0, dtype)
+    assert (lse - lse0).abs().max().item() <= 1e-4 * max(1.0, lse0.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_fused_attention_block_rejects_bad_bias(cuda_device):
+    args = _block_args(cuda_device, 2, 16, 128)
+    ab, gate = _bias_gate(cuda_device, 2, 16, 2)
+    with pytest.raises(ValueError, match="attn_gate"):
+        fab.fused_attention_block(*args, n_heads=2, attn_gate=gate)
+    with pytest.raises(ValueError, match="attn_bias"):
+        fab.fused_attention_block(*args, n_heads=2, attn_bias=ab.cpu())
+    with pytest.raises(ValueError, match="attn_bias"):
+        fab.fused_attention_block(*args, n_heads=2, attn_bias=ab[:, :15])
+
+
+def _qkv(dev, b, h, t, dh, dtype, packed, seed=9):
+    """q, k, v (B, H, T, dh): strided views of a packed (B, T, 3D) buffer, or
+    three contiguous tensors; and a ragged key bias with one fully padded row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if packed:
+        qkv = torch.randn(b, t, 3, h, dh, generator=g, device=dev).to(dtype)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (torch.randn(b, h, t, dh, generator=g, device=dev).to(dtype) for _ in range(3))
+    lens = torch.randint(1, t + 1, (b,), generator=g, device=dev)
+    lens[0] = t
+    kb = torch.where(torch.arange(t, device=dev)[None] >= lens[:, None], -1e30, 0.0)
+    kb[-1, :] = -1e30
+    return q, k, v, kb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,dh,packed,p", [
+    (8, 12, 320, 64, True, 0.1), (8, 12, 320, 64, True, 0.0), (3, 2, 37, 64, False, 0.3),
+    (2, 4, 130, 96, True, 0.1), (128, 12, 320, 64, True, 0.1)])
+def test_fused_attention_dropout_kernel_matches_plain(cuda_device, dtype, b, h, t, dh, packed, p):
+    from speechclip_plus_tpu_torch.nn import fused_attention as fa
+
+    q, k, v, kb = _qkv(cuda_device, b, h, t, dh, dtype, packed)
+    seeds = draw_seed(torch.Generator(device=cuda_device).manual_seed(3)) if p else None
+    before = fa.LAUNCHES
+    got = fa._run(q, k, v, kb, seeds, 1.0 - p)
+    assert fa.LAUNCHES == before + 1 and got.shape == q.shape
+    want = fa.plain_fused_attention_dropout(q.float(), k.float(), v.float(), kb, seeds, 1.0 - p)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+    assert torch.equal(got, fa._run(q, k, v, kb, seeds, 1.0 - p))
+    # the heads merge without a copy
+    assert got.transpose(1, 2).reshape(b, t, h * dh).data_ptr() == got.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_dropout_draws_the_block_kernels_mask(cuda_device, dtype):
+    """K5 on the q, k, v that K1's context-only mode projects, with the same
+    (seed, offset): the same mask, so the same context up to K1's fp32 qkv."""
+    from speechclip_plus_tpu_torch.nn import fused_attention as fa
+
+    b, t, d, heads = 4, 320, 768, 12
+    x, w_in, b_in, _, _, kb = _block_args(cuda_device, b, t, d)
+    x, w_in, b_in = x.to(dtype), w_in.to(dtype), b_in.to(dtype)
+    seeds = draw_seed(torch.Generator(device=cuda_device).manual_seed(7))
+    ctx, qkv, _ = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads, seeds=seeds,
+                                        keep_prob=0.9)
+    # K1's buffer holds q already scaled by 1/sqrt(dh); K5 scales q itself
+    q, k, v = qkv.view(b, t, 3, heads, d // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    got = fa._run(q * (d // heads) ** 0.5, k, v, kb, seeds, 0.9)
+    got = got.transpose(1, 2).reshape(b, t, d)
+    # fp32 inputs to K5 here; K1 rounds its context to x's dtype
+    _close(ctx, got, dtype)
+    other = fa._run(q * (d // heads) ** 0.5, k, v, kb, seeds + 1, 0.9)
+    assert (other.transpose(1, 2).reshape(b, t, d) - got).abs().max().item() > 1e-2
+
+
+@pytest.mark.cuda
+def test_bhtd_kernels_reject_bad_inputs(cuda_device):
+    from speechclip_plus_tpu_torch.nn import flash, fused_attention as fa
+
+    q, k, v, kb = _qkv(cuda_device, 2, 2, 16, 64, torch.float32, False)
+    strided = torch.empty(2, 2, 16, 128, device=cuda_device)[..., ::2]
+    for fn in (fa.fused_attention_dropout, flash.flash_forward):
+        with pytest.raises(ValueError, match="contiguous head dim"):
+            fn(strided, k, v, kb)
+        with pytest.raises(ValueError, match="want"):
+            fn(q, k[:, :, :8], v, kb)
+        with pytest.raises(TypeError):
+            fn(q.half(), k.half(), v.half(), kb)
+    q32 = torch.randn(2, 2, 16, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.fused_attention_dropout(q32, q32, q32, kb)
+    out = fa.fused_attention_dropout(q.requires_grad_(), k, v, kb)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,dh,packed", [
+    (8, 12, 1499, 64, True), (3, 2, 37, 64, False), (2, 4, 130, 96, True),
+    (128, 12, 320, 64, True)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, b, h, t, dh, packed):
+    from speechclip_plus_tpu_torch.nn import flash
+
+    q, k, v, kb = _qkv(cuda_device, b, h, t, dh, dtype, packed)
+    before = flash.LAUNCHES
+    out, lse = flash.flash_forward(q, k, v, kb)
+    assert flash.LAUNCHES == before + 1
+    out0, lse0 = flash.plain_flash_attention(q.float(), k.float(), v.float(), kb)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
+    _close(out, out0, dtype)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, t)
+    # a fully padded row's lse is about -1e30: relative there, absolute elsewhere
+    assert ((lse - lse0).abs() <= 1e-4 * lse0.abs().clamp_min(1.0)).all()
+    again, lse2 = flash.flash_forward(q, k, v, kb)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_on_the_card(cuda_device):
+    """The kernel's forward with the plain backward from its lse, against
+    autograd through plain attention (fp32)."""
+    from speechclip_plus_tpu_torch.nn import flash
+
+    q, k, v, kb = _qkv(cuda_device, 2, 2, 70, 64, torch.float32, False)
+    kb[-1, :50] = 0.0
+    kpm = kb < -1e20
+    probe = torch.randn(q.shape, device=cuda_device)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    grads = torch.autograd.grad((flash.flash_attention(*leaves, kpm) * probe).sum(), leaves)
+    ref = [a.clone().requires_grad_() for a in (q, k, v)]
+    s = (ref[0] @ ref[1].transpose(-1, -2)) * 64 ** -0.5 + kb[:, None, None, :]
+    want = torch.autograd.grad(((torch.softmax(s, -1) @ ref[2]) * probe).sum(), ref)
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("b,t,c,k,s", [(4, 102400, 512, 10, 5), (3, 1003, 64, 10, 5),
+                                       (2, 700, 16, 3, 2), (2, 333, 6, 4, 7)])
+def test_conv0_kernel_matches_plain(cuda_device, dtype, out_dtype, b, t, c, k, s):
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    wav = torch.randn(b, t, generator=g, device=cuda_device).to(dtype)
+    kernel = (torch.randn(k, 1, c, generator=g, device=cuda_device) * k ** -0.5).to(dtype)
+    before = cf.LAUNCHES
+    got = cf.conv0(wav, kernel, stride=s, out_dtype=out_dtype)
+    assert cf.LAUNCHES == before + 1
+    want = cf.plain_conv0(wav, kernel, s, torch.float32)
+    assert got.shape == (b, (t - k) // s + 1, c) and got.dtype == out_dtype
+    _close(got, want, out_dtype)
+    lib = torch.nn.functional.conv1d(wav.float()[:, None], kernel.float().permute(2, 1, 0),
+                                     stride=s).transpose(1, 2)
+    _close(got, lib, out_dtype)
+    assert torch.equal(got, cf.conv0(wav, kernel, stride=s, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+def test_conv0_rejects_bad_inputs(cuda_device):
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    wav = torch.randn(2, 100, device=cuda_device)
+    kernel = torch.randn(10, 1, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.conv0(wav[:, ::2], kernel)
+    with pytest.raises(ValueError, match="even"):
+        cf.conv0(wav, kernel[..., :7])
+    with pytest.raises(ValueError, match="want"):
+        cf.conv0(wav, kernel.expand(10, 2, 8))
+    with pytest.raises(ValueError, match="shorter"):
+        cf.conv0(wav[:, :5], kernel)
+    with pytest.raises(TypeError):
+        cf.conv0(wav.half(), kernel.half())

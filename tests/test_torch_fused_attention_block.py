@@ -107,12 +107,15 @@ def test_backward_raises():
         out.sum().backward()
 
 
-@pytest.mark.parametrize("kwargs", [  # the dropout mode is ported: test_torch_dropout_optim.py
+@pytest.mark.parametrize("kwargs", [
+    # every mode is ported now (dropout: test_torch_dropout_optim.py; bias and
+    # gate: test_torch_wavlm.py); what still raises is a call the modes cannot
+    # mean: a gate without its bias, a bias or a gate of another shape
     dict(attn_gate=torch.zeros(2, 4, 16)),
-    dict(attn_bias=torch.zeros(16, 16)),
-    dict(attn_bias=torch.zeros(16, 16), attn_gate=torch.zeros(2, 4, 16)),
+    dict(attn_bias=torch.zeros(3, 16, 16)),
+    dict(attn_bias=torch.zeros(16, 16), attn_gate=torch.zeros(2, 4, 15)),
 ])
 def test_training_modes_raise(kwargs):
     x, w, bias, kb = _case(5, 2, 16, 48)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         fab.fused_attention_block(*_port_args(x, w, bias, kb), n_heads=4, **kwargs)
