@@ -16,7 +16,11 @@ compute the same function in the parity tests. The layout rules:
   - LayerNorm / GroupNorm `scale` is torch's `weight`.
   - The pos-conv kernel is the weight-norm-materialized one the JAX side
     stores (``models/hubert.py:627-680``); it is copied as is.
-  - Keyword-BN `batch_stats` become the running-statistic buffers.
+  - Keyword-BN `batch_stats` become the running-statistic buffers, in the
+    variant's layout ((D,), (D*K,) or (K, D)).
+  - The branch transformer is `multihead_attn_layer` + `attentionBlock_Norm`,
+    or `layer_i/{self_attn, norm1, norm2, linear1, linear2}` + `norm`; an MLP
+    projection is `dense_i` where a single projection is a Dense.
 
 Strict both ways: every parameter and buffer of the target must be filled
 exactly once, and every leaf of the JAX variables must be read; anything
@@ -168,20 +172,51 @@ def _fill_clip(f: _Filler, mod, p: Dict) -> None:
     f.put(mod.logit_scale, p["logit_scale"])
 
 
+def _fill_mlp(f: _Filler, mod, t: Dict) -> None:
+    """`MLPLayers` (`dense_i`) or a single Linear."""
+    if isinstance(mod, nn.Linear):
+        return f.linear(mod, t)
+    for i, layer in enumerate(mod.layers):
+        f.linear(layer, t[f"dense_{i}"])
+
+
+def _fill_self_att(f: _Filler, mod, t: Dict) -> None:
+    """`MultiheadAttentionAndNorm`, or `TransformerEncoder` (`layer_i` + `norm`)."""
+    if hasattr(mod, "multihead_attn_layer"):
+        f.packed_mha(mod.multihead_attn_layer, t["multihead_attn_layer"])
+        return f.norm(mod.attentionBlock_Norm, t["attentionBlock_Norm"])
+    for i, layer in enumerate(mod.layers):
+        tl = t[f"layer_{i}"]
+        f.packed_mha(layer.self_attn, tl["self_attn"])
+        f.norm(layer.norm1, tl["norm1"])
+        f.norm(layer.norm2, tl["norm2"])
+        f.linear(layer.linear1, tl["linear1"])
+        f.linear(layer.linear2, tl["linear2"])
+    f.norm(mod.norm, t["norm"])
+
+
 def _fill_branch(f: _Filler, mod, p: Dict, stats: Dict) -> None:
-    f.put(mod.cls, p["cls"])
-    sa = p["self_att"]
-    f.packed_mha(mod.self_att.multihead_attn_layer, sa["multihead_attn_layer"])
-    f.norm(mod.self_att.attentionBlock_Norm, sa["attentionBlock_Norm"])
-    f.linear(mod.parallel_proj, p["parallel_proj"])
-    ds = p["downsampling"]
-    f.conv1d(mod.downsampling.conv, ds["conv_0"])
-    f.linear(mod.downsampling.weight_proj, ds["weight_proj"])
-    head, ph = mod.head, p["head"]
-    f.linear(head.linear_proj, ph["linear_proj"])
-    f.norm(head.bn_layer, ph["bn_layer"])
-    f.put(head.bn_layer.running_mean, stats["head"]["bn_layer"]["mean"])
-    f.put(head.bn_layer.running_var, stats["head"]["bn_layer"]["var"])
+    """Any of the five branches: whichever of the CLS tokens, the parallel
+    projection, CIF and the keyword head (with its BN in its layout and the
+    running statistics from `batch_stats`) the module has."""
+    for name in ("cls", "parallel_cls", "cascaded_cls"):
+        if hasattr(mod, name):
+            f.put(getattr(mod, name), p[name])
+    _fill_self_att(f, mod.self_att, p["self_att"])
+    for name in ("parallel_proj", "linear_proj"):
+        if getattr(mod, name, None) is not None:
+            _fill_mlp(f, getattr(mod, name), p[name])
+    if hasattr(mod, "downsampling"):
+        ds = p["downsampling"]
+        f.conv1d(mod.downsampling.conv, ds["conv_0"])
+        f.linear(mod.downsampling.weight_proj, ds["weight_proj"])
+    if hasattr(mod, "head"):
+        head, ph = mod.head, p["head"]
+        _fill_mlp(f, head.linear_proj, ph["linear_proj"])
+        if hasattr(head, "bn_layer"):
+            f.norm(head.bn_layer, ph["bn_layer"])
+            f.put(head.bn_layer.running_mean, stats["head"]["bn_layer"]["mean"])
+            f.put(head.bn_layer.running_var, stats["head"]["bn_layer"]["var"])
 
 
 def _finish(f: _Filler, *trees: _Tree) -> None:
@@ -215,6 +250,10 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> None:
         f.put(model.criterion_log_inv_temp, p["criterion_log_inv_temp"])
     _fill_hubert(f, model.audio_encoder, p["audio_encoder"])
     _fill_clip(f, model.clip, p["clip"])
-    _fill_branch(f, model.cascaded_branch, p["cascaded_branch"],
-                 stats.get("cascaded_branch", {}))
+    for name in ("cascaded_branch", "parallel_branch"):
+        if getattr(model, name) is not None:
+            _fill_branch(f, getattr(model, name), p[name], stats.get(name, {}))
+    for name in ("img_enc_proj_net", "p_branch_proj_net", "c_branch_proj_net"):
+        if getattr(model, name) is not None:
+            _fill_mlp(f, getattr(model, name), p[name])
     _finish(f, p, stats)

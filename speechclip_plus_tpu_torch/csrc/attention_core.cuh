@@ -34,16 +34,9 @@
 #include <stdint.h>
 
 #include "dropout_mask.cuh"
+#include "numeric.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 constexpr int AQ = 64, AK = 64, A_THREADS = 256;
 constexpr float RAGGED_KEY = -2e30f;  // below the -1e30 padding bias

@@ -35,7 +35,10 @@
 //      per score tile from an fp32 (H | 1, T, T) tensor (4.9 MB at the
 //      WavLM shape, resident in L2), scaled by gate[b, h, i]: the
 //      (B, H, T, T) gated bias never exists. The TPU kernel rounded it to
-//      bf16 to fit VMEM; here it stays fp32.
+//      bf16 to fit VMEM; here it stays fp32. A head of dh = 768 (the
+//      cascaded branches: one head over the model width) does not fit that
+//      kernel's tiles; it runs the chunked kernel of attention_wide.cuh,
+//      same inputs, outputs and modes.
 //
 // Dropout. The keep mask of weight (b, h, i, j) is the counter hash of
 // dropout_mask.cuh, seeded from a device (seed, offset) pair, so the
@@ -55,6 +58,7 @@
 #include <stdint.h>
 
 #include "attention_core.cuh"
+#include "attention_wide.cuh"
 
 using namespace nvcuda;
 
@@ -271,6 +275,26 @@ int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
   else if (dh == 96)
     err = ctx_bf16 ? SC_ATTN(bf16, 96) : SC_ATTN(float, 96);
 #undef SC_ATTN
+  if (dh == 768) {
+    WideParams w = {};
+    w.qkv = qkv;
+    w.key_bias = key_bias;
+    w.ab = ab;
+    w.ab_head_stride = p.ab_head_stride;
+    w.gate = gate;
+    w.seed = seed;
+    w.keep_thresh = keep_thresh;
+    w.inv_keep = inv_keep;
+    w.lse = lse;
+    w.out = ctx;
+    w.T = Tn;
+    w.H = H;
+#define SC_WIDE(TO)                                                         \
+  (ab != nullptr ? launch_wide<WIDE_FWD, TO, 768, true>(w, B, stream)       \
+                 : launch_wide<WIDE_FWD, TO, 768, false>(w, B, stream))
+    err = ctx_bf16 ? SC_WIDE(bf16) : SC_WIDE(float);
+#undef SC_WIDE
+  }
   return (int)err;
 }
 

@@ -7,10 +7,12 @@
 // q|k|v buffer that K1's projection writes. dx = dqkv Wqkv, dWqkv and dbqkv
 // stay plain matmuls and sums outside, as they are XLA in JAX (:382-390).
 //
-// What it computes, per (batch, head), with s = q k^T + key_bias (q already
-// scaled by 1/sqrt(dh) in K1's epilogue), p = softmax(s), mask m from the
-// counter hash of dropout_mask.cuh (the forward's mask, regenerated) and
-// w = p * m / keep:
+// What it computes, per (batch, head), with s = q k^T + key_bias + ab (q
+// already scaled by 1/sqrt(dh) in K1's epilogue; ab the optional per-head
+// additive bias (H | 1, T, T), `has_ab` in the Pallas kernel, :113, :153-154:
+// the text tower's causal mask; it takes no gradient), p = softmax(s), mask
+// m from the counter hash of dropout_mask.cuh (the forward's mask,
+// regenerated) and w = p * m / keep:
 //   dv = w^T dctx,  dp = (dctx v^T) * m / keep,  ds = p * (dp - D),
 //   dk = ds^T q,    dq = scale * ds k
 // with D_i = rowsum(dctx_i * ctx_i), which equals sum_j dp_ij p_ij with
@@ -32,21 +34,18 @@
 // atomics, so repeated runs are bit-identical. Simple first: the products
 // are fp32 FMAs from shared memory (q, k and v are fp32 in K1's buffer), as
 // in K1's attention kernel; tensor cores and pipelining are later work.
+// A head of dh = 768 (the cascaded branches) does not fit these tiles (four
+// (64, 769) fp32 tiles are 787 KB); it runs the chunked kernels of
+// attention_wide.cuh behind the same entry point.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attention_wide.cuh"
 #include "dropout_mask.cuh"
+#include "numeric.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 constexpr int BT = 64, B_THREADS = 256;  // 64 x 64 (query, key) tiles
 constexpr int LS = BT + 1;               // row stride of the (64, 64) tiles
@@ -79,7 +78,7 @@ template <int DH>
 __device__ __forceinline__ void score_grad_tile(
     const float* Qs, const float* Gs, const float* Ks, const float* Vs,
     const float* lse_s, const float* d_s, const float* __restrict__ kb,
-    int q0, int k0, int Tn, bool drop, const uint32_t row_key[4],
+    const float* __restrict__ abh, int q0, int k0, int Tn, bool drop, const uint32_t row_key[4],
     const uint32_t col_key[4], uint32_t thresh, float inv_keep, float* ws,
     float* dss) {
   constexpr int LD = DH + 1;
@@ -114,7 +113,9 @@ __device__ __forceinline__ void score_grad_tile(
     for (int i = 0; i < 4; ++i) {
       const int qr = ty * 4 + i;
       // p from the forward's log-sum-exp; nothing outside T x T
-      const float p = (kt < Tn && q0 + qr < Tn) ? expf(s[i][j] + bj - lse_s[qr]) : 0.f;
+      const bool in = kt < Tn && q0 + qr < Tn;
+      const float sb = (abh != nullptr && in) ? bj + abh[(size_t)(q0 + qr) * Tn + kt] : bj;
+      const float p = in ? expf(s[i][j] + sb - lse_s[qr]) : 0.f;
       float w = p, dpv = dp[i][j];
       if (drop) {
         const bool keep = sc_keep(row_key[i], col_key[j], thresh);
@@ -155,6 +156,7 @@ __global__ void bwd_dvec_kernel(const TG* __restrict__ dctx, const TG* __restric
 template <typename TG, int DH>
 __global__ void __launch_bounds__(B_THREADS) bwd_dkdv_kernel(
     const float* __restrict__ qkv, const float* __restrict__ key_bias,
+    const float* __restrict__ ab, int64_t ab_head_stride,
     const TG* __restrict__ dctx, const float* __restrict__ lse,
     const float* __restrict__ dvec, const int64_t* __restrict__ seed,
     uint32_t thresh, float inv_keep, TG* __restrict__ dqkv, int Tn, int H) {
@@ -177,6 +179,7 @@ __global__ void __launch_bounds__(B_THREADS) bwd_dkdv_kernel(
   const float* kb = key_bias + (size_t)b * Tn;
   const size_t bh = ((size_t)b * H + h) * Tn;
   const bool drop = seed != nullptr;
+  const float* abh = ab != nullptr ? ab + h * ab_head_stride : nullptr;
 
   load_tile<DH>(Ks, base + D, rs3, k0, Tn);
   load_tile<DH>(Vs, base + 2 * D, rs3, k0, Tn);
@@ -198,7 +201,7 @@ __global__ void __launch_bounds__(B_THREADS) bwd_dkdv_kernel(
     __syncthreads();
     uint32_t row_key[4] = {}, col_key[4] = {};
     if (drop) mask_keys(seed, b, h, H, Tn, q0, k0, row_key, col_key);
-    score_grad_tile<DH>(Qs, Gs, Ks, Vs, lse_s, d_s, kb, q0, k0, Tn, drop, row_key,
+    score_grad_tile<DH>(Qs, Gs, Ks, Vs, lse_s, d_s, kb, abh, q0, k0, Tn, drop, row_key,
                         col_key, thresh, inv_keep, Ws, Ds);
     __syncthreads();
     // dv[k] += sum_q w[q][k] dctx[q];  dk[k] += sum_q ds[q][k] q[q]
@@ -239,6 +242,7 @@ __global__ void __launch_bounds__(B_THREADS) bwd_dkdv_kernel(
 template <typename TG, int DH>
 __global__ void __launch_bounds__(B_THREADS) bwd_dq_kernel(
     const float* __restrict__ qkv, const float* __restrict__ key_bias,
+    const float* __restrict__ ab, int64_t ab_head_stride,
     const TG* __restrict__ dctx, const float* __restrict__ lse,
     const float* __restrict__ dvec, const int64_t* __restrict__ seed,
     uint32_t thresh, float inv_keep, float scale, TG* __restrict__ dqkv, int Tn, int H) {
@@ -260,6 +264,7 @@ __global__ void __launch_bounds__(B_THREADS) bwd_dq_kernel(
   const float* kb = key_bias + (size_t)b * Tn;
   const size_t bh = ((size_t)b * H + h) * Tn;
   const bool drop = seed != nullptr;
+  const float* abh = ab != nullptr ? ab + h * ab_head_stride : nullptr;
 
   load_tile<DH>(Qs, base, rs3, q0, Tn);
   load_tile<DH>(Gs, gbase, D, q0, Tn);
@@ -281,7 +286,7 @@ __global__ void __launch_bounds__(B_THREADS) bwd_dq_kernel(
     __syncthreads();
     uint32_t row_key[4] = {}, col_key[4] = {};
     if (drop) mask_keys(seed, b, h, H, Tn, q0, k0, row_key, col_key);
-    score_grad_tile<DH>(Qs, Gs, Ks, Vs, lse_s, d_s, kb, q0, k0, Tn, drop, row_key,
+    score_grad_tile<DH>(Qs, Gs, Ks, Vs, lse_s, d_s, kb, abh, q0, k0, Tn, drop, row_key,
                         col_key, thresh, inv_keep, nullptr, Ds);
     __syncthreads();
     // dq[q] += sum_k ds[q][k] k[k]  (thread owns queries ty*4 + i)
@@ -310,7 +315,8 @@ __global__ void __launch_bounds__(B_THREADS) bwd_dq_kernel(
 }
 
 template <typename TG, int DH>
-cudaError_t launch_bwd(const float* qkv, const float* key_bias, const void* dctx,
+cudaError_t launch_bwd(const float* qkv, const float* key_bias, const float* ab,
+                       int64_t ab_head_stride, const void* dctx,
                        const void* ctx, const float* lse, float* dvec, const int64_t* seed,
                        uint32_t thresh, float inv_keep, float scale, void* dqkv, int B,
                        int Tn, int H, cudaStream_t stream) {
@@ -330,12 +336,30 @@ cudaError_t launch_bwd(const float* qkv, const float* key_bias, const void* dctx
   if (err != cudaSuccess) return err;
   const dim3 grid((Tn + BT - 1) / BT, H, B);
   bwd_dkdv_kernel<TG, DH><<<grid, B_THREADS, s1, stream>>>(
-      qkv, key_bias, g, lse, dvec, seed, thresh, inv_keep, out, Tn, H);
+      qkv, key_bias, ab, ab_head_stride, g, lse, dvec, seed, thresh, inv_keep, out, Tn, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dq_kernel<TG, DH><<<grid, B_THREADS, s2, stream>>>(
-      qkv, key_bias, g, lse, dvec, seed, thresh, inv_keep, scale, out, Tn, H);
+      qkv, key_bias, ab, ab_head_stride, g, lse, dvec, seed, thresh, inv_keep, scale, out, Tn,
+      H);
   return cudaGetLastError();
+}
+
+// dh = 768: D, then dq, dk and dv, each one launch of the chunked kernel
+template <typename TG, bool HAS_AB>
+cudaError_t launch_bwd_wide(const WideParams& p, const void* ctx, float* dvec, int B,
+                            cudaStream_t stream) {
+  constexpr int DH = 768;
+  const int rows = B * p.T * p.H;
+  bwd_dvec_kernel<TG><<<(rows + 255) / 256, 256, 0, stream>>>(
+      static_cast<const TG*>(p.dctx), static_cast<const TG*>(ctx), dvec, B, p.T, p.H, DH);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_wide<WIDE_DQ, TG, DH, HAS_AB>(p, B, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_wide<WIDE_DK, TG, DH, HAS_AB>(p, B, stream);
+  if (err != cudaSuccess) return err;
+  return launch_wide<WIDE_DV, TG, DH, HAS_AB>(p, B, stream);
 }
 
 }  // namespace
@@ -343,21 +367,49 @@ cudaError_t launch_bwd(const float* qkv, const float* key_bias, const void* dctx
 extern "C" {
 
 // dqkv (B, T, 3*H*dh) from the packed fp32 qkv (q scaled by `scale`), the
-// key bias (B, T) fp32, the context cotangent dctx and the context ctx
-// (B, T, H*dh; bf16 when g_bf16, else fp32, as is dqkv), K1's log-sum-exp
+// key bias (B, T) fp32, the optional per-head bias `ab` (ab_heads, T, T) fp32
+// with ab_heads 1 or H (null for none), the context cotangent dctx and the
+// context ctx (B, T, H*dh; bf16 when g_bf16, else fp32, as is dqkv), K1's log-sum-exp
 // lse (B, H, T) fp32, and the dropout seed (device int64 [seed, offset], or
 // null for none) with its threshold and 1/keep. Scratch: dvec (B, H, T)
 // fp32. dq is returned times `scale`. Returns a cudaError_t.
-int sc_fab_attention_bwd(const float* qkv, const float* key_bias, const void* dctx,
+int sc_fab_attention_bwd(const float* qkv, const float* key_bias, const float* ab,
+                         int ab_heads, const void* dctx,
                          const void* ctx, const float* lse, float* dvec,
                          const int64_t* seed, unsigned int keep_thresh, float inv_keep,
                          float scale, void* dqkv, int B, int Tn, int H, int dh,
                          int g_bf16, cudaStream_t stream) {
   if (B <= 0 || Tn <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (ab != nullptr && ab_heads != 1 && ab_heads != H) return (int)cudaErrorInvalidValue;
+  const int64_t ab_stride = ab_heads == 1 ? 0 : (int64_t)Tn * Tn;
   cudaError_t err;
-#define SC_BWD(TG, DHV)                                                              \
-  launch_bwd<TG, DHV>(qkv, key_bias, dctx, ctx, lse, dvec, seed, keep_thresh, inv_keep, \
-                      scale, dqkv, B, Tn, H, stream)
+  if (dh == 768) {
+    WideParams p = {};
+    p.qkv = qkv;
+    p.key_bias = key_bias;
+    p.ab = ab;
+    p.ab_head_stride = ab_stride;
+    p.seed = seed;
+    p.keep_thresh = keep_thresh;
+    p.inv_keep = inv_keep;
+    p.lse = const_cast<float*>(lse);
+    p.dctx = dctx;
+    p.dvec = dvec;
+    p.out = dqkv;
+    p.scale = scale;
+    p.T = Tn;
+    p.H = H;
+    if (ab != nullptr)
+      err = g_bf16 ? launch_bwd_wide<bf16, true>(p, ctx, dvec, B, stream)
+                   : launch_bwd_wide<float, true>(p, ctx, dvec, B, stream);
+    else
+      err = g_bf16 ? launch_bwd_wide<bf16, false>(p, ctx, dvec, B, stream)
+                   : launch_bwd_wide<float, false>(p, ctx, dvec, B, stream);
+    return (int)err;
+  }
+#define SC_BWD(TG, DHV)                                                            \
+  launch_bwd<TG, DHV>(qkv, key_bias, ab, ab_stride, dctx, ctx, lse, dvec, seed,    \
+                      keep_thresh, inv_keep, scale, dqkv, B, Tn, H, stream)
   if (dh == 64)
     err = g_bf16 ? SC_BWD(bf16, 64) : SC_BWD(float, 64);
   else if (dh == 96)

@@ -3,8 +3,15 @@
 Port of ``speechclip_plus_tpu/models/clip.py`` (reference
 ``avssl/module/clip_official.py``): pre-norm blocks with quick-GELU MLPs and
 packed-QKV attention. The vision tower's attention runs through the fused
-attention block with the out-projection fused in (K1); the text tower keeps
-the plain path with its causal mask, as in JAX.
+attention block with the out-projection fused in (K1). The text tower keeps
+the plain path with its causal mask by default, as in JAX;
+`ClipConfig.text_fused_attention_vjp` (the `clip.text_fused_attention_vjp`
+key) routes it through the differentiable block instead (K1 context-only
+forward, K2 backward, the causal mask as their per-head bias; JAX
+``:181-199``), for a frozen tower whose keyword inputs take gradients.
+`text_remat_mode` recomputes the text blocks ("full") or their attention
+("attn") in the backward with `torch.utils.checkpoint` instead of saving
+their activations ("none"); values and gradients are the same in every mode.
 
 `encode_keywords` (``clip.py:404-439``) builds [SOT, kw_1..kw_n, EOT, 0...]
 over the static context with selects, so the keyword count is data, and pools
@@ -18,6 +25,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.attention import MultiheadAttention
 from ..nn.transformer import LayerNorm
@@ -40,7 +48,17 @@ class ClipConfig:
     text_layers: int = 12
     sot_id: int = 49406
     eot_id: int = 49407
+    # the text tower's attention through K1 + K2 (frozen tower only)
+    text_fused_attention_vjp: bool = False
+    # what the text tower recomputes in the backward: "full" (each block),
+    # "attn" (each block's attention) or "none"; ignored with the fused route,
+    # which saves no (B, H, T, T) tensor to begin with
+    text_remat_mode: str = "none"
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.text_remat_mode not in ("full", "attn", "none"):
+            raise ValueError(f"text_remat_mode {self.text_remat_mode!r}: full, attn or none")
 
     @staticmethod
     def vit_b32() -> "ClipConfig":
@@ -60,29 +78,60 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def _remat(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """fn(x, *args), recomputed in the backward when x takes a gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint(fn, x, *args, use_reentrant=False)
+    return fn(x, *args)
+
+
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, d_model: int, n_head: int, dtype: torch.dtype):
+    """Pre-norm block. `fused_vjp` sends the attention, mask included, through
+    the differentiable fused block (K1 + K2); `remat_attn` recomputes the
+    plain attention in the backward."""
+
+    def __init__(self, d_model: int, n_head: int, dtype: torch.dtype, fused_vjp: bool = False,
+                 remat_attn: bool = False):
         super().__init__()
+        self.fused_vjp, self.remat_attn = fused_vjp, remat_attn
         self.ln_1 = LayerNorm(d_model, dtype=dtype)
-        self.attn = MultiheadAttention(d_model, n_head, fuse_out=True, dtype=dtype)
+        self.attn = MultiheadAttention(d_model, n_head, fuse_out=not fused_vjp, dtype=dtype)
         self.ln_2 = LayerNorm(d_model, dtype=dtype)
         self.c_fc = nn.Linear(d_model, 4 * d_model, dtype=dtype)
         self.c_proj = nn.Linear(4 * d_model, d_model, dtype=dtype)
 
+    def _attend(self, h: torch.Tensor, attn_mask=None) -> torch.Tensor:
+        if self.fused_vjp:
+            # the mask rides the kernels as their per-head bias: (T, T),
+            # (1, T, T) or (H, T, T); any other shape raises there (JAX cuts a
+            # 4-D bias to its first entry, ``:188-189``)
+            return self.attn(h, attn_bias=attn_mask)
+        return self.attn(h, attn_mask=attn_mask)
+
     def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), attn_mask=attn_mask)
+        h = self.ln_1(x)
+        if self.remat_attn and not self.fused_vjp:
+            x = x + _remat(self._attend, h, attn_mask)
+        else:
+            x = x + self._attend(h, attn_mask)
         return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype,
+                 fused_vjp: bool = False, remat: str = "none"):
         super().__init__()
+        # the fused route saves only each layer's input and K1's qkv and lse,
+        # so recomputing on top of it would rerun the forward for nothing
+        self.remat_full = remat == "full" and not fused_vjp
         self.blocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, dtype) for _ in range(layers))
+            ResidualAttentionBlock(width, heads, dtype, fused_vjp=fused_vjp,
+                                   remat_attn=remat == "attn")
+            for _ in range(layers))
 
     def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x, attn_mask)
+            x = _remat(block, x, attn_mask) if self.remat_full else block(x, attn_mask)
         return x
 
 
@@ -123,7 +172,9 @@ class TextTransformer(nn.Module):
         self.token_embedding = nn.Embedding(c.vocab_size, c.text_width)
         self.positional_embedding = nn.Parameter(torch.zeros(c.context_length, c.text_width,
                                                              dtype=dt))
-        self.transformer = Transformer(c.text_width, c.text_layers, c.text_heads, dt)
+        self.transformer = Transformer(c.text_width, c.text_layers, c.text_heads, dt,
+                                       fused_vjp=c.text_fused_attention_vjp,
+                                       remat=c.text_remat_mode)
         self.ln_final = LayerNorm(c.text_width, dtype=dt)
         self.text_projection = nn.Parameter(torch.zeros(c.text_width, c.embed_dim, dtype=dt))
         t = c.context_length

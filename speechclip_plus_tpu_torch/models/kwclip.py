@@ -1,10 +1,12 @@
-"""KWClip: the SpeechCLIP+ hybrid+ model.
+"""KWClip: the SpeechCLIP and SpeechCLIP+ models.
 
-Port of ``speechclip_plus_tpu/models/kwclip.py`` for the hybrid+ family
-(`HybridBranch_dynamic`): frozen HuBERT or WavLM tower -> softmax-weighted sum of its
-hidden states -> HybridBranchPlus; the keywords go through the frozen CLIP
-text tower (`encode_keywords`); images through the frozen ViT, or come as
-cached image features.
+Port of ``speechclip_plus_tpu/models/kwclip.py`` for the five branch families
+at base width (parallel, cascaded, cascaded+, hybrid, hybrid+): frozen HuBERT
+or WavLM tower -> softmax-weighted sum of its hidden states -> the branch; the
+keywords of a cascaded or hybrid branch go through the frozen CLIP text tower
+(`encode_keywords`); images through the frozen ViT, or come as cached image
+features. A model with one objective has one feature: the other is None in
+`encode_speech` and absent from the loss.
 
 `forward` is the JAX `__call__` (``:829-992``): (loss_feats, log_metrics,
 others) for a batch, in training with keyword-BN batch statistics, CIF alpha
@@ -19,8 +21,8 @@ keyword inputs of the text tower and the learnable contrastive temperature
 keyword projection and the CIF conv in bf16, as `KWClipConfig.from_config`
 does in JAX (``:281-287``, ``:515-525``): the frozen towers store bf16, the
 trainable modules keep fp32 master weights and compute in bf16; statistics,
-BN, the alpha head and the VQ codebook stay fp32. Other branch types raise
-NotImplementedError.
+BN, the alpha head and the VQ codebook stay fp32. Configuration keys the port
+does not implement raise by name.
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ from torch import nn
 
 from ..ops.losses import masked_contrastive_loss, quantity_l1_loss
 from ..ops.weighted_sum import layer_weights
-from .branches import HybridBranchPlus, KeywordHeadConfig, TransformerArgs, VQConfig
+from ..nn.mlp import MLPLayers
+from .branches import (CascadedBranch, CascadedBranchPlus, HybridBranch, HybridBranchPlus,
+                       KeywordHeadConfig, KwBnConfig, ParallelBranch, TransformerArgs,
+                       VQConfig)
 from .cif import CifConfig
 from .clip import ClipConfig, ClipModel
 from .hubert import HubertConfig, HubertModel
@@ -72,31 +77,51 @@ class ClLossConfig:
 class KWClipConfig:
     audio: HubertConfig = HubertConfig()
     clip: ClipConfig = ClipConfig()
+    branch_type: str = "HybridBranch_plus"  # normalized alias; "" = parallel only
+    parallel_ta: TransformerArgs = TransformerArgs(type="TransformerEncoder")
     cascaded_ta: TransformerArgs = TransformerArgs()
     head: KeywordHeadConfig = KeywordHeadConfig()
-    cif: CifConfig = CifConfig()
+    cif: Optional[CifConfig] = CifConfig()
     cl_loss: ClLossConfig = ClLossConfig()
     cascaded_objective_weight: float = 1.0
     parallel_objective_weight: float = 1.0
+    need_projection: bool = True  # the parallel feature's projection
+    img_proj_dims: Optional[Tuple[int, ...]] = None
+    img_proj_dropout: float = 0.1
+    p_proj_dims: Optional[Tuple[int, ...]] = None
+    p_proj_dropout: float = 0.1
+    # the hybrid branch's own parallel projection (`projection_config`,
+    # reference kw_branches.py:492-505), distinct from `p_proj_dims`
+    pbranch_proj_dims: Optional[Tuple[int, ...]] = None
+    pbranch_proj_dropout: float = 0.1
+    c_proj_dims: Optional[Tuple[int, ...]] = None
+    c_proj_dropout: float = 0.1
     retrieval_audio_feat_src: str = "parallel"
+
+    @property
+    def keyword_num(self) -> Optional[int]:
+        """K for the fixed-keyword branches, None for the dynamic (plus) ones."""
+        if self.branch_type in ("CascadedBranch", "HybridBranch"):
+            return self.head.keyword_num
+        return None
+
+    @property
+    def has_parallel(self) -> bool:
+        return self.parallel_objective_weight > 0
+
+    @property
+    def has_cascaded(self) -> bool:
+        return self.cascaded_objective_weight > 0 and self.branch_type != ""
 
     @staticmethod
     def from_config(cfg, *, vocab_size: Optional[int] = None, sot_id: Optional[int] = None,
                     eot_id: Optional[int] = None) -> "KWClipConfig":
-        """From a reference-format ConfigNode, hybrid+ family only."""
+        """From a reference-format ConfigNode: the parallel, cascaded,
+        cascaded+, hybrid and hybrid+ families at base width (JAX
+        ``:150-627``). Keys the port does not implement raise by name."""
         ms = cfg.model_settings
-        cb = getattr(ms, "cascaded_branch", None)
-        if float(getattr(ms, "cascaded_objective_weight", 0.0)) <= 0 or cb is None \
-                or cb.type.replace("KW_", "").replace("dynamic", "plus") != "HybridBranch_plus":
-            raise NotImplementedError(
-                "the PyTorch port builds the hybrid+ branch (HybridBranch_dynamic) only")
-        for key in ("image_encoder_projection", "parallel_branch_projection",
-                    "cascaded_branch_projection"):
-            if ms.get(key, None) is not None:
-                raise NotImplementedError(f"model_settings.{key}")
-        kw = getattr(cb, "keyword", None)
-        if kw is not None and getattr(kw, "kw_projection", None) is not None:
-            raise NotImplementedError("keyword.kw_projection MLP")
+        c_w = float(getattr(ms, "cascaded_objective_weight", 0.0))
+        p_w = float(getattr(ms, "parallel_objective_weight", 0.0))
         ae = cfg.audio_encoder
         if getattr(ae, "feat_select_idx", "weighted_sum") != "weighted_sum" \
                 or getattr(ae, "normalize_hiddenstates", False):
@@ -111,12 +136,20 @@ class KWClipConfig:
             if on and audio_is_trainable:
                 raise ValueError(f"audio_encoder.{key} requires a frozen tower "
                                  f"(forward-only kernel, nn/{key}.py)")
-        if audio_is_trainable \
-                or getattr(cfg.clip, "image_encoder_trainable", False) \
-                or getattr(cfg.clip, "text_encoder_trainable", False):
+        text_trainable = bool(getattr(cfg.clip, "text_encoder_trainable", False))
+        text_vjp = getattr(cfg.clip, "text_fused_attention_vjp", None)
+        if text_vjp and text_trainable:
+            raise ValueError("clip.text_fused_attention_vjp assumes a frozen text tower "
+                             "(the backward returns input gradients only)")
+        if audio_is_trainable or text_trainable \
+                or getattr(cfg.clip, "image_encoder_trainable", False):
             raise NotImplementedError("trainable towers (the port trains frozen towers only)")
         if float(getattr(ae, "layer_drop", 0.0) or 0.0) != 0.0:
             raise NotImplementedError("audio_encoder.layer_drop")
+        for key in ("fused_attention_vjp", "fused_score_kernel"):
+            if getattr(ms, key, None) is False:
+                raise NotImplementedError(
+                    f"model_settings.{key}: false (the port's branch always runs its kernels)")
 
         if getattr(cfg.clip, "tiny", False):
             width = int(getattr(cfg.clip, "tiny_width", 32))
@@ -128,6 +161,17 @@ class KWClipConfig:
         if vocab_size is not None:
             clip_cfg = dataclasses.replace(clip_cfg, vocab_size=vocab_size, sot_id=sot_id,
                                            eot_id=eot_id)
+        # `clip.text_remat`: full | attn | none (true = full, false = none).
+        # Unset means none here, where JAX defaults to full: recomputing
+        # changes no value, only time and memory (ROADMAP C, PERF.md).
+        text_remat = getattr(cfg.clip, "text_remat", None)
+        if text_remat is None or getattr(cfg.clip, "remat", None) is False:
+            text_remat = "none"
+        if text_remat in (True, False):
+            text_remat = "full" if text_remat else "none"
+        clip_cfg = dataclasses.replace(clip_cfg, text_fused_attention_vjp=bool(text_vjp),
+                                       text_remat_mode=str(text_remat))
+
         if getattr(ae, "tiny", False):
             audio_cfg = HubertConfig.tiny(d_model=int(getattr(ae, "tiny_width", 32)))
         else:
@@ -143,35 +187,80 @@ class KWClipConfig:
         if fused_blk is not None:
             audio_cfg = dataclasses.replace(audio_cfg, fused_attention_block=bool(fused_blk))
 
-        ta = TransformerArgs.from_config(cb.transformer_args)
-        bn = getattr(kw, "batchnorms", None) if kw is not None else None
-        if bn is None:
-            raise NotImplementedError("hybrid+ without keyword.batchnorms")
-        head = KeywordHeadConfig(
-            d_model=ta.d_model, text_dim=clip_cfg.text_width,
-            vq=VQConfig.from_config(cb.vq.args),
-            bn_std_scale=float(getattr(bn, "std_scale", 1.0)))
-        ds = getattr(cb, "downsampling", None)
-        if ds is None or getattr(ds, "type", None) != "cif":
-            raise NotImplementedError("hybrid+ without CIF downsampling")
-        cif = CifConfig.from_config(ds.cif)
-        # keyword slots + SOT + EOT must fit the text context (75 + 2 = 77)
-        cif = dataclasses.replace(
-            cif, max_feat_len=min(cif.max_feat_len, clip_cfg.context_length - 2))
+        def branch_ta(node) -> TransformerArgs:
+            """`transformer_args`; the original-SpeechCLIP configs name the
+            block type in a sibling `transformer_type` key instead."""
+            args = node.transformer_args
+            ta = TransformerArgs.from_config(args)
+            d = args.to_dict() if hasattr(args, "to_dict") else dict(args)
+            sibling = getattr(node, "transformer_type", None)
+            if sibling and "type" not in d:
+                ta = dataclasses.replace(ta, type=sibling)
+            return ta
+
+        branch_type, cascaded_ta, head, cif = "", TransformerArgs(), KeywordHeadConfig(), None
+        if c_w > 0:
+            cb = ms.cascaded_branch
+            branch_type = cb.type.replace("KW_", "").replace("dynamic", "plus")
+            if branch_type not in ("CascadedBranch", "CascadedBranch_plus", "HybridBranch",
+                                   "HybridBranch_plus"):
+                raise NotImplementedError(f"cascaded_branch.type {cb.type!r}")
+            cascaded_ta = branch_ta(cb)
+            kw = getattr(cb, "keyword", None)
+            kwp = getattr(kw, "kw_projection", None) if kw is not None else None
+            head = KeywordHeadConfig(
+                d_model=cascaded_ta.d_model, text_dim=clip_cfg.text_width,
+                kw_proj_dims=tuple(kwp.dimensions) if kwp is not None else None,
+                kw_proj_dropout=float(kwp.dropout) if kwp is not None else 0.1,
+                vq=VQConfig.from_config(cb.vq.args),
+                bn=KwBnConfig.from_config(getattr(kw, "batchnorms", None)
+                                          if kw is not None else None),
+                keyword_num=int(getattr(kw, "number", 8)) if kw is not None else 8)
+            ds = getattr(cb, "downsampling", None)
+            if ds is not None and getattr(ds, "type", None) == "cif":
+                cif = CifConfig.from_config(ds.cif)
+                # keyword slots + SOT + EOT must fit the text context (75 + 2 = 77)
+                cif = dataclasses.replace(
+                    cif, max_feat_len=min(cif.max_feat_len, clip_cfg.context_length - 2))
+            if branch_type.endswith("_plus") and cif is None:
+                raise NotImplementedError(f"{branch_type} without CIF downsampling")
+        pb = getattr(ms, "parallel_branch", None)
+        parallel_ta = (branch_ta(pb) if p_w > 0 and pb is not None
+                       else TransformerArgs(type="TransformerEncoder"))
+        pb_proj = getattr(pb, "projection_config", None) if pb is not None else None
 
         precision = str(getattr(getattr(cfg, "trainer", None), "precision", 32) or 32).lower()
         if precision in _HALF:
             bf = torch.bfloat16
             audio_cfg = dataclasses.replace(audio_cfg, dtype=bf)
             clip_cfg = dataclasses.replace(clip_cfg, dtype=bf)
-            ta = dataclasses.replace(ta, compute_dtype=bf)
+            cascaded_ta = dataclasses.replace(cascaded_ta, compute_dtype=bf)
+            parallel_ta = dataclasses.replace(parallel_ta, compute_dtype=bf)
             head = dataclasses.replace(head, compute_dtype=bf)
-            cif = dataclasses.replace(cif, compute_dtype=bf)
+            if cif is not None:
+                cif = dataclasses.replace(cif, compute_dtype=bf)
+
+        def proj(name):
+            node = ms.get(name, None) if hasattr(ms, "get") else getattr(ms, name, None)
+            if node is None:
+                return None, 0.1
+            return tuple(node.dimensions), float(node.dropout)
+
+        img_dims, img_drop = proj("image_encoder_projection")
+        pb_dims, pb_drop = proj("parallel_branch_projection")
+        cb_dims, cb_drop = proj("cascaded_branch_projection")
         return KWClipConfig(
-            audio=audio_cfg, clip=clip_cfg, cascaded_ta=ta, head=head, cif=cif,
+            audio=audio_cfg, clip=clip_cfg, branch_type=branch_type, parallel_ta=parallel_ta,
+            cascaded_ta=cascaded_ta, head=head, cif=cif,
             cl_loss=ClLossConfig.from_config(cfg.cl_loss),
-            cascaded_objective_weight=float(ms.cascaded_objective_weight),
-            parallel_objective_weight=float(getattr(ms, "parallel_objective_weight", 0.0)),
+            cascaded_objective_weight=c_w, parallel_objective_weight=p_w,
+            need_projection=bool(getattr(pb, "need_projection", True)) if pb is not None
+            else True,
+            img_proj_dims=img_dims, img_proj_dropout=img_drop,
+            p_proj_dims=pb_dims, p_proj_dropout=pb_drop,
+            pbranch_proj_dims=tuple(pb_proj.dimensions) if pb_proj is not None else None,
+            pbranch_proj_dropout=float(pb_proj.dropout) if pb_proj is not None else 0.1,
+            c_proj_dims=cb_dims, c_proj_dropout=cb_drop,
             retrieval_audio_feat_src=getattr(cfg.retrieval, "audio_feat_src", "parallel"))
 
 
@@ -182,16 +271,40 @@ def _l2norm(x: torch.Tensor) -> torch.Tensor:
 class KWClip(nn.Module):
     def __init__(self, cfg: KWClipConfig):
         super().__init__()
-        self.cfg = cfg
-        self.audio_encoder = HubertModel(cfg.audio)
-        self.weightedsum = nn.Parameter(torch.zeros(cfg.audio.num_hidden_states))
-        self.clip = ClipModel(cfg.clip)
-        self.cascaded_branch = HybridBranchPlus(cfg.cascaded_ta, cfg.head, cfg.cif,
-                                                out_dim=cfg.clip.text_width)
-        if cfg.cl_loss.temperature_trainable:
+        self.cfg = c = cfg
+        self.audio_encoder = HubertModel(c.audio)
+        self.weightedsum = nn.Parameter(torch.zeros(c.audio.num_hidden_states))
+        self.clip = ClipModel(c.clip)
+        # one branch module: the cascaded / hybrid one, or the parallel one
+        # when only the parallel objective has a weight (JAX :651-686)
+        self.cascaded_branch = self.parallel_branch = None
+        if c.has_cascaded:
+            if c.branch_type == "CascadedBranch":
+                self.cascaded_branch = CascadedBranch(c.cascaded_ta, c.head)
+            elif c.branch_type == "CascadedBranch_plus":
+                self.cascaded_branch = CascadedBranchPlus(c.cascaded_ta, c.head, c.cif)
+            elif c.branch_type == "HybridBranch":
+                self.cascaded_branch = HybridBranch(
+                    c.cascaded_ta, c.head, out_dim=c.clip.text_width,
+                    need_projection=c.need_projection,
+                    parallel_proj_dims=c.pbranch_proj_dims,
+                    parallel_proj_dropout=c.pbranch_proj_dropout)
+            elif c.branch_type == "HybridBranch_plus":
+                self.cascaded_branch = HybridBranchPlus(c.cascaded_ta, c.head, c.cif,
+                                                        out_dim=c.clip.text_width)
+            else:
+                raise NotImplementedError(c.branch_type)
+        elif c.has_parallel:
+            self.parallel_branch = ParallelBranch(c.parallel_ta, out_dim=c.clip.text_width,
+                                                  need_projection=c.need_projection)
+        mlp = lambda dims, p: None if dims is None else MLPLayers(dims, p)
+        self.img_enc_proj_net = mlp(c.img_proj_dims, c.img_proj_dropout)
+        self.p_branch_proj_net = mlp(c.p_proj_dims, c.p_proj_dropout)
+        self.c_branch_proj_net = mlp(c.c_proj_dims, c.c_proj_dropout)
+        if c.cl_loss.temperature_trainable:
             # learnable log(1/T) (reference losses.py:160-163, JAX :706-712)
             self.criterion_log_inv_temp = nn.Parameter(
-                torch.tensor(math.log(1.0 / cfg.cl_loss.temperature)))
+                torch.tensor(math.log(1.0 / c.cl_loss.temperature)))
         # frozen towers: gradients flow through their activations (the text
         # tower's keyword inputs), never into their weights
         self.audio_encoder.requires_grad_(False)
@@ -209,30 +322,58 @@ class KWClip(nn.Module):
         return feat, feat_len
 
     def encode_image_raw(self, image: torch.Tensor) -> torch.Tensor:
-        """Frozen CLIP image features (B, H, W, 3) -> (B, E), before normalization
-        (the quantity a training run may cache)."""
+        """Frozen CLIP image features (B, H, W, 3) -> (B, E), before projection
+        and normalization (the quantity a training run may cache)."""
         return self.clip.encode_image(image)
+
+    def project_image_feat(self, feat: torch.Tensor,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.img_enc_proj_net is not None:
+            feat = self.img_enc_proj_net(feat, generator)
+        return _l2norm(feat)
 
     def encode_parallel(self, wav: torch.Tensor, wav_len: torch.Tensor) -> torch.Tensor:
         """The parallel feature alone: tower and branch attention, no CIF, VQ
         or text tower (what XLA's dead-code elimination leaves of the JAX
         query for feat_src="parallel")."""
+        branch = self.cascaded_branch if self.cascaded_branch is not None \
+            else self.parallel_branch
+        if not hasattr(branch, "parallel_feature"):
+            raise ValueError(f"{self.cfg.branch_type} has no parallel feature")
         feat, feat_len = self.forward_audio(wav, wav_len)
-        return self.cascaded_branch.parallel_feature(feat, feat_len)
+        out = branch.parallel_feature(feat, feat_len)
+        return out if self.p_branch_proj_net is None else self.p_branch_proj_net(out)
 
     def encode_speech(self, wav: torch.Tensor, wav_len: torch.Tensor) -> Dict[str, Any]:
-        """JAX `KWClip.encode_speech` (reference `kwClip.py:1042-1091`)."""
+        """JAX `KWClip.encode_speech` (reference `kwClip.py:1042-1091`); a
+        feature the model does not have is None."""
         feat, feat_len = self.forward_audio(wav, wav_len)
-        token_emb = self.clip.text.token_embedding.weight
-        out = self.cascaded_branch(feat, feat_len, token_emb)
-        cascaded = self.clip.encode_keywords(out["keywords"], out["keywords_len"])
+        if self.cascaded_branch is not None:
+            out = self.cascaded_branch(feat, feat_len, self.clip.text.token_embedding.weight)
+        else:
+            out = self.parallel_branch(feat, feat_len)
+        cascaded = None
+        if out.get("keywords") is not None:
+            cascaded = self.clip.encode_keywords(
+                out["keywords"], out["keywords_len"] if "keywords_len" in out
+                else out["keyword_num"])
+        parallel = out.get("parallel_audio_feat")
+        if parallel is not None and self.p_branch_proj_net is not None:
+            parallel = self.p_branch_proj_net(parallel)
         return {
             "cascaded_audio_feat": cascaded,
-            "parallel_audio_feat": out["parallel_audio_feat"],
-            "vq_results": out["vq_results"],
-            "keywords": out["keywords"],
-            "dsample_results": out["dsample_results"],
+            "parallel_audio_feat": parallel,
+            "vq_results": out.get("vq_results"),
+            "keywords": out.get("keywords"),
+            "dsample_results": out.get("dsample_results"),
         }
+
+    def get_attention_map(self, wav: torch.Tensor, wav_len: torch.Tensor) -> torch.Tensor:
+        """Keyword-CLS attention weights over the frames (fixed-K cascaded
+        branch only; reference `getAttentionMap`)."""
+        if not hasattr(self.cascaded_branch, "get_attention_map"):
+            raise NotImplementedError("attention maps require a fixed-K cascaded branch")
+        return self.cascaded_branch.get_attention_map(*self.forward_audio(wav, wav_len))
 
     def forward(self, batch: Dict[str, torch.Tensor], *, training: bool = False,
                 global_step=None,
@@ -251,33 +392,52 @@ class KWClip(nn.Module):
                            global_step=None, generator: Optional[torch.Generator] = None):
         """Everything downstream of the acoustic tower (JAX ``:859-992``)."""
         if batch.get("image_feat") is not None:
-            image_feat = _l2norm(batch["image_feat"].detach())  # cached frozen-tower output
+            image_feat = batch["image_feat"].detach()  # cached frozen-tower output
         else:
             with torch.no_grad():
-                image_feat = _l2norm(self.encode_image_raw(batch["image"]))
-        target_len = torch.round(audio_feat_len.float() / 20.0).to(torch.int64)
-        out = self.cascaded_branch(
-            audio_feat, audio_feat_len, self.clip.text.token_embedding.weight,
-            target_len=target_len, global_step=global_step, training=training,
-            generator=generator)
-        cascaded = _l2norm(self.clip.encode_keywords(out["keywords"], out["keywords_len"]))
-        parallel = _l2norm(out["parallel_audio_feat"])
-        ds, vq = out["dsample_results"], out["vq_results"]
+                image_feat = self.encode_image_raw(batch["image"])
+        image_feat = self.project_image_feat(image_feat, generator)
+        plus = self.cfg.branch_type.endswith("_plus")
+        target_len = (torch.round(audio_feat_len.float() / 20.0).to(torch.int64)
+                      if plus else None)
+        if self.cascaded_branch is not None:
+            out = self.cascaded_branch(
+                audio_feat, audio_feat_len, self.clip.text.token_embedding.weight,
+                target_len=target_len, global_step=global_step, training=training,
+                generator=generator)
+        else:
+            out = self.parallel_branch(audio_feat, audio_feat_len, generator)
         ids = batch["id"]
-        loss_feats = {"id": ids, "image_feat": image_feat, "cascaded_audio_feat": cascaded,
-                      "parallel_audio_feat": parallel, "cif_quantity_out": ds["quantity_out"],
-                      "cif_target_len": ds.get("target_len", target_len)}
-        log_metrics = {"cl_temp": 1.0 / self.logit_multiplier(),
-                       "softmax_temp": vq["temp"], "temp": vq["temp"],
-                       "code_perplexity": vq["code_perplexity"],
-                       "prob_perplexity": vq["prob_perplexity"],
-                       "ent_per_t": vq["ent_per_t"].mean()}
-        if "dsample_len_diff" in ds:
+        loss_feats: Dict[str, Any] = {"id": ids, "image_feat": image_feat}
+        cascaded = parallel = None
+        if out.get("keywords") is not None:
+            cascaded = self.clip.encode_keywords(
+                out["keywords"], out["keywords_len"] if "keywords_len" in out
+                else out["keyword_num"])
+            if self.c_branch_proj_net is not None:
+                cascaded = self.c_branch_proj_net(cascaded, generator)
+            loss_feats["cascaded_audio_feat"] = cascaded = _l2norm(cascaded)
+        if out.get("parallel_audio_feat") is not None:
+            parallel = out["parallel_audio_feat"]
+            if self.p_branch_proj_net is not None:
+                parallel = self.p_branch_proj_net(parallel, generator)
+            loss_feats["parallel_audio_feat"] = parallel = _l2norm(parallel)
+        ds, vq = out.get("dsample_results"), out.get("vq_results")
+        if ds is not None:
+            loss_feats["cif_quantity_out"] = ds["quantity_out"]
+            loss_feats["cif_target_len"] = ds.get("target_len", target_len)
+        log_metrics = {"cl_temp": 1.0 / self.logit_multiplier()}
+        if vq is not None:
+            log_metrics.update({"softmax_temp": vq["temp"], "temp": vq["temp"],
+                                "code_perplexity": vq["code_perplexity"],
+                                "prob_perplexity": vq["prob_perplexity"],
+                                "ent_per_t": vq["ent_per_t"].mean()})
+        if ds is not None and "dsample_len_diff" in ds:
             log_metrics["dsample_len_diff"] = ds["dsample_len_diff"]
         others = {"id": ids, "image_feat": image_feat, "parallel_audio_feat": parallel,
                   "cascaded_audio_feat": cascaded, "vq_results": vq,
-                  "keywords": out["keywords"], "dsample_results": ds,
-                  "keywords_len": out["keywords_len"]}
+                  "keywords": out.get("keywords"), "dsample_results": ds,
+                  "keywords_len": out.get("keywords_len")}
         return loss_feats, log_metrics, others
 
     def logit_multiplier(self) -> torch.Tensor:
@@ -304,7 +464,7 @@ class KWClip(nn.Module):
                     loss_feats[key].float(), image_feat, ids, logit_scale=scale,
                     margin=l.margin, dcl=l.dcl, a2b=l.a2b, b2a=l.b2a, valid=valid)
                 total = total + weight * losses[short]
-        if loss_feats.get("cif_target_len") is not None:
+        if c.cif is not None and loss_feats.get("cif_target_len") is not None:
             losses["quantity_loss"] = quantity_l1_loss(
                 loss_feats["cif_quantity_out"], loss_feats["cif_target_len"], valid=valid)
             total = total + c.cif.quantity_loss_weight * losses["quantity_loss"]
@@ -316,8 +476,20 @@ class KWClip(nn.Module):
 def init_kw_bn_from_token_embedding(model: KWClip) -> None:
     """Keyword-BN scale/bias from CLIP token-embedding statistics (reference
     `kw_branches.py:93-118`): gamma = std(emb) * std_scale (unbiased), beta =
-    mean(emb)."""
+    mean(emb), laid out as the BN variant keeps its channels (JAX
+    ``:1145-1176``): repeated K times per dimension for the fused `eachKw`
+    layout (channel = d*K + k), tiled over K rows for the per-keyword one."""
+    c = model.cfg
+    if not (c.has_cascaded and c.head.bn.enabled):
+        return
     bn = model.cascaded_branch.head.bn_layer
     emb = model.clip.text.token_embedding.weight.float()
-    bn.weight.copy_(emb.std(dim=0) * model.cfg.head.bn_std_scale)
-    bn.bias.copy_(emb.mean(dim=0))
+    std, mean = emb.std(dim=0) * c.head.bn.std_scale, emb.mean(dim=0)
+    if bn.variant == "fixed" and c.head.bn.type == "eachKw":
+        k = c.head.keyword_num
+        if c.head.bn.parallel:
+            std, mean = std.repeat_interleave(k), mean.repeat_interleave(k)
+        else:
+            std, mean = std[None, :].expand(k, -1), mean[None, :].expand(k, -1)
+    bn.weight.copy_(std)
+    bn.bias.copy_(mean)

@@ -17,9 +17,16 @@ out-projection fused in for the frozen towers (`fuse_out=True`), or the
 differentiable context-only block with its backward kernel (K2,
 ``nn/fused_attention_block_vjp.py``) for the branch (`fuse_out=False`).
 Attention dropout at `dropout` runs inside the kernels when a generator is
-passed. An additive `attn_mask` (the CLIP text tower's causal mask) takes the
-plain path, with plain autograd. `attn_bias` with an optional `attn_gate`
-(WavLM's gated relative position bias) rides inside K1 (fused-out only).
+passed. The route switch is JAX's (``:134-139``): a module built with
+`fuse_out=False` (JAX `fused_block_vjp`) takes K1 + K2 for self-attention
+with no mask or a 2-D one (the mask becomes the kernels' per-head bias, as
+the CLIP text tower's causal mask does behind `clip.text_fused_attention_vjp`);
+a mask of more dims, a `fuse_out=True` module given a mask (the text tower by
+default), and `return_weights` (attention maps) take the plain path with
+plain autograd. `attn_bias` with an optional `attn_gate` (WavLM's gated
+relative position bias) rides inside K1; without a gate it also rides K1 + K2
+in the context-only route, where a shape other than (T, T), (1, T, T) or
+(H, T, T) raises.
 
 The acoustic tower's other routes compute the projections outside any kernel,
 as the JAX package does: `project_qkv` returns q, k, v as (B, H, T, dh)
@@ -52,14 +59,15 @@ def padding_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
 
 def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None,
                           dropout_rate: float = 0.0,
-                          generator: Optional[torch.Generator] = None):
+                          generator: Optional[torch.Generator] = None,
+                          return_weights: bool = False):
     """Scaled dot-product attention on (B, H, T, dh), q scaled inside.
 
     bf16 inputs keep bf16 scores and probabilities (the JAX XLA path's
     precision); the softmax itself runs in fp32. `bias` broadcasts to
     (B, H, Tq, Tk). With a `generator`, the weights are dropped at
     `dropout_rate` with the counter mask of ``ops/random.py`` (self-attention
-    only: Tq == Tk)."""
+    only: Tq == Tk). `return_weights` also returns the undropped weights."""
     q = q * (q.shape[-1] ** -0.5)
     scores = torch.matmul(q, k.transpose(-1, -2)).float()
     if bias is not None:
@@ -69,8 +77,11 @@ def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None,
         b, h, t, _ = q.shape
         keep_prob = 1.0 - float(dropout_rate)
         keep = attention_keep_mask(draw_seed(generator), b, h, t, keep_prob)
-        weights = torch.where(keep, weights / keep_prob, 0.0)
-    return torch.matmul(weights, v)
+        dropped = torch.where(keep, weights / keep_prob, 0.0)
+        return (torch.matmul(dropped, v), weights) if return_weights \
+            else torch.matmul(dropped, v)
+    out = torch.matmul(weights, v)
+    return (out, weights) if return_weights else out
 
 
 class MultiheadAttention(nn.Module):
@@ -106,33 +117,47 @@ class MultiheadAttention(nn.Module):
                 attn_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 attn_bias: Optional[torch.Tensor] = None,
-                attn_gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_gate: Optional[torch.Tensor] = None,
+                return_weights: bool = False):
         """x (B, T, D) -> (B, T, D) in the compute dtype.
         key_padding_bias: (B, T) fp32 additive (`padding_bias`).
-        attn_mask: (T, T) additive fp32 mask shared by batch and heads.
+        attn_mask: additive fp32 mask broadcastable to (B, H, T, T).
         generator: attention dropout at `self.dropout` (None: none).
-        attn_bias, attn_gate: K1's per-head bias (H | 1, T, T) and its
-        (B, H, T) gate (fused-out, no attn_mask)."""
+        attn_bias, attn_gate: the kernels' per-head bias (T, T) or (H | 1, T, T)
+        and its (B, H, T) gate (the gate in the fused-out block only).
+        return_weights: also the (B, H, T, T) attention weights (plain path)."""
         cd = self.compute_dtype
         x = x.to(cd)
         w_in = self.in_proj_weight.to(cd)
         w_out, b_out = self.out_proj.weight.to(cd), self.out_proj.bias.to(cd)
-        if attn_bias is not None and (attn_mask is not None or not self.fuse_out):
-            raise NotImplementedError("attn_bias outside the fused-out block")
-        if attn_mask is None:
-            attend = fused_attention_block if self.fuse_out else fused_attention_block_vjp
-            kw = ({"fuse_out": True, "attn_bias": attn_bias, "attn_gate": attn_gate}
-                  if self.fuse_out else {})
-            return attend(x.contiguous(), w_in, self.in_proj_bias, w_out, b_out,
-                          key_padding_bias, n_heads=self.nhead, dropout_rate=self.dropout,
-                          generator=generator, **kw)
+        if attn_bias is not None and attn_mask is not None:
+            raise ValueError("attn_bias and attn_mask are one additive term: pass one")
+        if attn_gate is not None and (attn_bias is None or not self.fuse_out or return_weights):
+            raise NotImplementedError("attn_gate outside the fused-out block")
+        if not return_weights:
+            if self.fuse_out and attn_mask is None:
+                return fused_attention_block(
+                    x.contiguous(), w_in, self.in_proj_bias, w_out, b_out, key_padding_bias,
+                    n_heads=self.nhead, fuse_out=True, dropout_rate=self.dropout,
+                    generator=generator, attn_bias=attn_bias, attn_gate=attn_gate)
+            if not self.fuse_out and (attn_mask is None or attn_mask.ndim == 2):
+                return fused_attention_block_vjp(
+                    x.contiguous(), w_in, self.in_proj_bias, w_out, b_out, key_padding_bias,
+                    n_heads=self.nhead, dropout_rate=self.dropout, generator=generator,
+                    attn_bias=attn_mask if attn_bias is None else attn_bias)
         if self.dropout > 0.0 and generator is not None:
-            raise NotImplementedError("attention dropout with an attn_mask")
+            raise NotImplementedError("attention dropout on the plain path")
         b, t, d = x.shape
         q, k, v = F.linear(x, w_in, self.in_proj_bias.to(cd)).split(d, dim=-1)
         split = lambda a: a.reshape(b, t, self.nhead, -1).transpose(1, 2)
-        bias = attn_mask.float()
+        bias = attn_mask if attn_bias is None else attn_bias
+        bias = None if bias is None else bias.float()
         if key_padding_bias is not None:
-            bias = bias + key_padding_bias[:, None, None, :]
-        out = dot_product_attention(split(q), split(k), split(v), bias)
-        return F.linear(out.transpose(1, 2).reshape(b, t, d), w_out, b_out)
+            kb = key_padding_bias[:, None, None, :]
+            bias = kb if bias is None else bias + kb
+        out = dot_product_attention(split(q), split(k), split(v), bias,
+                                    return_weights=return_weights)
+        if return_weights:
+            out, weights = out
+        out = F.linear(out.transpose(1, 2).reshape(b, t, d), w_out, b_out)
+        return (out, weights) if return_weights else out

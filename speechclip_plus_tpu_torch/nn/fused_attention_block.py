@@ -46,13 +46,18 @@ import torch.nn.functional as F
 from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 
 __all__ = ["fused_attention_block", "attention_forward", "plain_fused_attention_block",
-           "LAUNCHES"]
+           "check_attn_bias", "LAUNCHES", "WIDE_LAUNCHES"]
 
 # wrapper calls that ran the kernels on the card (one per call, whatever the
 # number of CUDA launches it makes)
 LAUNCHES = 0
+# those of them that ran the chunked kernel for a head of 768
+WIDE_LAUNCHES = 0
 
-_HEAD_DIMS = (64, 96)
+# 64 and 96: the towers' and the 8-head branches' heads, one (64, dh) tile per
+# operand in shared memory; 768: the cascaded branches' single head, which runs
+# the chunked kernel of csrc/attention_wide.cuh. Anything else raises.
+_HEAD_DIMS = (64, 96, 768)
 
 
 def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
@@ -89,7 +94,7 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
 
 def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
             seeds=None, keep_prob=1.0, return_aux=False, attn_bias=None, attn_gate=None):
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     from ..utils.cuda_build import check, kernels
 
     b, t, d = x.shape
@@ -160,6 +165,7 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
                                   b * t, d, d, 0, 1.0, bf, bf, stream),
                   "fused_attention_block out projection")
     LAUNCHES += 1
+    WIDE_LAUNCHES += dh == 768
     return (ctx, qkv, lse) if return_aux else out
 
 
@@ -188,11 +194,23 @@ class _ForwardOnly(torch.autograd.Function):
 
 
 def attention_forward(x, w_in, b_in, key_padding_bias, *, n_heads: int, seeds=None,
-                      keep_prob: float = 1.0):
+                      keep_prob: float = 1.0, attn_bias=None):
     """Context-only K1 for a backward: (ctx in x's dtype, fp32 qkv (B, T, 3D)
-    with q scaled, fp32 lse (B, H, T)). No autograd."""
+    with q scaled, fp32 lse (B, H, T)). `attn_bias` (H | 1, T, T) is added to
+    the scores and is part of the lse. No autograd."""
     return _run(x, w_in, b_in, None, None, key_padding_bias, n_heads, False,
-                seeds=seeds, keep_prob=keep_prob, return_aux=True)
+                seeds=seeds, keep_prob=keep_prob, return_aux=True, attn_bias=attn_bias)
+
+
+def check_attn_bias(attn_bias, t: int, n_heads: int, what: str):
+    """A per-head bias shared by the batch, (T, T), (1, T, T) or (H, T, T), as
+    (1 | H, T, T); any other shape raises (a batch-dependent (B, H, T, T) bias
+    is not cut down to its first entry)."""
+    if attn_bias.ndim not in (2, 3) or tuple(attn_bias.shape[-2:]) != (t, t) \
+            or (attn_bias.ndim == 3 and attn_bias.shape[0] not in (1, n_heads)):
+        raise ValueError(f"{what}: attn_bias {tuple(attn_bias.shape)}; "
+                         f"want ({t}, {t}), (1, {t}, {t}) or ({n_heads}, {t}, {t})")
+    return attn_bias.reshape(-1, t, t)
 
 
 def fused_attention_block(
@@ -219,11 +237,7 @@ def fused_attention_block(
     if attn_gate is not None and attn_bias is None:
         raise ValueError("fused_attention_block: attn_gate needs an attn_bias")
     if attn_bias is not None:
-        if attn_bias.ndim not in (2, 3) or tuple(attn_bias.shape[-2:]) != (t, t) \
-                or (attn_bias.ndim == 3 and attn_bias.shape[0] not in (1, n_heads)):
-            raise ValueError(f"fused_attention_block: attn_bias {tuple(attn_bias.shape)}; "
-                             f"want ({t}, {t}), (1, {t}, {t}) or ({n_heads}, {t}, {t})")
-        attn_bias = attn_bias.reshape(-1, t, t)
+        attn_bias = check_attn_bias(attn_bias, t, n_heads, "fused_attention_block")
         if attn_gate is not None and tuple(attn_gate.shape) != (x.shape[0], n_heads, t):
             raise ValueError(f"fused_attention_block: attn_gate {tuple(attn_gate.shape)}; "
                              f"want {(x.shape[0], n_heads, t)}")

@@ -1,24 +1,32 @@
-"""Branch transformer block and the shared LayerNorm.
+"""Branch transformer blocks and the shared LayerNorm.
 
-Port of `MultiheadAttentionAndNorm` from ``speechclip_plus_tpu/nn/transformer.py``
-(reference ``TransformerModels.py:100-136``): one MHA + residual + LayerNorm.
-Its self-attention is the differentiable fused attention block in
-context-only mode (K1 forward, K2 backward), with attention dropout at the
-config's rate (0.1) in training; the out-projection after it is a plain
-``ctx @ Wo + bo``. Parameters are fp32 master weights computed in
-`compute_dtype` (flax `dtype=`).
+Port of ``speechclip_plus_tpu/nn/transformer.py`` (reference
+``TransformerModels.py``): `MultiheadAttentionAndNorm` (:100-136), one MHA +
+residual + LayerNorm, with `extract_attention_map`; `TransformerEncoderLayer`
+(torch's, batch-first, post- or pre-norm, exact-erf GELU FFN, three dropouts)
+and `TransformerEncoder` (:47-97), a stack of them plus a final LayerNorm,
+with `extract_hidden_states`. Every self-attention is the differentiable
+fused attention block in context-only mode (K1 forward, K2 backward), with
+attention dropout at the config's rate (0.1) in training; the out-projection
+after it is a plain ``ctx @ Wo + bo``. Attention maps take the plain path.
+Parameters are fp32 master weights computed in `compute_dtype` (flax
+`dtype=`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .attention import MultiheadAttention, padding_bias
+from .dropout import dropout
 
-__all__ = ["LayerNorm", "MultiheadAttentionAndNorm"]
+__all__ = ["LayerNorm", "MultiheadAttentionAndNorm", "TransformerEncoderLayer",
+           "TransformerEncoder"]
+
+_ACT = {"relu": torch.relu, "gelu": F.gelu}  # F.gelu: exact erf, torch's default
 
 
 class LayerNorm(nn.LayerNorm):
@@ -51,3 +59,85 @@ class MultiheadAttentionAndNorm(nn.Module):
         out = self.multihead_attn_layer(src, key_padding_bias=bias, generator=generator)
         # the residual add promotes to src's dtype (fp32 tower features), as in JAX
         return self.attentionBlock_Norm(out + src)
+
+    def extract_hidden_states(self, src: torch.Tensor,
+                              key_padding_mask: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+        return (src, self(src, key_padding_mask))
+
+    def extract_attention_map(self, src: torch.Tensor,
+                              key_padding_mask: Optional[torch.Tensor] = None):
+        """(output, attention weights (B, H, T, T)), deterministic."""
+        bias = None if key_padding_mask is None else padding_bias(key_padding_mask)
+        out, weights = self.multihead_attn_layer(src, key_padding_bias=bias,
+                                                 return_weights=True)
+        return self.attentionBlock_Norm(out + src), weights
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch `nn.TransformerEncoderLayer` (batch-first): self-attention and a
+    two-layer FFN, each with dropout and a residual; LayerNorm after
+    (post-norm) or before (`norm_first`) each."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 3072,
+                 dropout: float = 0.1, activation: str = "gelu", layer_norm_eps: float = 1e-5,
+                 norm_first: bool = False, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout, self.norm_first = float(dropout), norm_first
+        self.compute_dtype = compute_dtype
+        self.act = _ACT[activation]
+        self.self_attn = MultiheadAttention(d_model, nhead, fuse_out=False,
+                                            compute_dtype=compute_dtype, dropout=dropout)
+        self.norm1 = LayerNorm(d_model, eps=layer_norm_eps, compute_dtype=compute_dtype)
+        self.norm2 = LayerNorm(d_model, eps=layer_norm_eps, compute_dtype=compute_dtype)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+
+    def _sa(self, x, bias, generator):
+        return dropout(self.self_attn(x, key_padding_bias=bias, generator=generator),
+                       self.dropout, generator)
+
+    def _ff(self, x, generator):
+        cd, l1, l2 = self.compute_dtype, self.linear1, self.linear2
+        h = self.act(F.linear(x.to(cd), l1.weight.to(cd), l1.bias.to(cd)))
+        h = F.linear(dropout(h, self.dropout, generator), l2.weight.to(cd), l2.bias.to(cd))
+        return dropout(h, self.dropout, generator)
+
+    def forward(self, src: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        bias = None if key_padding_mask is None else padding_bias(key_padding_mask)
+        if self.norm_first:
+            src = src + self._sa(self.norm1(src), bias, generator)
+            return src + self._ff(self.norm2(src), generator)
+        src = self.norm1(src + self._sa(src, bias, generator))
+        return self.norm2(src + self._ff(src, generator))
+
+
+class TransformerEncoder(nn.Module):
+    """A stack of encoder layers and the final LayerNorm(eps 1e-5)."""
+
+    def __init__(self, n_layers: int = 1, d_model: int = 768, nhead: int = 8,
+                 dim_feedforward: int = 3072, dropout: float = 0.1, activation: str = "gelu",
+                 layer_norm_eps: float = 1e-5, norm_first: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward, dropout, activation,
+                                    layer_norm_eps, norm_first, compute_dtype)
+            for _ in range(n_layers))
+        self.norm = LayerNorm(d_model, eps=1e-5, compute_dtype=compute_dtype)
+
+    def forward(self, src: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for layer in self.layers:
+            src = layer(src, key_padding_mask, generator)
+        return self.norm(src)
+
+    def extract_hidden_states(self, src: torch.Tensor,
+                              key_padding_mask: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+        """(input, after layer 1, ..., after layer N), before the final norm."""
+        hidden = [src]
+        for layer in self.layers:
+            hidden.append(layer(hidden[-1], key_padding_mask))
+        return tuple(hidden)

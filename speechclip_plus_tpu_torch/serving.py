@@ -93,6 +93,12 @@ class SpeechRetriever:
             feat_src = speechclip.cfg.retrieval_audio_feat_src
         if feat_src not in ("parallel", "cascaded"):
             raise ValueError(f"unknown feat_src {feat_src!r}")
+        cfg = speechclip.cfg
+        has = {"cascaded": cfg.has_cascaded,
+               "parallel": not cfg.has_cascaded or cfg.branch_type.startswith("Hybrid")}
+        if not has[feat_src]:
+            raise ValueError(f"feat_src {feat_src!r}: this model ({cfg.branch_type or 'parallel'}"
+                             f" branch) has no {feat_src} feature")
         self.sc, self.index, self.feat_src = speechclip, index, feat_src
 
     def search(self, wavs: Sequence[np.ndarray], k: int = 10) -> Tuple[np.ndarray, np.ndarray]:

@@ -81,9 +81,11 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model_from_config(
-    cfg: ConfigNode, *, device="cpu", seed: int = 0,
+    cfg: ConfigNode, *, device="cuda", seed: int = 0,
 ) -> Tuple[KWClip, KWClipConfig, Optional[ReducedVocab]]:
-    """Returns (model in eval mode on `device`, model_cfg, reduced_vocab)."""
+    """Returns (model in eval mode on `device`, model_cfg, reduced_vocab). The
+    model goes to the card unless the caller asks for the CPU; the seeded
+    init itself runs on the CPU, so the weights do not depend on the device."""
     vocab = resolve_reduced_vocab(cfg)
     if vocab is not None:
         model_cfg = KWClipConfig.from_config(

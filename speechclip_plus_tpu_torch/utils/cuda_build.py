@@ -60,7 +60,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sc_fused_attention.argtypes = [p, p, p, p, i64p, p, i, i, i, i, i, f, p, u, f, p]
     lib.sc_flash_attention.argtypes = [p, p, p, p, i64p, p, p, i, i, i, i, i, f, p]
     lib.sc_conv0.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    lib.sc_fab_attention_bwd.argtypes = [p, p, p, p, p, p, p, u, f, f, p, i, i, i, i, i, p]
+    lib.sc_fab_attention_bwd.argtypes = [p, p, p, i, p, p, p, p, p, u, f, f, p, i, i, i, i, i, p]
     lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
     lib.sc_vq_bwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p, p, p, p]
     lib.sc_vq_splits.argtypes = []

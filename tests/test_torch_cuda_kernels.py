@@ -9,8 +9,9 @@ JAX kernels is in `test_torch_fused_attention_block.py` and
 
 Tolerances: fp32 1e-4 abs (K1) or 1e-4 x max(1, RMS) (K1 with dropout, bias
 or gate, K2, K4, K5, K6); bf16 K1, K2, K4, K5 and K6 error beyond half an ulp
-of the bf16 output <= 2e-2 x the output's RMS; K4's lse 1e-4 relative; K3 targets equal wherever the top-2 margin exceeds 1e-3 (bf16)
-or 1e-5 (fp32), ent and psum to rtol 1e-3; K3b dx to 1e-4 (fp32) or 1e-2
+of the bf16 output <= 2e-2 x the output's RMS; K4's lse 1e-4 relative; K3
+targets equal wherever the top-2 margin exceeds 1e-3 (bf16) or 1e-5 (fp32),
+ent and psum to rtol 1e-3; K3b dx to 1e-4 (fp32) or 1e-2
 (bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes. K2 and K3b repeat
 bit for bit (no float atomics), as do K1, K4, K5 and K6.
 """
@@ -407,3 +408,153 @@ def test_conv0_rejects_bad_inputs(cuda_device):
         cf.conv0(wav[:, :5], kernel)
     with pytest.raises(TypeError):
         cf.conv0(wav.half(), kernel.half())
+
+
+# ---- K2's attn_bias input, and K1 / K2 at the single-head width dh = 768 ----
+
+def _causal(dev, t, heads=None):
+    """The text tower's causal bias (T, T), or (H, T, T) with random
+    sub-diagonal entries per head."""
+    causal = torch.full((t, t), -1e30, device=dev).triu(1)
+    if heads is None:
+        return causal
+    g = torch.Generator(device=dev).manual_seed(12)
+    return causal[None] + torch.randn(heads, t, t, generator=g, device=dev).tril()
+
+
+def _bwd_case(dev, dtype, b, t, d, heads, p, ab, seed=4):
+    x, w_in, b_in, _, _, kb = _block_args(dev, b, t, d)
+    kb[0, :] = 0.0
+    if ab is not None and t > 1:
+        kb[-1, :] = 0.0
+        kb[-1, 1] = -1e30  # a masked key that is also above the diagonal for row 0
+    x, w_in, b_in = x.to(dtype), w_in.to(dtype), b_in.to(dtype)
+    seeds = draw_seed(torch.Generator(device=dev).manual_seed(seed)) if p else None
+    ab3 = None if ab is None else ab.reshape(-1, t, t)
+    ctx, qkv, lse = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads, seeds=seeds,
+                                          keep_prob=1.0 - p, attn_bias=ab3)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dctx = torch.randn(b, t, d, generator=g, device=dev).to(dtype)
+    return x, w_in, b_in, kb, seeds, ab3, ctx, qkv, lse, dctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,heads,per_head,p", [
+    (128, 77, 512, 8, False, 0.0), (4, 77, 512, 8, True, 0.0), (4, 77, 512, 8, False, 0.1),
+    (3, 130, 768, 8, True, 0.3), (2, 37, 128, 2, False, 0.0), (2, 64, 128, 2, True, 0.0)])
+def test_attention_backward_with_bias_matches_plain(cuda_device, dtype, b, t, d, heads,
+                                                    per_head, p):
+    """K1 context-only and K2 with the per-head bias (the text tower's causal
+    mask and an (H, T, T) bias), ragged T, with and without dropout."""
+    ab = _causal(cuda_device, t, heads if per_head else None)
+    x, w_in, b_in, kb, seeds, ab3, ctx, qkv, lse, dctx = _bwd_case(
+        cuda_device, dtype, b, t, d, heads, p, ab)
+    ctx0, _, lse0 = fab.plain_fused_attention_block(
+        x.float(), w_in.float(), b_in.float(), None, None, kb, heads, False, seeds=seeds,
+        keep_prob=1.0 - p, return_aux=True, attn_bias=ab3)
+    _close(ctx, ctx0, dtype)
+    assert (lse - lse0).abs().max().item() <= 1e-4  # the lse includes the bias
+    before = vjp.LAUNCHES
+    got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                 keep_prob=1.0 - p, attn_bias=ab3)
+    assert vjp.LAUNCHES == before + 1
+    want = vjp.plain_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads, seeds,
+                                        1.0 - p, ab3)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+    assert torch.equal(got, vjp.attention_backward(
+        qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds, keep_prob=1.0 - p, attn_bias=ab3))
+    # without the bias the result differs: the kernel does read it
+    other = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                   keep_prob=1.0 - p)
+    assert (other.float() - got.float()).abs().max().item() > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,heads,p,bias", [
+    (8, 328, 1, 0.1, False), (8, 328, 1, 0.0, False), (3, 37, 1, 0.3, False),
+    (2, 65, 1, 0.0, True), (2, 96, 2, 0.1, True), (128, 320, 1, 0.1, False)])
+def test_wide_head_kernels_match_plain(cuda_device, dtype, b, t, heads, p, bias):
+    """K1 (context-only + lse, and fused-out) and K2 at dh = 768, one head and
+    two, ragged T, dropout and the per-head bias."""
+    d = 768 * heads
+    ab = _causal(cuda_device, t, heads) if bias else None
+    x, w_in, b_in, kb, seeds, ab3, ctx, qkv, lse, dctx = _bwd_case(
+        cuda_device, dtype, b, t, d, heads, p, ab)
+    ctx0, _, lse0 = fab.plain_fused_attention_block(
+        x.float(), w_in.float(), b_in.float(), None, None, kb, heads, False, seeds=seeds,
+        keep_prob=1.0 - p, return_aux=True, attn_bias=ab3)
+    assert bool(torch.isfinite(ctx.float()).all())
+    _close(ctx, ctx0, dtype)
+    assert (lse - lse0).abs().max().item() <= 1e-4
+    again, _, lse2 = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads, seeds=seeds,
+                                           keep_prob=1.0 - p, attn_bias=ab3)
+    assert torch.equal(ctx, again) and torch.equal(lse, lse2)  # deterministic
+    before = vjp.LAUNCHES
+    got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                 keep_prob=1.0 - p, attn_bias=ab3)
+    assert vjp.LAUNCHES == before + 1
+    want = vjp.plain_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads, seeds,
+                                        1.0 - p, ab3)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+    assert torch.equal(got, vjp.attention_backward(
+        qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds, keep_prob=1.0 - p, attn_bias=ab3))
+
+
+@pytest.mark.cuda
+def test_wide_head_fused_out_and_fully_padded_row(cuda_device):
+    """K1's fused-out mode at dh = 768, with a fully padded row (finite)."""
+    args = _block_args(cuda_device, 3, 70, 768)
+    args[5][-1, :] = -1e30
+    got = fab.fused_attention_block(*args, n_heads=1)
+    want = fab.plain_fused_attention_block(*args, 1, True)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_head_dim_and_bias_shape_errors(cuda_device):
+    args = _block_args(cuda_device, 2, 16, 256)
+    with pytest.raises(ValueError, match="head dim"):
+        fab.fused_attention_block(*args, n_heads=1)          # dh = 256
+    with pytest.raises(ValueError, match="head dim"):
+        vjp.fused_attention_block_vjp(*args, n_heads=8)      # dh = 32
+    qkv = torch.randn(2, 16, 3 * 256, device=cuda_device)
+    z = torch.zeros(2, 16, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        vjp.attention_backward(qkv, None, z, z, torch.zeros(2, 1, 16, device=cuda_device),
+                               n_heads=1)
+    args = _block_args(cuda_device, 2, 16, 128)
+    for bad in (torch.zeros(2, 2, 16, 16, device=cuda_device),   # (B, H, T, T)
+                torch.zeros(3, 16, 16, device=cuda_device),      # neither 1 nor H heads
+                torch.zeros(16, 15, device=cuda_device)):
+        with pytest.raises(ValueError, match="attn_bias"):
+            vjp.fused_attention_block_vjp(*args, n_heads=2, attn_bias=bad)
+    qkv = torch.randn(2, 16, 3 * 128, device=cuda_device)
+    z = torch.zeros(2, 16, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="attn_bias"):
+        vjp.attention_backward(qkv, None, z, z, torch.zeros(2, 2, 16, device=cuda_device),
+                               n_heads=2, attn_bias=torch.zeros(2, 16, 16))  # on the CPU
+
+
+@pytest.mark.cuda
+def test_text_route_gradients_on_the_card(cuda_device):
+    """fused_attention_block_vjp with a causal bias (frozen weights, input
+    gradient only) against autograd through the plain twin, fp32."""
+    b, t, d, heads = 4, 77, 512, 8
+    x, w_in, b_in, w_out, b_out, _ = _block_args(cuda_device, b, t, d)
+    ab = _causal(cuda_device, t)
+    probe = torch.randn(b, t, d, device=cuda_device)
+    x1 = x.clone().requires_grad_()
+    out = vjp.fused_attention_block_vjp(x1, w_in, b_in, w_out, b_out, None, n_heads=heads,
+                                        attn_bias=ab)
+    (g1,) = torch.autograd.grad((out * probe).sum(), x1)
+    x2 = x.clone().requires_grad_()
+    ref = torch.nn.functional.linear(fab.plain_fused_attention_block(
+        x2, w_in, b_in, None, None, None, heads, False, attn_bias=ab[None]), w_out, b_out)
+    (g2,) = torch.autograd.grad((ref * probe).sum(), x2)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert (g1 - g2).abs().max().item() <= 1e-4 * max(1.0, g2.pow(2).mean().sqrt().item())

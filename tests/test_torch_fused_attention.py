@@ -124,7 +124,7 @@ def test_from_config_reads_the_attention_keys():
     cfg.audio_encoder.fused_attention_block = False
     audio = KWClipConfig.from_config(cfg).audio
     assert audio.fused_attention_dropout and not audio.fused_attention_block
-    model, mcfg, _ = build_model_from_config(cfg, seed=0)
+    model, mcfg, _ = build_model_from_config(cfg, device="cpu", seed=0)
     assert mcfg.audio == audio and isinstance(mcfg.audio, HubertConfig)
 
 

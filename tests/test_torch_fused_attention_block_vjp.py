@@ -77,7 +77,7 @@ def test_gradients_match_jax_kernel(b, t, d, heads):
 
 
 def _dropout_loss(x, w_in, b_in, kb, probe, heads, seeds, keep):
-    return (vjp._AttnCore.apply(x, w_in, b_in, kb, heads, seeds, keep) * probe).sum()
+    return (vjp._AttnCore.apply(x, w_in, b_in, kb, heads, seeds, keep, None) * probe).sum()
 
 
 @pytest.mark.parametrize("t,p", [(37, 0.1), (21, 0.3)])

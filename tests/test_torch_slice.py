@@ -174,20 +174,36 @@ def test_submit_and_stream_match_search(pair, indexes):
 
 
 def test_builder_is_seeded():
-    a, _, _ = build_model_from_config(load_config(TINY), seed=3)
-    b, _, _ = build_model_from_config(load_config(TINY), seed=3)
-    c, _, _ = build_model_from_config(load_config(TINY), seed=4)
+    a, _, _ = build_model_from_config(load_config(TINY), device="cpu", seed=3)
+    b, _, _ = build_model_from_config(load_config(TINY), device="cpu", seed=3)
+    c, _, _ = build_model_from_config(load_config(TINY), device="cpu", seed=4)
     sa, sb, sc_ = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["audio_encoder.layers.0.fc1.weight"],
                            sc_["audio_encoder.layers.0.fc1.weight"])
 
 
+def test_entry_points_default_to_the_card():
+    """`build_model_from_config` and the inference wrapper put the model on
+    the GPU unless the caller asks for the CPU."""
+    import inspect
+
+    assert inspect.signature(build_model_from_config).parameters["device"].default == "cuda"
+    assert inspect.signature(SpeechCLIP.__init__).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            build_model_from_config(load_config(TINY))
+
+
 def test_other_branch_types_raise():
+    """The five families build; a branch type outside them raises by name."""
     cfg = load_config(TINY)
     cfg.model_settings.cascaded_branch.type = "KW_CascadedBranch"
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model_from_config(cfg)
+    model, mcfg, _ = build_model_from_config(cfg, device="cpu")
+    assert mcfg.branch_type == "CascadedBranch" and model.parallel_branch is None
+    cfg.model_settings.cascaded_branch.type = "KW_ConformerBranch"
+    with pytest.raises(NotImplementedError, match="cascaded_branch.type"):
+        build_model_from_config(cfg, device="cpu")
 
 
 def test_port_imports_no_jax():

@@ -132,7 +132,7 @@ def _as_port(template, variables):
 @pytest.fixture(scope="module")
 def setup():
     cfg, jmodel, variables = _jax_setup()
-    model, _, _ = build_model_from_config(load_config(TINY), seed=0)
+    model, _, _ = build_model_from_config(load_config(TINY), device="cpu", seed=0)
     load_jax_variables(model, variables)
     return cfg, jmodel, variables, model
 
@@ -266,7 +266,7 @@ def test_trainable_parameters_are_fp32_masters_under_bf16():
     store bf16."""
     cfg = load_config(TINY)
     cfg.trainer.precision = "bf16"
-    model, mcfg, _ = build_model_from_config(cfg, seed=0)
+    model, mcfg, _ = build_model_from_config(cfg, device="cpu", seed=0)
     assert mcfg.cascaded_ta.compute_dtype == torch.bfloat16
     trainable = trainable_parameters(model)
     assert len(trainable) > 10
@@ -282,7 +282,7 @@ def test_trainable_parameters_are_fp32_masters_under_bf16():
 def test_bf16_step_runs_and_stays_finite():
     cfg = load_config(TINY)
     cfg.trainer.precision = "bf16"
-    model, _, _ = build_model_from_config(cfg, seed=0)
+    model, _, _ = build_model_from_config(cfg, device="cpu", seed=0)
     optimizer = build_optimizer_from_config(model, cfg)
     rng = np.random.RandomState(3)
     batch = {"wav": torch.from_numpy((0.3 * rng.randn(2, 3200)).astype(np.float32)),
