@@ -176,7 +176,7 @@ KERNEL_COUNTERS = {  # kernel name -> (module under speechclip_plus_tpu_torch, c
     "flash_attention": ("nn.flash", "LAUNCHES"),
     "fused_attention_dropout": ("nn.fused_attention", "LAUNCHES"),
     "conv0": ("ops.conv_frontend", "LAUNCHES"),
-    # subsets of the K1 and K2 counts: the chunked kernels for one head of
+    # subsets of the K1 and K2 counts: the wide-head kernels for one head of
     # 768, and K2 launches that read a per-head bias
     "fused_attention_block_dh768": ("nn.fused_attention_block", "WIDE_LAUNCHES"),
     "fused_attention_block_bwd_dh768": ("nn.fused_attention_block_vjp", "WIDE_LAUNCHES"),
@@ -216,7 +216,8 @@ CHECKED = {}
 
 
 def checked(kind, shape, p, dtype, row):
-    CHECKED[(kind, tuple(shape), float(p), str(dtype)[6:])] = row
+    key = (kind, tuple(shape), float(p), str(dtype)[6:])
+    CHECKED[key] = row
     return row
 
 
@@ -276,6 +277,96 @@ def check_attention(torch, fab, name, b, t, d, heads, fuse_out, padded, dtype, g
     print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}) {timing_text(row)}")
     require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
     return row if fuse_out else checked("k1", (b, t, d, heads), 0.0, dtype, row)
+
+
+def check_block_parts(torch, fab, dtype, gen, b=128, t=320, d=768, heads=12):
+    """K1's two kernels apart, through the library's C entry points, at the
+    tower's training shape: K1a, the projection GEMM (`gemm_bf16_kernel`; the
+    qkv projection into the fp32 buffer with q scaled, and the out-projection),
+    against `F.linear`; K1b, the attention kernel on that buffer, with and
+    without dropout, against the context-only twin on the same x (SDPA is the
+    library call)."""
+    from speechclip_plus_tpu_torch.ops.random import draw_seed, keep_threshold
+    from speechclip_plus_tpu_torch.utils.cuda_build import check, kernels
+
+    F = torch.nn.functional
+    lib, dh, bf = kernels(), d // heads, int(dtype == torch.bfloat16)
+    x, w_in, b_in, w_out, b_out, bias = block_inputs(torch, b, t, d, dtype, gen)
+    b_in32, b_out32 = b_in.float(), b_out.float()
+    stream = torch.cuda.current_stream().cuda_stream
+    qkv = torch.empty(b, t, 3 * d, dtype=torch.float32, device="cuda")
+    ctx = torch.empty(b, t, d, dtype=dtype, device="cuda")
+    out = torch.empty(b, t, d, dtype=dtype, device="cuda")
+    name = f"B={b} T={t} D={d} H={heads} {str(dtype)[6:]}"
+
+    def gemm(a, w, bias32, c, n, scale_cols, scale, c_bf16):
+        check(lib.sc_fab_gemm(a.data_ptr(), w.data_ptr(), bias32.data_ptr(), c.data_ptr(),
+                              b * t, n, d, scale_cols, scale, bf, c_bf16, stream), "K1a")
+
+    def attention(seeds, keep):
+        check(lib.sc_fab_attention(qkv.data_ptr(), bias.data_ptr(), ctx.data_ptr(), b, t, heads,
+                                   dh, bf, None, 0, None,
+                                   None if seeds is None else seeds.data_ptr(),
+                                   keep_threshold(keep), 1.0 / keep, None, stream), "K1b")
+
+    parts = {}
+    qkv_call = lambda: gemm(x, w_in, b_in32, qkv, 3 * d, d, dh ** -0.5, 0)
+    qkv_call()
+    want = F.linear(x.float(), w_in.float(), b_in32)
+    want[..., :d] *= dh ** -0.5
+    err, ok, tol = compare(torch, qkv, want, torch.float32)
+    require(ok, f"K1a qkv projection {name}: error {err} ({tol})")
+    row = {"max_abs_err": err, "ms": median_ms(torch, qkv_call),
+           "plain_ms": median_ms(torch, lambda: F.linear(x.float(), w_in.float(), b_in32)),
+           **bound(2 * b * t * d * 3 * d, nbytes(x, w_in, b_in32, qkv), dtype),
+           "library_ms": median_ms(torch, lambda: F.linear(x, w_in, b_in)),
+           "library": "F.linear in the working dtype (cuBLAS; no scale, output not fp32)"}
+    print(f"[kernel] K1a projection GEMM qkv {name}: max_abs_err={err:.3e} ({tol}) "
+          f"{timing_text(row)}")
+    parts["K1a qkv projection"] = row
+    del want
+    for p in (0.0, 0.1):
+        seeds = draw_seed(torch.Generator(device="cuda").manual_seed(23)) if p else None
+        call = lambda: attention(seeds, 1.0 - p)
+        call()
+        first = ctx.clone()
+        call()
+        require(torch.equal(first, ctx), f"K1b {name}: two runs differ")
+        twin = lambda: fab.plain_fused_attention_block(
+            x.float(), w_in.float(), b_in32, None, None, bias, heads, False, seeds=seeds,
+            keep_prob=1.0 - p)
+        want = twin()
+        err, ok, tol = compare(torch, ctx, want, dtype, fp32_abs=1e-4)
+        require(ok, f"K1b attention kernel {name} p={p}: error {err} ({tol})")
+        q, k, v = (a.reshape(b, t, heads, dh).transpose(1, 2).to(dtype)
+                   for a in qkv.split(d, dim=-1))
+        mask = bias[:, None, None, :].to(dtype)
+        row = {"max_abs_err": err, "ms": median_ms(torch, call),
+               "plain_ms": median_ms(torch, twin),
+               "plain": "the context-only twin, its fp32 qkv projection included",
+               **bound(4 * b * t * t * d, nbytes(qkv, bias, ctx), dtype),
+               "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, dropout_p=p, scale=1.0)),
+               "library": "scaled_dot_product_attention with a key mask on q, k, v in the "
+                          "working dtype"}
+        print(f"[kernel] K1b attention kernel {name} p={p}: max_abs_err={err:.3e} ({tol}), "
+              f"bit-identical rerun; {timing_text(row)}")
+        parts[f"K1b attention kernel, dropout {p}"] = row
+        del want, q, k, v
+    ctx_call = lambda: gemm(ctx, w_out, b_out32, out, d, 0, 1.0, bf)
+    ctx_call()
+    want = F.linear(ctx.float(), w_out.float(), b_out32)
+    err, ok, tol = compare(torch, out, want, dtype)
+    require(ok, f"K1a out-projection {name}: error {err} ({tol})")
+    row = {"max_abs_err": err, "ms": median_ms(torch, ctx_call),
+           "plain_ms": median_ms(torch, lambda: F.linear(ctx.float(), w_out.float(), b_out32)),
+           **bound(2 * b * t * d * d, nbytes(ctx, w_out, b_out32, out), dtype),
+           "library_ms": median_ms(torch, lambda: F.linear(ctx, w_out, b_out)),
+           "library": "F.linear in the working dtype (cuBLAS)"}
+    print(f"[kernel] K1a projection GEMM out {name}: max_abs_err={err:.3e} ({tol}) "
+          f"{timing_text(row)}")
+    parts["K1a out-projection"] = row
+    return [{"shape": f"{part}, HuBERT {name}", **row} for part, row in parts.items()]
 
 
 def check_vq(torch, fk, vocab, n, dtype, gen):
@@ -901,8 +992,9 @@ def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
+    rows, parts = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
+        parts[dtype] = check_block_parts(torch, fab, dtype, gen)
         rows[("hubert", dtype)] = check_attention(
             torch, fab, "K1 fused-out HuBERT B=8 T=319 D=768 H=12", 8, 319, 768, 12,
             True, True, dtype, gen)
@@ -1006,6 +1098,7 @@ def phase_kernels(torch):
          "replaces": jax_pkg + "nn/fused_attention_block.py:118",
          "shape": "HuBERT B=128 T=320 D=768 H=12 fused-out, dropout 0.1, bf16",
          **rows[("hubert_drop", bf)],
+         "parts": parts[bf] + parts[f32],
          "modes": [
              {"shape": "HuBERT B=128 T=320 D=768 H=12 fused-out, no dropout, bf16",
               **rows[("hubert_128", bf)]},
@@ -1023,14 +1116,14 @@ def phase_kernels(torch):
                         f"{str(dt)[6:]}", **rows[("hybrid", "k1", dt, p)]}
               for dt in (bf, f32) for p in (0.1, 0.0)]},
         {"name": "fused_attention_block_bwd", "route": "cuda",
-         "source": csrc + "fused_attention_block_bwd.cu",
+         "source": csrc + "attention_bwd.cuh",
          "replaces": jax_pkg + "nn/fused_attention_block_vjp.py:104",
          "shape": "branch B=128 T=321 D=768 H=8, dropout 0.1, bf16", **rows[("k2", bf, 0.1)],
          "modes": [{"shape": "same, no dropout", **rows[("k2", bf, 0.0)]}] + [
              {"shape": f"hybrid B=128 T=329 D=768 H=8, dropout {p}, {str(dt)[6:]}",
               **rows[("hybrid", "k2", dt, p)]} for dt in (bf, f32) for p in (0.1, 0.0)]},
         {"name": "fused_attention_block_dh768", "route": "cuda",
-         "source": csrc + "attention_wide.cuh",
+         "source": csrc + "attention_core.cuh",
          "replaces": jax_pkg + "nn/fused_attention_block.py:118",
          "shape": "cascaded B=128 T=328 D=768 H=1 context-only + lse, dropout 0.1, bf16",
          **rows[("wide_k1", bf, 0.1)],
@@ -1041,7 +1134,7 @@ def phase_kernels(torch):
              {"shape": f"cascaded serving B={b} T=327 D=768 H=1, no dropout, {str(dt)[6:]}",
               **rows[("wide_serve", b, dt)]} for dt in (bf, f32) for b in (1, 8, 64)]},
         {"name": "fused_attention_block_bwd_dh768", "route": "cuda",
-         "source": csrc + "attention_wide.cuh",
+         "source": csrc + "attention_bwd.cuh",
          "replaces": jax_pkg + "nn/fused_attention_block_vjp.py:104",
          "shape": "cascaded B=128 T=328 D=768 H=1, dropout 0.1, bf16",
          **rows[("wide_k2", bf, 0.1)],
@@ -1050,7 +1143,7 @@ def phase_kernels(torch):
              {"shape": f"cascaded+ B=128 T=320 D=768 H=1, dropout {p}, {str(dt)[6:]}",
               **rows[("plus", "k2", dt, p)]} for dt in (bf, f32) for p in (0.1, 0.0)]},
         {"name": "fused_attention_block_bwd_attn_bias", "route": "cuda",
-         "source": csrc + "fused_attention_block_bwd.cu",
+         "source": csrc + "attention_bwd.cuh",
          "replaces": jax_pkg + "nn/fused_attention_block_vjp.py:104",
          "shape": "text B=128 T=77 D=512 H=8 with the causal bias, no dropout, bf16",
          **rows[("text_k2", bf)],
@@ -1142,7 +1235,7 @@ def family_plans(mc):
     """(launches of one query by feature source, of `encode_speech`, of one
     training step with cached images) for any family, from its typed config:
     the tower's 12 layers and the branch attention (K1; K2 in the step), at
-    one head of 768 the chunked kernels; with a keyword head the cosine-VQ (K3;
+    one head of 768 the wide-head kernels; with a keyword head the cosine-VQ (K3;
     K3b in the step); with `text_fused_attention_vjp` the 12 text layers (K1;
     K2 with the bias in the step)."""
     ta = mc.cascaded_ta if mc.has_cascaded else mc.parallel_ta

@@ -1,0 +1,103 @@
+"""What K2's per-tile precision costs and buys on the card (PyTorch/CUDA port).
+
+The attention backward (`speechclip_plus_tpu_torch/csrc/attention_bwd.cuh`)
+multiplies a tile in one TF32 pass and takes the error-compensated passes only
+where a weight of the tile exceeds `PRECISE_ABOVE`. This script times the
+kernel as it is and with that decision edited, each variant built from an
+edited copy of the sources in a temporary directory (the checkout is not
+touched), in bf16 at the hybrid+ branch's shapes (B=128, H=8, dh=96, T=320 and
+321, dropout 0.1 and 0), against the twin as `chip_smoke.py` does:
+
+    tile          the kernel as it is
+    novote        one pass everywhere, the decision and the other path removed
+    never         the decision kept, the threshold never met
+    always        the threshold always met (one wasted pass of q k^T a tile)
+    precise_only  the compensated passes everywhere, no first pass
+    above=X       the kernel with the threshold at X (for example above=0.125)
+
+Run from the root of the checkout, on a machine with an H100 and nvcc:
+
+    python3 scripts/torch_k2_precision_variants.py [variant ...]
+
+A variant whose error passes the tolerance of `chip_smoke.compare` prints its
+row; one that misses it prints FAILED with the error.
+"""
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VARIANTS = ("tile", "novote", "never", "always", "precise_only")
+VOTE = "if (precise || !__any_sync(0xffffffffu, z_max > LOG_PRECISE_ABOVE)) break;"
+
+
+def edited(src: str, name: str) -> str:
+    start = src.index("constexpr float LOG_PRECISE_ABOVE = ")
+    line = src[start:src.index("\n", start)]
+    threshold = lambda log: src.replace(line, f"constexpr float LOG_PRECISE_ABOVE = {log};")
+    if name == "tile":
+        return src
+    if name == "novote":
+        return src.replace(VOTE, "break;")
+    if name == "never":
+        return threshold("1e30f")
+    if name == "always":
+        return threshold("-1e37f")
+    if name == "precise_only":
+        return src.replace("bool precise = P3;", "bool precise = true;")
+    if name.startswith("above="):
+        return threshold(f"{math.log(float(name[6:])):.7f}f")
+    raise SystemExit(f"unknown variant {name!r}; one of {VARIANTS} or above=X")
+
+
+def run_variant(name: str) -> None:
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    import torch
+    from speechclip_plus_tpu_torch.utils import cuda_build
+
+    tmp = tempfile.mkdtemp()
+    try:
+        csrc = os.path.join(tmp, "csrc")
+        shutil.copytree(cuda_build._CSRC, csrc)
+        path = os.path.join(csrc, "attention_bwd.cuh")
+        with open(path) as f:
+            src = f.read()
+        assert VOTE in src and "bool precise = P3;" in src, "attention_bwd.cuh has changed"
+        with open(path, "w") as f:
+            f.write(edited(src, name))
+        cuda_build._CSRC, cuda_build._BUILD_DIR = csrc, os.path.join(tmp, "build")
+        import chip_smoke
+        from speechclip_plus_tpu_torch.nn import fused_attention_block as fab
+        from speechclip_plus_tpu_torch.nn import fused_attention_block_vjp as vjp
+
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        for shape in ((128, 320, 768, 8), (128, 321, 768, 8)):
+            for p in (0.1, 0.0):
+                try:
+                    chip_smoke.check_attention_bwd(torch, fab, vjp, torch.bfloat16, p, gen, shape,
+                                                   what=name)
+                except chip_smoke.SmokeFailure as e:
+                    print(f"[kernel] K2 {name} {shape} p={p}: FAILED: {e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        run_variant(sys.argv[2])
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    rc = 0
+    for name in sys.argv[1:] or VARIANTS:  # one process a variant: a process loads one build
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", name]).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,7 +20,8 @@
 // with row = (b * H + h) * T + i: with the same (seed, offset) it is the mask
 // K1's context-only mode draws.
 //
-// Simple first: fp32 FMAs from shared memory, no tensor cores, no pipelining.
+// Both products run on the tensor cores (TF32 mma, attention_core.cuh); no
+// pipelining.
 #include "attention_core.cuh"
 
 extern "C" {

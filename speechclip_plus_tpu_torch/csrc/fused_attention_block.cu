@@ -24,21 +24,23 @@
 //      Unlike the TPU kernel, a bf16 block keeps qkv in fp32: with bf16 q,
 //      k and v the branch context missed its tolerance (PERF.md). The
 //      context is rounded to x's dtype, as in the TPU kernel.
-//   2. attention_kernel (attention_core.cuh, shared with K4 and K5): grid
-//      (query tile, head, batch). It reads q/k/v as strided head slices of
-//      the (B, T, 3D) buffer, with no transposes (the point of the TPU
-//      design), and runs an online softmax in fp32 over key tiles held in
-//      shared memory, so no (T, T) score tensor reaches device memory. The
-//      ragged T edge is masked (no padding to 16), padded query rows are
-//      computed and dropped, and masked keys carry -1e30 (ragged keys
-//      -2e30), never -inf, so no NaN can appear. The per-head bias is added
-//      per score tile from an fp32 (H | 1, T, T) tensor (4.9 MB at the
-//      WavLM shape, resident in L2), scaled by gate[b, h, i]: the
-//      (B, H, T, T) gated bias never exists. The TPU kernel rounded it to
-//      bf16 to fit VMEM; here it stays fp32. A head of dh = 768 (the
-//      cascaded branches: one head over the model width) does not fit that
-//      kernel's tiles; it runs the chunked kernel of attention_wide.cuh,
-//      same inputs, outputs and modes.
+//   2. attention_kernel / attention_wide_kernel (attention_core.cuh, shared
+//      with K4 and K5; entry point in fused_attention_block_attn.cu): grid
+//      (query tile, head, batch). It reads q/k/v as
+//      strided head slices of the (B, T, 3D) buffer, with no transposes (the
+//      point of the TPU design), and runs an online softmax in fp32 over key
+//      tiles held in shared memory, so no (T, T) score tensor reaches device
+//      memory; both products of a tile run on the tensor cores (TF32 mma on
+//      the fp32 tiles; see the note there). The ragged T edge is masked (no
+//      padding to 16), padded query rows are computed and dropped, and masked
+//      keys carry -1e30 (ragged keys -2e30), never -inf, so no NaN can
+//      appear. The per-head bias is added per score tile from an fp32
+//      (H | 1, T, T) tensor (4.9 MB at the WavLM shape, resident in L2),
+//      scaled by gate[b, h, i]: the (B, H, T, T) gated bias never exists. The
+//      TPU kernel rounded it to bf16 to fit VMEM; here it stays fp32. A head
+//      of dh = 768 (the cascaded branches: one head over the model width)
+//      runs the same pieces with the head dim cut across the warps
+//      (attention_wide_kernel), same inputs, outputs and modes.
 //
 // Dropout. The keep mask of weight (b, h, i, j) is the counter hash of
 // dropout_mask.cuh, seeded from a device (seed, offset) pair, so the
@@ -48,8 +50,7 @@
 // context-only mode can also write the per-row log-sum-exp (B, H, T) fp32
 // that K2 recomputes p from.
 //
-// Simple first: the attention products are fp32 FMAs from shared memory,
-// not tensor cores, and nothing is pipelined (no cp.async, TMA or wgmma);
+// The projection GEMMs are not pipelined (no cp.async, TMA or wgmma), and
 // the fp32 qkv buffer costs twice the bytes of a bf16 one.
 // Every launch reports cudaGetLastError() to the caller.
 #include <cuda_runtime.h>
@@ -57,8 +58,7 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include "attention_core.cuh"
-#include "attention_wide.cuh"
+#include "numeric.cuh"
 
 using namespace nvcuda;
 
@@ -229,73 +229,6 @@ int sc_fab_gemm(const void* a, const void* w, const float* bias, void* c,
         static_cast<float*>(c), M, N, K, scale_cols, scale);
   }
   return (int)cudaGetLastError();
-}
-
-// ctx (B, T, H*dh), fp32 or bf16 (ctx_bf16), = per-head
-// softmax(q k^T + key_bias [+ gate * ab]) v over the packed fp32 qkv
-// (B, T, 3*H*dh) buffer (q already scaled). key_bias (B, T) fp32. `ab` is the
-// fp32 per-head bias (ab_heads, T, T) with ab_heads 1 or H, or null; `gate`
-// the fp32 (B, H, T) factor on it, or null (only with `ab`). With `seed`
-// (device int64 [seed, offset]; null for none) the weights go through the
-// dropout mask of dropout_mask.cuh with `keep_thresh`, kept ones scaled by
-// `inv_keep`. `lse` (B, H, T) fp32 receives the per-row log-sum-exp when
-// not null.
-int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
-                     int B, int Tn, int H, int dh, int ctx_bf16,
-                     const float* ab, int ab_heads, const float* gate,
-                     const int64_t* seed, unsigned int keep_thresh, float inv_keep,
-                     float* lse, cudaStream_t stream) {
-  if (gate != nullptr && ab == nullptr) return (int)cudaErrorInvalidValue;
-  if (ab != nullptr && ab_heads != 1 && ab_heads != H) return (int)cudaErrorInvalidValue;
-  const int64_t D = (int64_t)H * dh;
-  AttnParams p = {};
-  p.q = qkv;
-  p.k = qkv + D;
-  p.v = qkv + 2 * D;
-  p.o = ctx;
-  p.sq = p.sk = p.sv = {(int64_t)Tn * 3 * D, dh, 3 * D};
-  p.so = {(int64_t)Tn * D, dh, D};
-  p.key_bias = key_bias;
-  p.ab = ab;
-  p.ab_head_stride = ab_heads == 1 ? 0 : (int64_t)Tn * Tn;
-  p.gate = gate;
-  p.seed = seed;
-  p.keep_thresh = keep_thresh;
-  p.inv_keep = inv_keep;
-  p.lse = lse;
-  p.q_scale = 1.f;
-  p.T = Tn;
-  p.H = H;
-  cudaError_t err = cudaErrorInvalidValue;
-#define SC_ATTN(TO, DHV)                                            \
-  (ab != nullptr ? launch_attention<float, TO, DHV, true>(p, B, stream) \
-                 : launch_attention<float, TO, DHV, false>(p, B, stream))
-  if (dh == 64)
-    err = ctx_bf16 ? SC_ATTN(bf16, 64) : SC_ATTN(float, 64);
-  else if (dh == 96)
-    err = ctx_bf16 ? SC_ATTN(bf16, 96) : SC_ATTN(float, 96);
-#undef SC_ATTN
-  if (dh == 768) {
-    WideParams w = {};
-    w.qkv = qkv;
-    w.key_bias = key_bias;
-    w.ab = ab;
-    w.ab_head_stride = p.ab_head_stride;
-    w.gate = gate;
-    w.seed = seed;
-    w.keep_thresh = keep_thresh;
-    w.inv_keep = inv_keep;
-    w.lse = lse;
-    w.out = ctx;
-    w.T = Tn;
-    w.H = H;
-#define SC_WIDE(TO)                                                         \
-  (ab != nullptr ? launch_wide<WIDE_FWD, TO, 768, true>(w, B, stream)       \
-                 : launch_wide<WIDE_FWD, TO, 768, false>(w, B, stream))
-    err = ctx_bf16 ? SC_WIDE(bf16) : SC_WIDE(float);
-#undef SC_WIDE
-  }
-  return (int)err;
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@ layout:
 
 On a CUDA tensor it runs the hand-written kernels in
 ``csrc/fused_attention_block.cu`` (a tensor-core projection GEMM and an
-online-softmax attention kernel; see the note there). On a CPU tensor it runs
+online-softmax attention kernel on TF32 tensor-core products; see the note
+there). On a CPU tensor it runs
 `plain_fused_attention_block`, the same function in plain PyTorch. There is
 no fallback from one to the other. Both compute in fp32, keep qkv in fp32
 and round the context and the output to x's dtype (the TPU kernel rounded
@@ -51,12 +52,12 @@ __all__ = ["fused_attention_block", "attention_forward", "plain_fused_attention_
 # wrapper calls that ran the kernels on the card (one per call, whatever the
 # number of CUDA launches it makes)
 LAUNCHES = 0
-# those of them that ran the chunked kernel for a head of 768
+# those of them at a head of 768 (the kernel that cuts the head dim across warps)
 WIDE_LAUNCHES = 0
 
-# 64 and 96: the towers' and the 8-head branches' heads, one (64, dh) tile per
-# operand in shared memory; 768: the cascaded branches' single head, which runs
-# the chunked kernel of csrc/attention_wide.cuh. Anything else raises.
+# 64 and 96: the towers' and the 8-head branches' heads, whole (64, dh) tiles
+# in shared memory; 768: the cascaded branches' single head, whose head dim is
+# cut across the warps (csrc/attention_core.cuh). Anything else raises.
 _HEAD_DIMS = (64, 96, 768)
 
 

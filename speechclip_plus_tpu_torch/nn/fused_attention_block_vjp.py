@@ -13,7 +13,7 @@ The forward saves K1's fp32 qkv buffer, its per-row log-sum-exp and the
 (seed, offset) pair of the dropout mask; K2 recomputes p from them and
 regenerates the mask (``ops/random.py``), so no (B, H, T, T) tensor is saved.
 On a CUDA tensor K2 is the hand-written kernel of
-``csrc/fused_attention_block_bwd.cu``; on a CPU tensor it is
+``csrc/attention_bwd.cuh``; on a CPU tensor it is
 `plain_attention_backward`, the same function in plain PyTorch.
 
 `attn_bias` is the per-head additive bias shared by the batch, (T, T),
@@ -36,7 +36,7 @@ __all__ = ["fused_attention_block_vjp", "attention_backward", "plain_attention_b
            "LAUNCHES", "WIDE_LAUNCHES", "BIAS_LAUNCHES"]
 
 # wrapper calls that ran K2 on the card; those of them at a head of 768 (the
-# chunked kernels) and those with a per-head bias
+# wide-head kernels) and those with a per-head bias
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
 BIAS_LAUNCHES = 0

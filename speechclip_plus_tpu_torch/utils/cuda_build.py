@@ -18,13 +18,17 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["KernelBuildError", "kernels", "build_seconds", "check"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build", "kernels")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# --split-compile=0: a source's kernels are optimised on as many threads as
+# there are cores, not one after the other
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v"]
 
 _lib = None
 _build_seconds = 0.0
@@ -91,10 +95,16 @@ def kernels() -> ctypes.CDLL:
             procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", src, "-o", obj],
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True) for src, obj in zip(srcs, objs)]
-            logs = []
-            for src, proc in zip(srcs, procs):
+
+            def finish(proc):  # one thread a compiler, so that each is timed on its own
                 _, err = proc.communicate()
-                logs.append(f"== {os.path.basename(src)}\n{err}")
+                return err, time.perf_counter() - t0
+
+            with ThreadPoolExecutor(len(procs)) as pool:
+                done = list(pool.map(finish, procs))
+            logs = []
+            for src, proc, (err, seconds) in zip(srcs, procs, done):
+                logs.append(f"== {os.path.basename(src)} ({seconds:.1f} s)\n{err}")
                 if proc.returncode != 0:
                     raise KernelBuildError(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
             tmp = os.path.join(tmpdir, "lib.so")

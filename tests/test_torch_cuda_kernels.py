@@ -12,7 +12,9 @@ or gate, K2, K4, K5, K6); bf16 K1, K2, K4, K5 and K6 error beyond half an ulp
 of the bf16 output <= 2e-2 x the output's RMS; K4's lse 1e-4 relative; K3
 targets equal wherever the top-2 margin exceeds 1e-3 (bf16) or 1e-5 (fp32),
 ent and psum to rtol 1e-3; K3b dx to 1e-4 (fp32) or 1e-2
-(bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes. K2 and K3b repeat
+(bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes; the bf16 attention
+kernels against their numerical model (`nn/attention_numerics.py`) 4e-3 x RMS
+beyond half an ulp, a fifth of what the twin is allowed. K2 and K3b repeat
 bit for bit (no float atomics), as do K1, K4, K5 and K6.
 """
 import pytest
@@ -558,3 +560,188 @@ def test_text_route_gradients_on_the_card(cuda_device):
     (g2,) = torch.autograd.grad((ref * probe).sum(), x2)
     assert (out - ref).abs().max().item() <= 1e-4
     assert (g1 - g2).abs().max().item() <= 1e-4 * max(1.0, g2.pow(2).mean().sqrt().item())
+
+
+# ---- the tensor-core attention family: every mode x head dim x dtype, ragged T ----
+
+RAGGED_T = (50, 77, 319, 320, 327, 328, 1499)
+
+
+def _family_case(dev, dtype, t, dh):
+    """Two heads (one at dh = 768), three sequences: a whole one, a ragged one
+    and a fully padded one."""
+    heads = 1 if dh == 768 else 2
+    d = heads * dh
+    args = _block_args(dev, 3, t, d, seed=21)
+    args[5][-1, :] = -1e30
+    return heads, [a.to(dtype) if i < 5 else a for i, a in enumerate(args)]
+
+
+def _lse_close(lse, lse0):
+    """1e-4 absolute; relative on a fully padded row, whose lse is about -1e30."""
+    assert ((lse - lse0).abs() <= 1e-4 * lse0.abs().clamp_min(1.0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 96, 768])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_attention_family_forward_modes(cuda_device, dtype, dh, t):
+    """K1's attention kernel in every mode a wrapper reaches (fused-out,
+    context-only + lse, dropout, per-head bias, gated bias) at one shape:
+    against the twin, finite on the padded row, bit-identical reruns."""
+    heads, args = _family_case(cuda_device, dtype, t, dh)
+    f32 = [a.float() for a in args]
+    seeds = draw_seed(torch.Generator(device=cuda_device).manual_seed(31))
+    ab, gate = _bias_gate(cuda_device, 3, t, heads)
+    modes = {
+        "fused-out": dict(),
+        "dropout": dict(seeds=seeds, keep_prob=0.9),
+        "bias": dict(attn_bias=ab),
+        "gate + dropout": dict(attn_bias=ab, attn_gate=gate, seeds=seeds, keep_prob=0.8),
+    }
+    for name, kw in modes.items():
+        got = fab._run(*args, heads, True, **kw)
+        assert bool(torch.isfinite(got.float()).all()), name
+        # the padded sequence's output (a mean of v over every key) only has to
+        # be finite: its small values would lower the RMS the tolerance scales with
+        _close(got[:-1], fab.plain_fused_attention_block(*f32, heads, True, **kw)[:-1], dtype)
+        assert torch.equal(got, fab._run(*args, heads, True, **kw)), name
+        if "attn_gate" in kw:
+            continue  # the context-only entry point takes no gate
+        ctx, _, lse = fab.attention_forward(*args[:3], args[5], n_heads=heads, **kw)
+        ctx0, _, lse0 = fab.plain_fused_attention_block(
+            *f32[:3], None, None, args[5], heads, False, return_aux=True, **kw)
+        _close(ctx, ctx0, dtype)
+        _lse_close(lse, lse0)
+        again, _, lse2 = fab.attention_forward(*args[:3], args[5], n_heads=heads, **kw)
+        assert torch.equal(ctx, again) and torch.equal(lse, lse2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 96, 768])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_attention_family_backward_modes(cuda_device, dtype, dh, t):
+    """K2 with and without the per-head bias and dropout, from K1's own
+    forward (so K2 regenerates K1's mask): against the twin, finite on the
+    padded row, bit-identical reruns."""
+    heads, args = _family_case(cuda_device, dtype, t, dh)
+    x, w_in, b_in, _, _, kb = args
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    dctx = torch.randn(3, t, heads * dh, generator=g, device=cuda_device).to(dtype)
+    seeds = draw_seed(torch.Generator(device=cuda_device).manual_seed(32))
+    for ab in (None, _causal(cuda_device, t, heads)):
+        for kw in (dict(), dict(seeds=seeds, keep_prob=0.9)):
+            ctx, qkv, lse = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads,
+                                                  attn_bias=ab, **kw)
+            got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, attn_bias=ab,
+                                         **kw)
+            want = vjp.plain_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads,
+                                                kw.get("seeds"), kw.get("keep_prob", 1.0), ab)
+            assert bool(torch.isfinite(got.float()).all())
+            _close(got, want, dtype)
+            assert torch.equal(got, vjp.attention_backward(
+                qkv, kb, dctx, ctx, lse, n_heads=heads, attn_bias=ab, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 96])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_attention_family_bhtd_kernels(cuda_device, dtype, dh, t):
+    """K4 (out + lse) and K5 (no dropout, dropout) from the same forward
+    template, on strided views of a packed buffer, with a fully padded row."""
+    from speechclip_plus_tpu_torch.nn import flash, fused_attention as fa
+
+    q, k, v, kb = _qkv(cuda_device, 3, 2, t, dh, dtype, True, seed=23)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    out, lse = flash.flash_forward(q, k, v, kb)
+    out0, lse0 = flash.plain_flash_attention(q32, k32, v32, kb)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(lse).all())
+    _close(out, out0, dtype)
+    _lse_close(lse, lse0)
+    again, lse2 = flash.flash_forward(q, k, v, kb)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    seeds = draw_seed(torch.Generator(device=cuda_device).manual_seed(34))
+    for sd, keep in ((None, 1.0), (seeds, 0.9)):
+        got = fa._run(q, k, v, kb, sd, keep)
+        assert bool(torch.isfinite(got.float()).all())
+        _close(got, fa.plain_fused_attention_dropout(q32, k32, v32, kb, sd, keep), dtype)
+        assert torch.equal(got, fa._run(q, k, v, kb, sd, keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 96])
+def test_attention_family_draws_one_mask(cuda_device, dtype, dh):
+    """One (seed, offset) gives K1, K2 and K5 one mask: K5 on K1's projected
+    q, k, v returns K1's context, and K2 agrees with the twin that regenerates
+    the mask from the same pair."""
+    from speechclip_plus_tpu_torch.nn import fused_attention as fa
+
+    b, t, heads = 3, 327, 4
+    d = heads * dh
+    x, w_in, b_in, _, _, kb = (a.to(dtype) if i < 5 else a
+                               for i, a in enumerate(_block_args(cuda_device, b, t, d)))
+    seeds = draw_seed(torch.Generator(device=cuda_device).manual_seed(35))
+    ctx, qkv, lse = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads, seeds=seeds,
+                                          keep_prob=0.9)
+    q, k, v = qkv.view(b, t, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    same = fa._run(q * dh ** 0.5, k, v, kb, seeds, 0.9).transpose(1, 2).reshape(b, t, d)
+    _close(ctx, same, dtype)
+    dctx = torch.randn(b, t, d, device=cuda_device).to(dtype)
+    got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                 keep_prob=0.9)
+    _close(got, vjp.plain_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads,
+                                             seeds, 0.9), dtype)
+    other = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds + 1,
+                                   keep_prob=0.9)
+    assert (other.float() - got.float()).abs().max().item() > 1e-3
+
+
+# x RMS beyond half a bf16 ulp: a fifth of what the twin is allowed. The model
+# sums in fp32, the tensor core adds into its accumulator by truncation, which
+# alone is up to 2e-3 (measured: 0.3e-3 to 2.1e-3 where the kernels are 5e-3 to
+# 15e-3 from the fp32 twin).
+MODEL_LIMIT = 4e-3
+
+
+def _excess(got, want):
+    """The largest error beyond half a bf16 ulp, over want's RMS. The ulp is
+    that of the larger of the two values: where they straddle a power of two,
+    half an ulp of the smaller one is a quarter of the other's rounding."""
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    excess = ((got - want).abs() - torch.ldexp(torch.ones_like(want), exp - 9)).clamp_min(0)
+    return excess.max().item() / want.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,d,heads,causal", [
+    (4, 320, 768, 8, False), (4, 327, 768, 1, False), (4, 77, 512, 8, True),
+    (4, 320, 768, 12, False), (4, 1499, 128, 2, False)])
+def test_attention_kernels_match_their_numerical_model(cuda_device, b, t, d, heads, causal, p):
+    """The bf16 kernels round what `attention_numerics` says they round: K1's
+    attention kernel (context and lse) and K2 agree with the emulation of their
+    operand rounding on the same qkv buffer five times closer than the fp32 twin
+    has to be met, at the paths' shapes with sequences of every length. So the
+    CPU tests of that model speak about these kernels."""
+    from speechclip_plus_tpu_torch.nn import attention_numerics as num
+
+    ab = _causal(cuda_device, t) if causal else None
+    x, w_in, b_in, kb, seeds, ab3, ctx, qkv, lse, dctx = _bwd_case(
+        cuda_device, torch.bfloat16, b, t, d, heads, p, ab)
+    keep = 1.0 - p
+    ctx_m, lse_m = num.emulated_attention(qkv, kb, heads, "tf32", seeds, keep, ab3,
+                                          scores_mode="tf32x3")
+    got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                 keep_prob=keep, attn_bias=ab3)
+    dqkv_m = num.emulated_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads,
+                                             "tf32", seeds, keep, ab3)
+    found = {"ctx": _excess(ctx, ctx_m), "lse": (lse - lse_m).abs().max().item(),
+             "dqkv": _excess(got, dqkv_m)}
+    print(f"kernel against its numerical model: {found}")
+    assert found["ctx"] <= MODEL_LIMIT and found["dqkv"] <= MODEL_LIMIT, found
+    assert found["lse"] <= 1e-5, found
