@@ -14,8 +14,9 @@ Phases, each fatal on failure:
      paths' shapes, in bf16 and fp32 (TF32 off), with the stated tolerances
      and median times over 20 runs (CUDA events), beside the one library call
      (or the labelled composite of library calls) that computes the same
-     function and beside its bound, the least time the card could take: K1
-     (serving shapes, the ViT at B=128 and 256, with dropout at the training
+     function and beside its bound, the least time the card could take: K1a,
+     K1's projection GEMM, and K1b, its attention kernel, each through the
+     call the block makes, at the tower's training shape; K1 (serving shapes, the ViT at B=128 and 256, with dropout at the training
      shapes, and with the per-head bias alone and gated, p=0 and 0.1, at the
      WavLM shape), K2 (p=0.1 and p=0, and against finite differences in fp32
      at T=321), K3 (N=600 and the training N=9600), K3b, K4 (out and lse at
@@ -170,6 +171,9 @@ def timing_text(r):
 
 KERNEL_COUNTERS = {  # kernel name -> (module under speechclip_plus_tpu_torch, counter)
     "fused_attention_block": ("nn.fused_attention_block", "LAUNCHES"),
+    # K1's projection GEMM (K1a), its own wrapper: two launches per fused-out
+    # block, one per context-only block
+    "projection_gemm": ("nn.fused_attention_block", "PROJECTION_LAUNCHES"),
     "fused_attention_block_bwd": ("nn.fused_attention_block_vjp", "LAUNCHES"),
     "fused_cosine_vq": ("ops.fused_keyword", "LAUNCHES"),
     "fused_cosine_vq_bwd": ("ops.fused_keyword", "BWD_LAUNCHES"),
@@ -280,63 +284,56 @@ def check_attention(torch, fab, name, b, t, d, heads, fuse_out, padded, dtype, g
 
 
 def check_block_parts(torch, fab, dtype, gen, b=128, t=320, d=768, heads=12):
-    """K1's two kernels apart, through the library's C entry points, at the
-    tower's training shape: K1a, the projection GEMM (`gemm_bf16_kernel`; the
-    qkv projection into the fp32 buffer with q scaled, and the out-projection),
-    against `F.linear`; K1b, the attention kernel on that buffer, with and
-    without dropout, against the context-only twin on the same x (SDPA is the
-    library call)."""
-    from speechclip_plus_tpu_torch.ops.random import draw_seed, keep_threshold
-    from speechclip_plus_tpu_torch.utils.cuda_build import check, kernels
+    """K1's kernels apart, each through the call `_launch` makes, at the
+    tower's training shape: K1a through its wrapper `projection` (the qkv
+    projection into the fp32 buffer with q scaled, and the out-projection),
+    against `plain_projection` and beside `F.linear`; K1b through `_attention`
+    on that buffer, with and without dropout, against the context of
+    `plain_fused_attention_block(..., return_aux=True)` on the same x, beside
+    SDPA. Returns (K1a rows, K1b rows)."""
+    from speechclip_plus_tpu_torch.ops.random import draw_seed
 
     F = torch.nn.functional
-    lib, dh, bf = kernels(), d // heads, int(dtype == torch.bfloat16)
+    dh = d // heads
     x, w_in, b_in, w_out, b_out, bias = block_inputs(torch, b, t, d, dtype, gen)
-    b_in32, b_out32 = b_in.float(), b_out.float()
-    stream = torch.cuda.current_stream().cuda_stream
-    qkv = torch.empty(b, t, 3 * d, dtype=torch.float32, device="cuda")
-    ctx = torch.empty(b, t, d, dtype=dtype, device="cuda")
-    out = torch.empty(b, t, d, dtype=dtype, device="cuda")
     name = f"B={b} T={t} D={d} H={heads} {str(dtype)[6:]}"
 
-    def gemm(a, w, bias32, c, n, scale_cols, scale, c_bf16):
-        check(lib.sc_fab_gemm(a.data_ptr(), w.data_ptr(), bias32.data_ptr(), c.data_ptr(),
-                              b * t, n, d, scale_cols, scale, bf, c_bf16, stream), "K1a")
+    def gemm_row(what, call, plain, ref, out_dtype, flops, inputs, library):
+        got = call()
+        require(torch.equal(got, call()), f"K1a {what} {name}: two runs differ")
+        err, ok, tol = compare(torch, got, ref(), out_dtype)  # ref: the twin, not rounded
+        require(ok, f"K1a {what} {name}: error {err} ({tol})")
+        row = {"max_abs_err": err, "ms": median_ms(torch, call), "plain_ms": median_ms(torch, plain),
+               **bound(flops, nbytes(*inputs, got), dtype),
+               "library_ms": median_ms(torch, library),
+               "library": "F.linear in the working dtype (cuBLAS"
+                          + ("; no scale, output not fp32)" if out_dtype != dtype else ")")}
+        print(f"[kernel] K1a projection GEMM {what} {name}: max_abs_err={err:.3e} ({tol}), "
+              f"bit-identical rerun; {timing_text(row)}")
+        return got, row
 
-    def attention(seeds, keep):
-        check(lib.sc_fab_attention(qkv.data_ptr(), bias.data_ptr(), ctx.data_ptr(), b, t, heads,
-                                   dh, bf, None, 0, None,
-                                   None if seeds is None else seeds.data_ptr(),
-                                   keep_threshold(keep), 1.0 / keep, None, stream), "K1b")
-
-    parts = {}
-    qkv_call = lambda: gemm(x, w_in, b_in32, qkv, 3 * d, d, dh ** -0.5, 0)
-    qkv_call()
-    want = F.linear(x.float(), w_in.float(), b_in32)
-    want[..., :d] *= dh ** -0.5
-    err, ok, tol = compare(torch, qkv, want, torch.float32)
-    require(ok, f"K1a qkv projection {name}: error {err} ({tol})")
-    row = {"max_abs_err": err, "ms": median_ms(torch, qkv_call),
-           "plain_ms": median_ms(torch, lambda: F.linear(x.float(), w_in.float(), b_in32)),
-           **bound(2 * b * t * d * 3 * d, nbytes(x, w_in, b_in32, qkv), dtype),
-           "library_ms": median_ms(torch, lambda: F.linear(x, w_in, b_in)),
-           "library": "F.linear in the working dtype (cuBLAS; no scale, output not fp32)"}
-    print(f"[kernel] K1a projection GEMM qkv {name}: max_abs_err={err:.3e} ({tol}) "
-          f"{timing_text(row)}")
-    parts["K1a qkv projection"] = row
-    del want
+    gemm, attn = [], []
+    qkv_kw = dict(scale_cols=d, scale=dh ** -0.5)
+    qkv, row = gemm_row("qkv", lambda: fab.projection(x, w_in, b_in, **qkv_kw),
+                        lambda: fab.plain_projection(x, w_in, b_in, **qkv_kw),
+                        lambda: fab.plain_projection(x, w_in, b_in, **qkv_kw), torch.float32,
+                        2 * b * t * d * 3 * d, (x, w_in, b_in), lambda: F.linear(x, w_in, b_in))
+    gemm.append({"shape": f"qkv projection (M={b * t}, N={3 * d}, K={d}, fp32 out, q scaled), "
+                          f"HuBERT {name}", **row})
+    ctx = None
     for p in (0.0, 0.1):
         seeds = draw_seed(torch.Generator(device="cuda").manual_seed(23)) if p else None
-        call = lambda: attention(seeds, 1.0 - p)
-        call()
-        first = ctx.clone()
-        call()
-        require(torch.equal(first, ctx), f"K1b {name}: two runs differ")
+        call = lambda: fab._attention(qkv, bias, heads, dtype, seeds, 1.0 - p, None, None,
+                                      False)[0]
+        got = call()
+        require(torch.equal(got, call()), f"K1b {name}: two runs differ")
         twin = lambda: fab.plain_fused_attention_block(
-            x.float(), w_in.float(), b_in32, None, None, bias, heads, False, seeds=seeds,
-            keep_prob=1.0 - p)
-        want = twin()
-        err, ok, tol = compare(torch, ctx, want, dtype, fp32_abs=1e-4)
+            x, w_in, b_in, None, None, bias, heads, False, seeds=seeds, keep_prob=1.0 - p,
+            return_aux=True)[0]
+        want = fab.plain_fused_attention_block(
+            x.float(), w_in.float(), b_in.float(), None, None, bias, heads, False, seeds=seeds,
+            keep_prob=1.0 - p, return_aux=True)[0]
+        err, ok, tol = compare(torch, got, want, dtype, fp32_abs=1e-4)
         require(ok, f"K1b attention kernel {name} p={p}: error {err} ({tol})")
         q, k, v = (a.reshape(b, t, heads, dh).transpose(1, 2).to(dtype)
                    for a in qkv.split(d, dim=-1))
@@ -344,29 +341,23 @@ def check_block_parts(torch, fab, dtype, gen, b=128, t=320, d=768, heads=12):
         row = {"max_abs_err": err, "ms": median_ms(torch, call),
                "plain_ms": median_ms(torch, twin),
                "plain": "the context-only twin, its fp32 qkv projection included",
-               **bound(4 * b * t * t * d, nbytes(qkv, bias, ctx), dtype),
+               **bound(4 * b * t * t * d, nbytes(qkv, bias, got), dtype),
                "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, dropout_p=p, scale=1.0)),
                "library": "scaled_dot_product_attention with a key mask on q, k, v in the "
                           "working dtype"}
         print(f"[kernel] K1b attention kernel {name} p={p}: max_abs_err={err:.3e} ({tol}), "
               f"bit-identical rerun; {timing_text(row)}")
-        parts[f"K1b attention kernel, dropout {p}"] = row
+        attn.append({"shape": f"K1b attention kernel, dropout {p}, HuBERT {name}", **row})
+        ctx = got if ctx is None else ctx
         del want, q, k, v
-    ctx_call = lambda: gemm(ctx, w_out, b_out32, out, d, 0, 1.0, bf)
-    ctx_call()
-    want = F.linear(ctx.float(), w_out.float(), b_out32)
-    err, ok, tol = compare(torch, out, want, dtype)
-    require(ok, f"K1a out-projection {name}: error {err} ({tol})")
-    row = {"max_abs_err": err, "ms": median_ms(torch, ctx_call),
-           "plain_ms": median_ms(torch, lambda: F.linear(ctx.float(), w_out.float(), b_out32)),
-           **bound(2 * b * t * d * d, nbytes(ctx, w_out, b_out32, out), dtype),
-           "library_ms": median_ms(torch, lambda: F.linear(ctx, w_out, b_out)),
-           "library": "F.linear in the working dtype (cuBLAS)"}
-    print(f"[kernel] K1a projection GEMM out {name}: max_abs_err={err:.3e} ({tol}) "
-          f"{timing_text(row)}")
-    parts["K1a out-projection"] = row
-    return [{"shape": f"{part}, HuBERT {name}", **row} for part, row in parts.items()]
+    _, row = gemm_row("out", lambda: fab.projection(ctx, w_out, b_out, out_dtype=dtype),
+                      lambda: fab.plain_projection(ctx, w_out, b_out, out_dtype=dtype),
+                      lambda: fab.plain_projection(ctx, w_out, b_out), dtype,
+                      2 * b * t * d * d, (ctx, w_out, b_out), lambda: F.linear(ctx, w_out, b_out))
+    gemm.append({"shape": f"out-projection (M={b * t}, N={d}, K={d}, {str(dtype)[6:]} out), "
+                          f"HuBERT {name}", **row})
+    return gemm, attn
 
 
 def check_vq(torch, fk, vocab, n, dtype, gen):
@@ -992,9 +983,9 @@ def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, parts = {}, {}
+    rows, gemm, parts = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        parts[dtype] = check_block_parts(torch, fab, dtype, gen)
+        gemm[dtype], parts[dtype] = check_block_parts(torch, fab, dtype, gen)
         rows[("hubert", dtype)] = check_attention(
             torch, fab, "K1 fused-out HuBERT B=8 T=319 D=768 H=12", 8, 319, 768, 12,
             True, True, dtype, gen)
@@ -1093,6 +1084,9 @@ def phase_kernels(torch):
     jax_pkg = "speechclip_plus_tpu/"
     wavlm = "WavLM B=128 T=320 D=768 H=12 fused-out, bf16, "
     return [
+        {"name": "projection_gemm", "route": "cuda", "source": csrc + "fused_attention_block.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block.py:153",
+         **gemm[bf][0], "modes": gemm[bf][1:] + gemm[f32]},
         {"name": "fused_attention_block", "route": "cuda",
          "source": csrc + "fused_attention_block.cu",
          "replaces": jax_pkg + "nn/fused_attention_block.py:118",
@@ -1220,12 +1214,19 @@ def add_counts(total, per_call, times=1):
         total[name] = total.get(name, 0) + n * times
 
 
+def k1_plan(fused_out=0, context_only=0):
+    """K1 launches, with the projection GEMMs (K1a) they make: qkv and out
+    for a fused-out block, qkv for a context-only one."""
+    return {"fused_attention_block": fused_out + context_only,
+            "projection_gemm": 2 * fused_out + context_only}
+
+
 def speech_query_plan(tower, cascaded):
     """Kernel launches of one speech query: the tower's 12 layers (K1, or K5
     around plain projections), the branch attention (K1) and, for the
     cascaded feature, the fused cosine-VQ (K3)."""
-    plan = ({"fused_attention_block": 13} if tower == "k1"
-            else {"fused_attention_dropout": 12, "fused_attention_block": 1})
+    plan = (k1_plan(12, 1) if tower == "k1"
+            else {"fused_attention_dropout": 12, **k1_plan(0, 1)})
     if cascaded:
         plan["fused_cosine_vq"] = 1
     return plan
@@ -1241,13 +1242,13 @@ def family_plans(mc):
     ta = mc.cascaded_ta if mc.has_cascaded else mc.parallel_ta
     wide = ta.d_model // ta.nhead == 768
     text = 12 if mc.has_cascaded and mc.clip.text_fused_attention_vjp else 0
-    branch = {"fused_attention_block": 13}
+    branch = k1_plan(12, 1)
     if wide:
         branch["fused_attention_block_dh768"] = 1
     full = dict(branch)
     if mc.has_cascaded:
         full["fused_cosine_vq"] = 1
-        full["fused_attention_block"] += text
+        add_counts(full, k1_plan(0, text))
     step = dict(full, fused_attention_block_bwd=1 + text)
     if wide:
         step["fused_attention_block_bwd_dh768"] = 1
@@ -1282,7 +1283,7 @@ def phase_family(torch, label, config):
     images = torch.randn(n_img, 224, 224, 3, generator=gen, device="cuda")
     index_ids = np.arange(n_img) + 10000
     reset_counts()
-    expect = {"fused_attention_block": 12}
+    expect = k1_plan(12)
     index = build_image_index(sc, images, index_ids, batch_size=256)
     require(len(index) == n_img and bool(torch.isfinite(index.feats).all()), f"{label}: index")
     retriever = SpeechRetriever(sc, index)  # the YAML's feature source
@@ -1431,7 +1432,7 @@ def phase_model(torch, label, config, *, tower="k1", batches=(1, 8, 64), wires=(
     t0 = time.perf_counter()
     index = build_image_index(sc, images, index_ids, batch_size=batch)
     torch.cuda.synchronize()
-    add_counts(expect, {"fused_attention_block": 12}, -(-n_img // batch))
+    add_counts(expect, k1_plan(12), -(-n_img // batch))
     require(len(index) == n_img and bool(torch.isfinite(index.feats).all()), "index")
     print(f"[index] {label}: {n_img} images in {time.perf_counter() - t0:.2f} s")
 
@@ -1572,7 +1573,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
         n = WARMUP_STEPS + TIMED_STEPS
         add_counts(expect, step_plan, n)
         if cell == "live":
-            add_counts(expect, {"fused_attention_block": 12}, n)
+            add_counts(expect, k1_plan(12), n)
         loss = torch.stack(losses).float().cpu()
         gn = float(metrics["grad_norm"])
         result[cell] = sec * 1e3

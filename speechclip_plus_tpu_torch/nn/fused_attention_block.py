@@ -8,10 +8,11 @@ layout:
     ctx = concat_h dropout(softmax(q_h k_hᵀ + key_bias [+ gate_h · ab_h])) v_h
     out = ctx Woᵀ + bo        (fuse_out=True; else ctx is returned)
 
-On a CUDA tensor it runs the hand-written kernels in
-``csrc/fused_attention_block.cu`` (a tensor-core projection GEMM and an
-online-softmax attention kernel on TF32 tensor-core products; see the note
-there). On a CPU tensor it runs
+On a CUDA tensor it runs the hand-written kernels of
+``csrc/fused_attention_block.cu``: the projection GEMMs through `projection`
+(K1a: wgmma fed by TMA at bf16, an FMA tile at fp32; its plain twin is
+`plain_projection`) and an online-softmax attention kernel on TF32
+tensor-core products (K1b; see the note there). On a CPU tensor it runs
 `plain_fused_attention_block`, the same function in plain PyTorch. There is
 no fallback from one to the other. Both compute in fp32, keep qkv in fp32
 and round the context and the output to x's dtype (the TPU kernel rounded
@@ -47,18 +48,82 @@ import torch.nn.functional as F
 from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 
 __all__ = ["fused_attention_block", "attention_forward", "plain_fused_attention_block",
-           "check_attn_bias", "LAUNCHES", "WIDE_LAUNCHES"]
+           "projection", "plain_projection", "check_attn_bias", "LAUNCHES", "WIDE_LAUNCHES",
+           "PROJECTION_LAUNCHES"]
 
 # wrapper calls that ran the kernels on the card (one per call, whatever the
 # number of CUDA launches it makes)
 LAUNCHES = 0
 # those of them at a head of 768 (the kernel that cuts the head dim across warps)
 WIDE_LAUNCHES = 0
+# launches of the projection GEMM (K1a): two per fused-out block, one per context-only block
+PROJECTION_LAUNCHES = 0
 
 # 64 and 96: the towers' and the 8-head branches' heads, whole (64, dh) tiles
 # in shared memory; 768: the cascaded branches' single head, whose head dim is
 # cut across the warps (csrc/attention_core.cuh). Anything else raises.
 _HEAD_DIMS = (64, 96, 768)
+
+
+def plain_projection(x, w, b, *, scale_cols: int = 0, scale: float = 1.0,
+                     out_dtype=torch.float32):
+    """K1a's plain twin: x (..., K) · wᵀ + b in fp32 on the operands' values,
+    columns n < `scale_cols` times `scale`, rounded to `out_dtype`."""
+    y = F.linear(x.float(), w.float(), b.float())
+    if scale_cols:
+        y = torch.cat([y[..., :scale_cols] * scale, y[..., scale_cols:]], dim=-1)
+    return y.to(out_dtype)
+
+
+def _launch_projection(x, w, b, scale_cols, scale, out_dtype):
+    global PROJECTION_LAUNCHES
+    from ..utils.cuda_build import check, kernels
+
+    bf = x.dtype == torch.bfloat16
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+        raise TypeError(f"projection: x {x.dtype}, w {w.dtype} (both fp32 or both bf16)")
+    if out_dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"projection: out_dtype {out_dtype} for {x.dtype} operands")
+    n, k = w.shape if w.ndim == 2 else (0, 0)
+    if w.ndim != 2 or x.shape[-1] != k or b.shape != (n,) or w.device != x.device \
+            or b.device != x.device:
+        raise ValueError(f"projection: x {tuple(x.shape)}, w {tuple(w.shape)}, b "
+                         f"{tuple(b.shape)} on {w.device}; want w (N, {x.shape[-1]}) in torch's "
+                         f"(out, in) layout and b (N,) on {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("projection: x and w must be contiguous")
+    # TMA reads bf16 rows of K values: 16-byte aligned bases and row strides
+    if bf and (k % 8 or n % 2):
+        raise ValueError(f"projection: K={k} must be a multiple of 8 and N={n} even")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("projection: x and w must be 16-byte aligned")
+    if not (b.dtype == torch.float32 or (bf and b.dtype == torch.bfloat16)) \
+            or not b.is_contiguous():
+        b = b.to(torch.float32).contiguous()  # bf16 operands take a bf16 bias as it is
+    out = torch.empty(*x.shape[:-1], n, dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        check(kernels().sc_fab_gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    x.numel() // k, n, k, scale_cols, scale, int(bf),
+                                    int(out_dtype == torch.bfloat16),
+                                    int(b.dtype == torch.bfloat16),
+                                    torch.cuda.current_stream().cuda_stream),
+              "projection (K1a)")
+    PROJECTION_LAUNCHES += 1
+    return out
+
+
+def projection(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, scale_cols: int = 0,
+               scale: float = 1.0, out_dtype=torch.float32) -> torch.Tensor:
+    """K1a, the block's projection GEMM: x (..., K) · wᵀ + b with w (N, K) in
+    torch's (out, in) layout, columns n < `scale_cols` times `scale` (the q
+    scale of the qkv projection), fp32 accumulation, the result in `out_dtype`
+    (fp32, or x's dtype). bf16 operands need K % 8 == 0, an even N and 16-byte
+    aligned x and w. A CPU tensor runs `plain_projection`."""
+    if x.device.type == "cpu":
+        return plain_projection(x, w, b, scale_cols=scale_cols, scale=scale, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"projection on {x.device.type}")
+    return _launch_projection(x, w, b, scale_cols, scale, out_dtype)
 
 
 def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
@@ -72,8 +137,7 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
     `attn_bias` (H | 1, T, T) and `attn_gate` (B, H, T) as in the wrapper."""
     b, t, d = x.shape
     dh = d // n_heads
-    qkv = F.linear(x.float(), w_in.float(), b_in.float())
-    qkv = torch.cat([qkv[..., :d] * dh ** -0.5, qkv[..., d:]], dim=-1)
+    qkv = plain_projection(x, w_in, b_in, scale_cols=d, scale=dh ** -0.5)
     q, k, v = (a.reshape(b, t, n_heads, dh).transpose(1, 2) for a in qkv.split(d, dim=-1))
     s = torch.matmul(q, k.transpose(-1, -2))
     if key_padding_bias is not None:
@@ -89,14 +153,13 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
     if return_aux:
         return ctx, qkv, torch.logsumexp(s, dim=-1)
     if fuse_out:
-        return F.linear(ctx.float(), w_out.float(), b_out.float()).to(x.dtype)
+        return plain_projection(ctx, w_out, b_out, out_dtype=x.dtype)
     return ctx
 
 
 def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
             seeds=None, keep_prob=1.0, return_aux=False, attn_bias=None, attn_gate=None):
     global LAUNCHES, WIDE_LAUNCHES
-    from ..utils.cuda_build import check, kernels
 
     b, t, d = x.shape
     dh = d // n_heads
@@ -110,12 +173,6 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
                 or not w.is_contiguous():
             raise ValueError(f"fused_attention_block: weight {tuple(w.shape)} "
                              f"{w.dtype} {w.device}; want {shape} {x.dtype} contiguous")
-    if not x.is_contiguous():
-        raise ValueError("fused_attention_block: x must be contiguous")
-    # the GEMM reads x and the weights with 16-byte vector loads
-    for name, a in [("x", x)] + list(zip(("w_in", "w_out"), weights)):
-        if a.data_ptr() % 16:
-            raise ValueError(f"fused_attention_block: {name} is not 16-byte aligned")
     if key_padding_bias is None:
         key_padding_bias = torch.zeros(b, t, dtype=torch.float32, device=x.device)
     if tuple(key_padding_bias.shape) != (b, t):
@@ -137,37 +194,34 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
             raise ValueError(f"attn_gate {tuple(attn_gate.shape)}; want {(b, n_heads, t)} on "
                              f"{x.device}, with an attn_bias")
         gate = attn_gate.to(torch.float32).contiguous()
-    bf = int(x.dtype == torch.bfloat16)
-    lib = kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        qkv = torch.empty(b, t, 3 * d, dtype=torch.float32, device=x.device)
-        check(lib.sc_fab_gemm(x.data_ptr(), w_in.data_ptr(),
-                              b_in.float().contiguous().data_ptr(), qkv.data_ptr(),
-                              b * t, 3 * d, d, d, dh ** -0.5, bf, 0, stream),
-              "fused_attention_block qkv projection")
-        ctx = torch.empty(b, t, d, dtype=x.dtype, device=x.device)
-        lse = (torch.empty(b, n_heads, t, dtype=torch.float32, device=x.device)
-               if return_aux else None)
-        check(lib.sc_fab_attention(qkv.data_ptr(), kb.data_ptr(), ctx.data_ptr(),
-                                   b, t, n_heads, dh, bf,
-                                   None if ab is None else ab.data_ptr(),
-                                   0 if ab is None else ab.shape[0],
-                                   None if gate is None else gate.data_ptr(),
-                                   None if seeds is None else seeds.data_ptr(),
-                                   keep_threshold(keep_prob), 1.0 / keep_prob,
-                                   None if lse is None else lse.data_ptr(), stream),
-              "fused_attention_block attention")
-        out = ctx
-        if fuse_out:
-            out = torch.empty(b, t, d, dtype=x.dtype, device=x.device)
-            check(lib.sc_fab_gemm(ctx.data_ptr(), w_out.data_ptr(),
-                                  b_out.float().contiguous().data_ptr(), out.data_ptr(),
-                                  b * t, d, d, 0, 1.0, bf, bf, stream),
-                  "fused_attention_block out projection")
+    qkv = projection(x, w_in, b_in, scale_cols=d, scale=dh ** -0.5)
+    ctx, lse = _attention(qkv, kb, n_heads, x.dtype, seeds, keep_prob, ab, gate, return_aux)
     LAUNCHES += 1
     WIDE_LAUNCHES += dh == 768
-    return (ctx, qkv, lse) if return_aux else out
+    if return_aux:
+        return ctx, qkv, lse
+    return projection(ctx, w_out, b_out, out_dtype=x.dtype) if fuse_out else ctx
+
+
+def _attention(qkv, kb, n_heads, dtype, seeds, keep_prob, ab, gate, return_lse):
+    """K1b on the fp32 (B, T, 3D) buffer with q scaled: (ctx in `dtype`, fp32
+    lse (B, H, T) or None). The inputs are checked by `_launch`."""
+    from ..utils.cuda_build import check, kernels
+
+    b, t, d = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    ctx = torch.empty(b, t, d, dtype=dtype, device=qkv.device)
+    lse = (torch.empty(b, n_heads, t, dtype=torch.float32, device=qkv.device)
+           if return_lse else None)
+    with torch.cuda.device(qkv.device):
+        check(kernels().sc_fab_attention(
+            qkv.data_ptr(), kb.data_ptr(), ctx.data_ptr(), b, t, n_heads, d // n_heads,
+            int(dtype == torch.bfloat16), None if ab is None else ab.data_ptr(),
+            0 if ab is None else ab.shape[0], None if gate is None else gate.data_ptr(),
+            None if seeds is None else seeds.data_ptr(), keep_threshold(keep_prob),
+            1.0 / keep_prob, None if lse is None else lse.data_ptr(),
+            torch.cuda.current_stream().cuda_stream),
+            "fused_attention_block attention")
+    return ctx, lse
 
 
 def _run(*args, **kw):

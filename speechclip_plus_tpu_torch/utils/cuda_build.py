@@ -58,7 +58,7 @@ def _sources():
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     u = ctypes.c_uint
-    lib.sc_fab_gemm.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
+    lib.sc_fab_gemm.argtypes = [p, p, p, p, i, i, i, i, f, i, i, i, p]
     i64p = ctypes.POINTER(ctypes.c_int64)  # host array of element strides
     lib.sc_fab_attention.argtypes = [p, p, p, i, i, i, i, i, p, i, p, p, u, f, p, p]
     lib.sc_fused_attention.argtypes = [p, p, p, p, i64p, p, i, i, i, i, i, f, p, u, f, p]

@@ -745,3 +745,131 @@ def test_attention_kernels_match_their_numerical_model(cuda_device, b, t, d, hea
     print(f"kernel against its numerical model: {found}")
     assert found["ctx"] <= MODEL_LIMIT and found["dqkv"] <= MODEL_LIMIT, found
     assert found["lse"] <= 1e-5, found
+
+
+# ---- K1a, the projection GEMM (wgmma + TMA at bf16), through its wrapper ----
+
+# (M, N, K) at the paths' widths, M ragged and not a multiple of the 128-row
+# tile: the tower's and the branch's qkv and out projections (B=8 x 319, 3 x
+# 327), the ViT's (B=64 x 50 + 7), the text tower's (3 x 77, D=512), a tile
+# of 129 rows and the qkv shape of a B=128 training step
+PROJECTION_SHAPES = [(2552, 2304, 768), (2552, 768, 768), (981, 2304, 768), (3207, 768, 768),
+                     (231, 1536, 512), (129, 1536, 512), (37, 768, 768), (40960, 2304, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("m,n,k", PROJECTION_SHAPES)
+def test_projection_kernel_matches_plain(cuda_device, m, n, k, scaled, out_dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=g, device=cuda_device) * k ** -0.5).to(torch.bfloat16)
+    b = torch.randn(n, generator=g, device=cuda_device) * 0.1
+    kw = dict(scale_cols=n // 3 if scaled else 0, scale=0.125, out_dtype=out_dtype)
+    before = fab.PROJECTION_LAUNCHES
+    got = fab.projection(x, w, b, **kw)
+    assert fab.PROJECTION_LAUNCHES == before + 1
+    assert got.dtype == out_dtype and tuple(got.shape) == (m, n)
+    want = fab.plain_projection(x, w, b, **dict(kw, out_dtype=torch.float32))
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, out_dtype)
+    assert torch.equal(got, fab.projection(x, w, b, **kw))  # no split-K: bit-identical
+
+
+@pytest.mark.cuda
+def test_projection_takes_a_bf16_bias_as_it_is(cuda_device):
+    """A bf16 block hands K1a its bias in bf16: read in place, the same sums
+    as the bias widened to fp32 first."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(981, 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(2304, 768, generator=g, device=cuda_device) / 768 ** 0.5).to(torch.bfloat16)
+    b = torch.randn(2304, generator=g, device=cuda_device).to(torch.bfloat16)
+    got = fab.projection(x, w, b, scale_cols=768, scale=0.125)
+    assert torch.equal(got, fab.projection(x, w, b.float(), scale_cols=768, scale=0.125))
+
+
+@pytest.mark.cuda
+def test_projection_fp32_operands_match_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(3, 77, 512, generator=g, device=cuda_device)
+    w = torch.randn(1536, 512, generator=g, device=cuda_device) * 512 ** -0.5
+    b = torch.randn(1536, generator=g, device=cuda_device)
+    got = fab.projection(x, w, b, scale_cols=512, scale=0.125)
+    _close(got, fab.plain_projection(x, w, b, scale_cols=512, scale=0.125), torch.float32)
+
+
+@pytest.mark.cuda
+def test_projection_rejects_bad_inputs(cuda_device):
+    bf = torch.bfloat16
+    x = torch.randn(40, 64, device=cuda_device).to(bf)
+    w = torch.randn(96, 64, device=cuda_device).to(bf)
+    b = torch.zeros(96, device=cuda_device)
+    shifted = torch.empty(x.numel() + 1, dtype=bf, device=cuda_device)[1:].view(x.shape)
+    shifted.copy_(x)  # contiguous, but 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        fab.projection(shifted, w, b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fab.projection(torch.zeros(40, 60, dtype=bf, device=cuda_device),
+                       torch.zeros(96, 60, dtype=bf, device=cuda_device), b)
+    with pytest.raises(ValueError, match="layout"):
+        fab.projection(x, w.T.contiguous(), b)  # (in, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        fab.projection(torch.zeros(64, 40, dtype=bf, device=cuda_device).T, w, b)
+    with pytest.raises(TypeError):
+        fab.projection(x.float(), w.float(), b, out_dtype=bf)
+
+
+# ---- K2 at dh = 768 at the cascaded paths' T ----
+
+def _ctx64(u, kb, heads, seeds, keep):
+    """The context of the unscaled packed projection u (B, T, 3D) in float64,
+    with the kernels' dropout mask."""
+    from speechclip_plus_tpu_torch.ops.random import attention_keep_mask
+
+    b, t, d3 = u.shape
+    d = d3 // 3
+    q, k, v = (a.reshape(b, t, heads, -1).transpose(1, 2) for a in u.split(d, dim=-1))
+    s = q @ k.transpose(-1, -2) * (d // heads) ** -0.5 + kb.double()[:, None, None, :]
+    w = torch.softmax(s, dim=-1)
+    if seeds is not None:
+        w = torch.where(attention_keep_mask(seeds, b, heads, t, keep), w / keep, 0.0)
+    return (w @ v).transpose(1, 2).reshape(b, t, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,t", [(8, 319), (8, 327), (8, 328), (5, 45), (3, 130)])
+def test_wide_head_backward_at_the_cascaded_shapes(cuda_device, dtype, p, b, t):
+    """K2 at one head of 768 against its twin at the cascaded families' T and
+    at short ragged T, bit-identical reruns; in fp32 also against a float64
+    central difference of the forward in three random directions (1e-4 of
+    the larger of the derivative and a random direction's size)."""
+    d, heads = 768, 1
+    x, w_in, b_in, kb, seeds, _, ctx, qkv, lse, dctx = _bwd_case(
+        cuda_device, dtype, b, t, d, heads, p, None)
+    keep = 1.0 - p
+    before = vjp.WIDE_LAUNCHES
+    got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                 keep_prob=keep)
+    assert vjp.WIDE_LAUNCHES == before + 1
+    want = vjp.plain_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads, seeds,
+                                        keep)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+    assert torch.equal(got, vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads,
+                                                   seeds=seeds, keep_prob=keep))
+    if dtype != torch.float32:
+        return
+    u = qkv.double().clone()
+    u[..., :d] *= d ** 0.5  # K2's dq is the cotangent of the unscaled projection
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    for _ in range(3):
+        v = torch.randn(u.shape, generator=g, device=cuda_device, dtype=torch.float64)
+        v = v / v.norm() * u.norm()
+        loss = lambda e: (_ctx64(u + e * v, kb, heads, seeds, keep) * dctx.double()).sum().item()
+        fd = (loss(1e-4) - loss(-1e-4)) / 2e-4
+        an = (got.double() * v).sum().item()
+        typical = got.double().norm().item() * v.norm().item() / v.numel() ** 0.5
+        assert abs(fd - an) <= 1e-4 * max(abs(fd), typical), (fd, an, typical)
