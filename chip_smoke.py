@@ -690,15 +690,20 @@ def check_vq_bwd(torch, fk, vocab, dtype, gen, n=128 * 75):
     del s, p, u
     dt_err = abs(dt.item() - dt0.item())
     tol = 1e-4 if dtype == torch.float32 else 1e-2
+    # the grid the wrapper launched: row tiles x V splits
+    rows, splits = fk._bwd_plan(n, v, d, dtype, fk._sm_count(x.device))
+    plan = {"rows": rows, "splits": splits, "blocks": -(-n // rows) * splits}
     # three N x D x V products (s, u, dx); no single library call
     row = {"max_abs_err": err, "max_abs_err_of": "dx", "dt_abs_err": dt_err,
            "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
            **bound(6 * n * d * v, nbytes(x, g, en, norms, mask, dx, dt), dtype),
-           "library_ms": None}
-    print(f"[kernel] K3b ST backward N={n} D={d} V={v} {str(dtype)[6:]}: dx max_abs_err="
+           "library_ms": None, "plan": plan}
+    print(f"[kernel] K3b ST backward N={n} D={d} V={v} {str(dtype)[6:]}, plan {rows} rows x "
+          f"{splits} splits = {plan['blocks']} blocks: dx max_abs_err="
           f"{err:.3e} (<= {tol:g} x RMS {rms:.3e}), dt {dt.item():.6e} vs {dt0.item():.6e} "
           f"(err {dt_err:.3e} <= 1e-4 x sum|terms| {dt_scale:.3e}), bit-identical rerun; "
-          f"{timing_text(row)}")
+          f"{timing_text(row)}; {'faster' if row['ms'] < row['plain_ms'] else 'SLOWER'} "
+          f"than the twin")
     require(err <= tol * rms, f"K3b {dtype}: dx error {err} > {tol} x RMS {rms}")
     require(dt_err <= 1e-4 * dt_scale, f"K3b {dtype}: dt error {dt_err}")
     return checked("k3b", (n,), 0.0, dtype, row)
@@ -1155,7 +1160,9 @@ def phase_kernels(torch):
         {"name": "fused_cosine_vq_bwd", "route": "cuda", "source": csrc + "fused_keyword.cu",
          "replaces": jax_pkg + "ops/fused_keyword.py:123",
          "shape": "N=9600 D=512 V=8112 bf16", **rows[("k3b", bf)],
-         "modes": [{"shape": "N=1024 (fixed-K training) bf16", **rows[("k3b_1024", bf)]}]},
+         "modes": [{"shape": "N=1024 (fixed-K training) bf16", **rows[("k3b_1024", bf)]},
+                   {"shape": "N=9600 fp32 (FMA tile)", **rows[("k3b", f32)]},
+                   {"shape": "N=1024 fp32 (FMA tile)", **rows[("k3b_1024", f32)]}]},
         {"name": "flash_attention", "route": "cuda", "source": csrc + "flash.cu",
          "replaces": jax_pkg + "nn/flash.py:47",
          "shape": "B=8 H=12 T=1499 dh=64 bf16, out + lse", **rows[("k4", 8, bf)],
@@ -1865,9 +1872,10 @@ def profile_cell(torch, label, fn, n=3):
           f"{annotated / n / 1e3:.2f} ms/call (n={n})")
     for name, us in sorted(hidden.items(), key=lambda kv: -kv[1])[:4]:
         print(f"[profile]   overlaps an earlier kernel for {us / n / 1e3:8.3f} ms: {name[:90]}")
-    # the 16 largest, and every kernel of csrc/ (names "void (anonymous namespace)::...")
+    # the 16 largest, and every kernel of csrc/ (names "(anonymous namespace)::...",
+    # after "void " where the kernel is a template)
     for i, e in enumerate(sorted(events, key=dev, reverse=True)):
-        if i < 16 or e.key.startswith("void (anonymous namespace)::"):
+        if i < 16 or e.key.startswith(("void (anonymous namespace)::", "(anonymous namespace)::")):
             print(f"[profile]   {dev(e) / n / 1e3:8.3f} ms {e.count // n:5d}x  {e.key[:90]}")
 
 

@@ -1,0 +1,108 @@
+"""K3b's time on the card, for this checkout or another (PyTorch/CUDA port).
+
+Times the straight-through VQ backward (`ops/fused_keyword.py::st_backward`,
+kernels in `csrc/fused_keyword.cu`) and its plain twin at the shapes the
+training paths run it at (V=8112, D=512; N=9600 for the plus families, 1024
+for the fixed-K ones) in bf16 and fp32, with the inputs `chip_smoke.py`'s
+`check_vq_bwd` makes, by CUDA events (median of 20 after 3 warm-ups),
+and prints one JSON line per (dtype, N) with the kernel's error against the
+twin. `--root` imports the port from another checkout (an unpacked parent
+commit, say), so that two versions are compared in one call, each in its own
+process:
+
+    python3 scripts/torch_k3b_times.py --root .parent --label parent
+    python3 scripts/torch_k3b_times.py --label change
+
+Needs a CUDA card and nvcc; prints nothing and exits 1 without a card.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+
+def kernel_ms(torch, fn, calls=5):
+    """{kernel name: device ms per call} over `calls` calls of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            out[e.key[:80]] = us / calls / 1e3
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print the device time of each kernel of a call (torch.profiler)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from speechclip_plus_tpu_torch.ops import fused_keyword as fk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+    def median_ms(fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(20):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d, v = 512, 8112
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (9600, 1024):
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
+            g = (torch.randn(n, d, generator=gen, device="cuda") * 1e-3).to(dtype).contiguous()
+            emb = torch.randn(v, d, generator=gen, device="cuda") * 0.1
+            norms = emb.norm(dim=-1).clamp_min(1e-8).contiguous()
+            en = (emb / norms[:, None]).to(dtype).contiguous()
+            mask = fk.column_mask(v, (0, 2, 3), "cuda")
+            kern = lambda: fk.st_backward(x, g, en, norms, mask, 0.1)
+            plain = lambda: fk.plain_st_backward(x, g, en, norms, mask, 0.1)
+            (dx, dt), (dx0, dt0) = kern(), plain()
+            torch.cuda.synchronize()
+            plan = getattr(fk, "_bwd_plan", None)
+            row = {"label": args.label, "card": card, "dtype": str(dtype)[6:], "n": n, "d": d,
+                   "v": v, "ms": median_ms(kern), "plain_ms": median_ms(plain),
+                   "dx_err_over_rms": (dx - dx0).abs().max().item()
+                   / dx0.pow(2).mean().sqrt().item(),
+                   "dt_abs_err": abs(dt.item() - dt0.item()),
+                   "plan": None if plan is None else plan(n, v, d, dtype, fk._sm_count(x.device))}
+            if args.profile:
+                row["kernels_ms"] = kernel_ms(torch, kern)
+            print(json.dumps(row), flush=True)
+            del x, g, emb, en, dx, dx0
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

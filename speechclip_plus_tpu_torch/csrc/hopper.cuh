@@ -1,6 +1,7 @@
 // Hopper (sm_90a) pieces in inline PTX: mbarriers, TMA tile loads and the
-// warpgroup product `wgmma` with its shared-memory descriptors. Used by K1a's
-// projection GEMM (fused_attention_block.cu).
+// warpgroup product `wgmma` with its shared-memory descriptors, used by K1a's
+// projection GEMM (fused_attention_block.cu); `cp.async`, `ldmatrix` and the
+// bf16 warp product `mma.sync` m16n8k16, used by K3b (fused_keyword.cu).
 #pragma once
 #include <cuda.h>  // CUtensorMap (a type only: the encoder comes from the runtime)
 #include <cuda_runtime.h>
@@ -115,6 +116,58 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------- cp.async, ldmatrix, mma ----
+
+// 16 bytes from device to shared memory; zeros where `in` is false (nothing is
+// read, but `src` must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `n` (0-3) of this thread's newest groups are in flight
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the 16-byte row address of matrix
+// l / 8, and r[i] holds the thread's pair of matrix i: row (lane / 4),
+// columns 2 (lane % 4) and + 1 (`trans`: the transposed matrix's)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, fp32 accumulators. With
+// g = lane / 4, t = lane % 4: a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..)}, b = {(k 2t.., n g), (k 2t + 8.., n g)}, c = {(g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace

@@ -20,6 +20,8 @@ requires one.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Sequence
 
 import torch
@@ -119,6 +121,66 @@ def plain_st_backward(xn, g, en, norms, mask, temp: float):
     return dx, dt
 
 
+# K3b's grid (csrc/fused_keyword.cu): blocks of `rows` keyword rows x one of
+# `splits` ranges of whole 64-column codebook tiles
+_BWD_COLS = 64
+_BWD_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # the tensor-core tile, the FMA tile
+_BWD_MAX_D = {torch.bfloat16: 512, torch.float32: 1024}
+BWD_SCRATCH_CAP = 64 << 20  # bytes of partial dx (splits x N x D fp32) a plan may use
+_BWD_BLOCK_OVERHEAD = 0.5  # a block's x and g loads and dx write, in column tiles
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(n: int, v: int, d: int, dtype=torch.bfloat16, sms: int = H100_SMS):
+    """(rows, splits) of K3b's grid for N rows, V codebook columns and width
+    D: the split count whose blocks finish soonest on `sms` SMs, a block
+    costing its column tiles plus a fixed overhead and the blocks running in
+    whole waves, with no empty split and, beyond one split, at most
+    BWD_SCRATCH_CAP bytes of partial dx. Ties go to fewer splits. Raises on a
+    width the kernels do not take: D a multiple of 16 (16-byte rows for
+    `cp.async` and `ldmatrix`), at most 512 in bf16 (the dx accumulators of 8
+    warps x 64 columns) or 1024 in fp32."""
+    if dtype not in _BWD_ROWS:
+        raise TypeError(f"st_backward: dtype {dtype}")
+    if d <= 0 or d % 16 or d > _BWD_MAX_D[dtype]:
+        raise ValueError(f"st_backward: D={d} must be a positive multiple of 16 and at most "
+                         f"{_BWD_MAX_D[dtype]} in {dtype}")
+    if n <= 0 or v <= 0:
+        raise ValueError(f"st_backward: N={n}, V={v}")
+    rows = _BWD_ROWS[dtype]
+    # one tensor-core block an SM (208 KB of shared memory at D=512); two FMA
+    # blocks up to D=512
+    slots = sms * (2 if dtype == torch.float32 and d <= 512 else 1)
+    row_tiles, col_tiles = -(-n // rows), -(-v // _BWD_COLS)
+    best_cost, best = math.inf, 1
+    for splits in range(1, col_tiles + 1):
+        per = -(-col_tiles // splits)
+        if -(-col_tiles // per) != splits:
+            continue  # the last split would be empty
+        if splits > 1 and splits * n * d * 4 > BWD_SCRATCH_CAP:
+            break
+        cost = -(-row_tiles * splits // slots) * (per + _BWD_BLOCK_OVERHEAD)
+        if cost < best_cost:
+            best_cost, best = cost, splits
+    return rows, best
+
+
+def _bwd_scratch(n: int, d: int, rows: int, splits: int, device) -> Dict[str, torch.Tensor]:
+    """K3b's scratch for a plan: the splits' (m, z, zu) per row, their partial
+    dx (none for one split: the kernel writes dx itself) and one dt partial
+    per block."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"stats": torch.empty(3 * splits * n, **f32),
+            "dx_part": torch.empty(splits * n * d if splits > 1 else 0, **f32),
+            "dt_part": torch.empty(-(-n // rows) * splits, **f32)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_bwd(xn, g, en, norms, mask, temp):
     global BWD_LAUNCHES
     from ..utils.cuda_build import check, kernels
@@ -137,16 +199,19 @@ def _launch_bwd(xn, g, en, norms, mask, temp):
     for t in (xn, g, en, norms, mask):
         if t.device != xn.device or not t.is_contiguous():
             raise ValueError("st_backward: inputs must be contiguous on one device")
+    if any(t.data_ptr() % 16 for t in (xn, g, en)):
+        raise ValueError("st_backward: x, g and en must be 16-byte aligned")
+    rows, splits = _bwd_plan(n, v, d, xn.dtype, _sm_count(xn.device))
     lib = kernels()
-    f32 = dict(dtype=torch.float32, device=xn.device)
     with torch.cuda.device(xn.device):
-        dx = torch.empty(n, d, **f32)
-        dt_part = torch.empty(-(-n // 32), **f32)  # one partial per 32-row tile
-        dt = torch.empty(1, **f32)
+        scratch = _bwd_scratch(n, d, rows, splits, xn.device)
+        dx = torch.empty(n, d, dtype=torch.float32, device=xn.device)
+        dt = torch.empty(1, dtype=torch.float32, device=xn.device)
         check(lib.sc_vq_bwd(xn.data_ptr(), g.data_ptr(), en.data_ptr(), norms.data_ptr(),
                             mask.data_ptr(), n, v, d, float(temp),
-                            int(xn.dtype == torch.bfloat16), dx.data_ptr(),
-                            dt_part.data_ptr(), dt.data_ptr(),
+                            int(xn.dtype == torch.bfloat16), rows, splits,
+                            scratch["stats"].data_ptr(), scratch["dx_part"].data_ptr(),
+                            scratch["dt_part"].data_ptr(), dx.data_ptr(), dt.data_ptr(),
                             torch.cuda.current_stream().cuda_stream),
               "st_backward")
     BWD_LAUNCHES += 1

@@ -168,17 +168,25 @@ def test_attention_backward_matches_plain(cuda_device, dtype, b, t, d, heads, p)
     assert torch.equal(got, again)  # deterministic
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,v", [(9600, 512, 8112), (37, 64, 300)])
-def test_st_backward_kernel_matches_plain(cuda_device, dtype, n, d, v):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    x = torch.nn.functional.normalize(torch.randn(n, d, generator=g, device=cuda_device), dim=-1)
-    cot = torch.randn(n, d, generator=g, device=cuda_device) * 1e-3
-    emb = torch.randn(v, d, generator=g, device=cuda_device) * 0.1
+def _st_inputs(dev, dtype, n, d, v):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.nn.functional.normalize(torch.randn(n, d, generator=g, device=dev), dim=-1)
+    cot = torch.randn(n, d, generator=g, device=dev) * 1e-3
+    emb = torch.randn(v, d, generator=g, device=dev) * 0.1
     norms = emb.norm(dim=-1).clamp_min(1e-8)
     en = (emb / norms[:, None]).to(dtype).contiguous()
-    x, cot = x.to(dtype).contiguous(), cot.to(dtype).contiguous()
+    return x.to(dtype).contiguous(), cot.to(dtype).contiguous(), en, norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,v", [(9600, 512, 8112), (1024, 512, 8112), (4800, 512, 8112),
+                                   (37, 64, 300), (8, 512, 8112)])
+def test_st_backward_kernel_matches_plain(cuda_device, dtype, n, d, v):
+    """K3b on its (row tiles, V splits) grid at the paths' N (9600: the plus
+    families; 1024: the fixed-K ones), a half batch, a ragged small case and
+    one query's 8 keywords (one row tile, 127 splits)."""
+    x, cot, en, norms = _st_inputs(cuda_device, dtype, n, d, v)
     mask = fk.column_mask(v, SPECIAL, cuda_device)
     before = fk.BWD_LAUNCHES
     dx, dt = fk.st_backward(x, cot, en, norms, mask, 0.1)
@@ -194,6 +202,50 @@ def test_st_backward_kernel_matches_plain(cuda_device, dtype, n, d, v):
     assert abs(dt.item() - dt0.item()) <= 1e-4 * scale
     dx2, dt2 = fk.st_backward(x, cot, en, norms, mask, 0.1)
     assert torch.equal(dx, dx2) and torch.equal(dt, dt2)  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_st_backward_with_an_all_masked_split(cuda_device, dtype):
+    """V=300 runs as 5 splits of one 64-column tile; the second is masked
+    whole, so its statistics must merge as the identity (no NaN)."""
+    n, d, v = 37, 64, 300
+    assert fk._bwd_plan(n, v, d, dtype, fk._sm_count(cuda_device))[1] == 5
+    x, cot, en, norms = _st_inputs(cuda_device, dtype, n, d, v)
+    mask = fk.column_mask(v, SPECIAL + tuple(range(64, 128)), cuda_device)
+    dx, dt = fk.st_backward(x, cot, en, norms, mask, 0.1)
+    dx0, dt0 = fk.plain_st_backward(x, cot, en, norms, mask, 0.1)
+    assert bool(torch.isfinite(dx).all()) and bool(torch.isfinite(dt))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (dx - dx0).abs().max().item() <= tol * dx0.pow(2).mean().sqrt().item()
+    s = x.float() @ en.float().T
+    p = torch.softmax(torch.where(mask.bool()[None], -torch.inf, s / 0.1), dim=-1)
+    u = (cot.float() @ en.float().T) * norms
+    scale = (p * (u - (p * u).sum(-1, keepdim=True)) * s).abs().sum().item() / 0.01
+    assert abs(dt.item() - dt0.item()) <= 1e-4 * scale
+    again = fk.st_backward(x, cot, en, norms, mask, 0.1)
+    assert torch.equal(dx, again[0]) and torch.equal(dt, again[1])
+
+
+@pytest.mark.cuda
+def test_st_backward_rejects_bad_inputs(cuda_device):
+    n, v = 37, 300
+    x, cot, en, norms = _st_inputs(cuda_device, torch.bfloat16, n, 72, v)
+    mask = fk.column_mask(v, SPECIAL, cuda_device)
+    before = fk.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="multiple of 16"):  # D % 16 != 0
+        fk.st_backward(x, cot, en, norms, mask, 0.1)
+    x, cot, en, norms = _st_inputs(cuda_device, torch.bfloat16, n, 528, v)
+    with pytest.raises(ValueError, match="at most 512"):  # wider than the dx accumulators
+        fk.st_backward(x, cot, en, norms, mask, 0.1)
+    x, cot, en, norms = _st_inputs(cuda_device, torch.bfloat16, n, 64, v)
+    shifted = torch.empty(n * 64 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(n, 64)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        fk.st_backward(shifted, cot, en, norms, mask, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.st_backward(x, cot, en.T.contiguous().T, norms, mask, 0.1)
+    assert fk.BWD_LAUNCHES == before
 
 
 # ---- K1's bias and gate modes, K5, K4, K6 ----
