@@ -19,10 +19,11 @@ Phases, each fatal on failure:
      call the block makes, at the tower's training shape; K1 (serving shapes, the ViT at B=128 and 256, with dropout at the training
      shapes, and with the per-head bias alone and gated, p=0 and 0.1, at the
      WavLM shape), K2 (p=0.1 and p=0, and against finite differences in fp32
-     at T=321), K3 (N=600 and the training N=9600), K3b, K4 (out and lse at
+     at T=321), K3 (N=600 and the training N=9600, on the grid of its plan,
+     printed with whether it beats its twin), K3b, K4 (out and lse at
      B=8 T=1499 and B=128 T=320), K5 (p=0 and 0.1, and against K1's
      context-only mode with one seed: the same mask), K6 (B=128 x 102400);
-     K1, K2, K3b, K4, K5 and K6 repeat bit for bit; the dropout mask's keep
+     K1, K2, K3, K3b, K4, K5 and K6 repeat bit for bit; the dropout mask's keep
      rate;
   3. build hybrid+ base (config/speechclip_plus/base/hybrid_plus.yaml, bf16,
      seeded random weights) on cuda:0;
@@ -361,6 +362,9 @@ def check_block_parts(torch, fab, dtype, gen, b=128, t=320, d=768, heads=12):
 
 
 def check_vq(torch, fk, vocab, n, dtype, gen):
+    """K3 at N rows (V=8112, D=512) against its twin, on the grid its plan
+    gives: targets equal where the top-2 margin is decided, ent and psum to
+    rtol 1e-3, a bit-identical rerun."""
     d, v = 512, len(vocab)
     x = torch.randn(n, d, generator=gen, device="cuda")
     x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
@@ -370,10 +374,13 @@ def check_vq(torch, fk, vocab, n, dtype, gen):
     mask = fk.column_mask(v, special, "cuda")
     kern = lambda: fk.cosine_vq_stats(x, en, mask)
     plain = lambda: fk.plain_cosine_vq_stats(x, en, mask)
-    (k1, e1, p1), (k0, e0, p0) = kern(), plain()
+    (k1, e1, p1), again, (k0, e0, p0) = kern(), kern(), plain()
     torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(again, (k1, e1, p1))),
+            f"K3 {dtype}: two runs differ")
     s = (x.float() @ en.float().T).masked_fill(mask.bool()[None], -1e30)
     top2 = s.topk(2, dim=-1).values
+    del s
     margin = 1e-3 if dtype == torch.bfloat16 else 1e-5
     decided = (top2[:, 0] - top2[:, 1]) > margin
     mismatches = int((k1.long() != k0.long())[decided].sum())
@@ -384,16 +391,23 @@ def check_vq(torch, fk, vocab, n, dtype, gen):
     psum_err = (p1 - p0).abs().max().item()
     require(torch.allclose(e1, e0, rtol=1e-3, atol=0), f"K3 {dtype}: ent off (rtol 1e-3)")
     require(torch.allclose(p1, p0, rtol=1e-3, atol=0), f"K3 {dtype}: psum off (rtol 1e-3)")
+    # the grid the wrapper launched: row tiles x V splits
+    rows, splits = fk._fwd_plan(n, v, d, dtype, fk._sm_count(x.device))
+    plan = {"rows": rows, "splits": splits, "blocks": -(-n // rows) * splits}
     # one N x D x V product; no single library call computes targets, entropy
     # and column sums without the (N, V) tensor
     row = {"max_abs_err": max(ent_err, psum_err), "max_abs_err_of": "ent, psum",
            "ent_max_abs_err": ent_err, "psum_max_abs_err": psum_err,
            "target_mismatches_decided": mismatches, "decided_rows": int(decided.sum()),
            "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
-           **bound(2 * n * d * v, nbytes(x, en, mask, k1, e1, p1), dtype), "library_ms": None}
-    print(f"[kernel] K3 cosine_vq N={n} D={d} V={v} {str(dtype)[6:]}: targets equal on "
+           **bound(2 * n * d * v, nbytes(x, en, mask, k1, e1, p1), dtype), "library_ms": None,
+           "plan": plan}
+    print(f"[kernel] K3 cosine_vq N={n} D={d} V={v} {str(dtype)[6:]}, plan {rows} rows x "
+          f"{splits} splits = {plan['blocks']} blocks: targets equal on "
           f"{int(decided.sum())}/{n} decided rows, ent max_abs_err={ent_err:.3e}, "
-          f"psum max_abs_err={psum_err:.3e} (rtol 1e-3) {timing_text(row)}")
+          f"psum max_abs_err={psum_err:.3e} (rtol 1e-3), bit-identical rerun; "
+          f"{timing_text(row)}; {'faster' if row['ms'] < row['plain_ms'] else 'SLOWER'} "
+          f"than the twin")
     return checked("k3", (n,), 0.0, dtype, row)
 
 
@@ -1156,7 +1170,9 @@ def phase_kernels(torch):
          "modes": [{"shape": "N=1024 (fixed-K training) bf16", **rows[("vq_n", 1024, bf)]},
                    {"shape": "N=8 (one fixed-K query) bf16", **rows[("vq_n", 8, bf)]},
                    {"shape": "N=64 (fixed-K queries, B=8) bf16", **rows[("vq_n", 64, bf)]},
-                   {"shape": "N=512 (fixed-K queries, B=64) bf16", **rows[("vq_n", 512, bf)]}]},
+                   {"shape": "N=512 (fixed-K queries, B=64) bf16", **rows[("vq_n", 512, bf)]},
+                   {"shape": "N=9600 fp32 (FMA tile)", **rows[("vq", 128, f32)]},
+                   {"shape": "N=1024 fp32 (FMA tile)", **rows[("vq_n", 1024, f32)]}]},
         {"name": "fused_cosine_vq_bwd", "route": "cuda", "source": csrc + "fused_keyword.cu",
          "replaces": jax_pkg + "ops/fused_keyword.py:123",
          "shape": "N=9600 D=512 V=8112 bf16", **rows[("k3b", bf)],

@@ -1,17 +1,21 @@
-"""K3b's time on the card, for this checkout or another (PyTorch/CUDA port).
+"""K3b's or K3's time on the card, for this checkout or another (PyTorch/CUDA port).
 
-Times the straight-through VQ backward (`ops/fused_keyword.py::st_backward`,
-kernels in `csrc/fused_keyword.cu`) and its plain twin at the shapes the
+`--kernel k3b` (the default) times the straight-through VQ backward
+(`ops/fused_keyword.py::st_backward`) and its plain twin at the shapes the
 training paths run it at (V=8112, D=512; N=9600 for the plus families, 1024
 for the fixed-K ones) in bf16 and fp32, with the inputs `chip_smoke.py`'s
-`check_vq_bwd` makes, by CUDA events (median of 20 after 3 warm-ups),
-and prints one JSON line per (dtype, N) with the kernel's error against the
-twin. `--root` imports the port from another checkout (an unpacked parent
-commit, say), so that two versions are compared in one call, each in its own
-process:
+`check_vq_bwd` makes. `--kernel k3` times the cosine-VQ forward
+(`cosine_vq_stats`) and its twin at every N the paths record (bf16: 9600,
+4800, 1024, 600, 512, 75, 64, 8; fp32: 9600 and 1024), with the inputs of
+`check_vq`. Both kernels are in `csrc/fused_keyword.cu`. Times are CUDA
+events (median of 20 after 3 warm-ups); one JSON line per (dtype, N) with
+the kernel's error against the twin and the plan it ran. `--root` imports
+the port from another checkout (an unpacked parent commit, say), so that
+two versions are compared in one call, each in its own process:
 
     python3 scripts/torch_k3b_times.py --root .parent --label parent
     python3 scripts/torch_k3b_times.py --label change
+    python3 scripts/torch_k3b_times.py --kernel k3 --profile
 
 Needs a CUDA card and nvcc; prints nothing and exits 1 without a card.
 """
@@ -42,10 +46,63 @@ def kernel_ms(torch, fn, calls=5):
     return out
 
 
+def k3b_rows(torch, fk, gen, median_ms):
+    d, v = 512, 8112
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (9600, 1024):
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
+            g = (torch.randn(n, d, generator=gen, device="cuda") * 1e-3).to(dtype).contiguous()
+            emb = torch.randn(v, d, generator=gen, device="cuda") * 0.1
+            norms = emb.norm(dim=-1).clamp_min(1e-8).contiguous()
+            en = (emb / norms[:, None]).to(dtype).contiguous()
+            mask = fk.column_mask(v, (0, 2, 3), "cuda")
+            kern = lambda: fk.st_backward(x, g, en, norms, mask, 0.1)
+            plain = lambda: fk.plain_st_backward(x, g, en, norms, mask, 0.1)
+            (dx, dt), (dx0, dt0) = kern(), plain()
+            torch.cuda.synchronize()
+            plan = getattr(fk, "_bwd_plan", None)
+            yield kern, {"dtype": str(dtype)[6:], "n": n, "d": d, "v": v,
+                         "ms": median_ms(kern), "plain_ms": median_ms(plain),
+                         "dx_err_over_rms": (dx - dx0).abs().max().item()
+                         / dx0.pow(2).mean().sqrt().item(),
+                         "dt_abs_err": abs(dt.item() - dt0.item()),
+                         "plan": None if plan is None
+                         else plan(n, v, d, dtype, fk._sm_count(x.device))}
+            del x, g, emb, en, dx, dx0
+
+
+def k3_rows(torch, fk, gen, median_ms):
+    d, v = 512, 8112
+    cells = [(torch.bfloat16, n) for n in (9600, 4800, 1024, 600, 512, 75, 64, 8)]
+    for dtype, n in cells + [(torch.float32, 9600), (torch.float32, 1024)]:
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
+        emb = torch.randn(v, d, generator=gen, device="cuda") * 0.1
+        en = (emb / emb.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
+        mask = fk.column_mask(v, (0, 2, 3), "cuda")
+        kern = lambda: fk.cosine_vq_stats(x, en, mask)
+        plain = lambda: fk.plain_cosine_vq_stats(x, en, mask)
+        (k1, e1, p1), (k0, e0, p0) = kern(), plain()
+        s = (x.float() @ en.float().T).masked_fill(mask.bool()[None], -1e30)
+        top2 = s.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > (1e-3 if dtype == torch.bfloat16 else 1e-5)
+        plan = getattr(fk, "_fwd_plan", None)
+        yield kern, {"dtype": str(dtype)[6:], "n": n, "d": d, "v": v,
+                     "ms": median_ms(kern), "plain_ms": median_ms(plain),
+                     "target_mismatches_decided": int((k1 != k0)[decided].sum()),
+                     "ent_rel_err": ((e1 - e0).abs() / e0.abs()).max().item(),
+                     "psum_rel_err": ((p1 - p0).abs() / p0.abs().clamp_min(1e-30)).max().item(),
+                     "plan": None if plan is None
+                     else plan(n, v, d, dtype, fk._sm_count(x.device))}
+        del x, emb, en, s
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--kernel", choices=("k3b", "k3"), default="k3b")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time of each kernel of a call (torch.profiler)")
     args = ap.parse_args()
@@ -75,32 +132,13 @@ def main() -> int:
         return float(np.median(times))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d, v = 512, 8112
-    for dtype in (torch.bfloat16, torch.float32):
-        for n in (9600, 1024):
-            x = torch.randn(n, d, generator=gen, device="cuda")
-            x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
-            g = (torch.randn(n, d, generator=gen, device="cuda") * 1e-3).to(dtype).contiguous()
-            emb = torch.randn(v, d, generator=gen, device="cuda") * 0.1
-            norms = emb.norm(dim=-1).clamp_min(1e-8).contiguous()
-            en = (emb / norms[:, None]).to(dtype).contiguous()
-            mask = fk.column_mask(v, (0, 2, 3), "cuda")
-            kern = lambda: fk.st_backward(x, g, en, norms, mask, 0.1)
-            plain = lambda: fk.plain_st_backward(x, g, en, norms, mask, 0.1)
-            (dx, dt), (dx0, dt0) = kern(), plain()
-            torch.cuda.synchronize()
-            plan = getattr(fk, "_bwd_plan", None)
-            row = {"label": args.label, "card": card, "dtype": str(dtype)[6:], "n": n, "d": d,
-                   "v": v, "ms": median_ms(kern), "plain_ms": median_ms(plain),
-                   "dx_err_over_rms": (dx - dx0).abs().max().item()
-                   / dx0.pow(2).mean().sqrt().item(),
-                   "dt_abs_err": abs(dt.item() - dt0.item()),
-                   "plan": None if plan is None else plan(n, v, d, dtype, fk._sm_count(x.device))}
-            if args.profile:
-                row["kernels_ms"] = kernel_ms(torch, kern)
-            print(json.dumps(row), flush=True)
-            del x, g, emb, en, dx, dx0
-            torch.cuda.empty_cache()
+    rows = k3_rows if args.kernel == "k3" else k3b_rows
+    for kern, row in rows(torch, fk, gen, median_ms):
+        row = {"label": args.label, "card": card, "kernel": args.kernel, **row}
+        if args.profile:
+            row["kernels_ms"] = kernel_ms(torch, kern)
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -7,28 +7,31 @@
 // masked scores s = x . en^T and, per row, the argmax k (ties to the lowest
 // index, as jnp.argmax), the entropy ent = log z - sum e (s - m) / z, and the
 // column sums psum[v] = sum_rows softmax(s)[v]. Masked columns (CLIP special
-// ids) score -1e30.
+// ids) score -1e30: they never win and add 0 to every sum.
 //
-// What bounds it on the H100. At the serving shape (N = B*75 rows, V = 8112,
-// D = 512) the (N, V) fp32 score matrix is 19 MB per 1000 rows; the TPU kept
-// its tiles in VMEM against a resident codebook. A block here cannot hold the
-// 8 MB bf16 table, so the kernel streams 64-column tiles of en and 32-row
-// tiles of x through shared memory, and no (N, V) tensor reaches device
-// memory. The TPU grid carried psum from one grid step to the next; blocks
-// here run in no order, so the work is split into passes:
+// What bounds it on the H100. The function is one N x D x V product (80
+// GFLOP at N = 9600, D = 512, V = 8112) against a few MB of traffic, so it
+// is bound by operations. The TPU held the table resident in VMEM and
+// carried psum from one grid step to the next; a block here cannot hold the
+// 8 MB bf16 table and blocks run in no order, so the work is two passes over
+// a grid of (row tiles, V splits) that the wrapper's plan chooses
+// (`_fwd_plan`) so that every row count fills the card's 132 SMs; split k
+// owns the whole column tiles [k * cols_per_split, (k + 1) * cols_per_split):
 //
-//   1. vq_rows_kernel: grid (row tiles, V splits). Each block keeps a running
-//      argmax, max m, sum z and sum e (s - m) per row over its V range,
-//      rescaling when m grows, and writes them per split.
-//   2. vq_combine_kernel: merges the splits in column order -> k, ent, m, z.
-//   3. vq_cols_kernel: grid (column tiles, row chunks); recomputes s tile by
-//      tile and sums exp(s - m) / z over the chunk's rows.
-//   4. vq_reduce_kernel: sums the chunk partials in a fixed order.
+//   1. pass 1 (vq_fwd_tc_kernel<rows, false>, fp32: vq_rows_kernel): each
+//      block keeps, per row, the running (m, z = sum e, w = sum e s, best
+//      value, best index) over its split's columns and writes them per split;
+//   2. vq_combine_kernel merges the splits in column order -> k, ent, m, z;
+//   3. pass 2 (vq_fwd_tc_kernel<rows, true>, fp32: vq_cols_kernel): each block
+//      forms its scores again and sums exp(s - m) / z over its rows, one
+//      partial per (row tile, column);
+//   4. vq_reduce_kernel sums the partials in row-tile order.
 //
-// No float atomics anywhere, so repeated runs give identical statistics.
-// Simple first: scores are fp32 FMAs from shared memory (bf16 inputs are
-// widened on load), recomputed once for the column pass; tensor cores and
-// keeping psum in the row pass are later work.
+// No (N, V) tensor reaches device memory and no float atomics are used, so
+// reruns give identical statistics. In bf16 the scores run on the tensor
+// cores (`mma.sync` m16n8k16, bf16 operands, fp32 accumulators: the products
+// are exact, as on the MXU; only the order of the sums differs); fp32 keeps
+// an FMA tile on the same grid.
 //
 // Straight-through backward (K3b). Replaces `_bwd_kernel` of
 // speechclip_plus_tpu/ops/fused_keyword.py:123 (launched by
@@ -41,14 +44,12 @@
 // VMEM. Here the work is 5 N x D x V products (s and u twice, then dx: 399
 // GFLOP at N = 9600, D = 512, V = 8112) against a few MB of traffic, so it is
 // bound by operations, and no (N, V) tensor reaches device memory. In bf16
-// the products run on the tensor cores (`mma.sync` m16n8k16, bf16 operands,
-// fp32 accumulators: the products are exact, as on the MXU; only the order of
-// the sums differs); fp32 keeps an FMA tile. The grid is (row tiles, V
-// splits), the split count chosen by the wrapper so that every row count
-// fills the card's 132 SMs; the passes are described at K3b's code. g and
-// dz / t are rounded to the compute dtype before their products, as on the
-// TPU (:139, :146-149). No float atomics: reruns are bit-identical. No
-// codebook gradient: the table is frozen (the wrapper enforces it).
+// the products run on the tensor cores as K3's do; fp32 keeps an FMA tile.
+// The grid is (row tiles, V splits), the split count chosen by the wrapper
+// (`_bwd_plan`); the passes are described at K3b's code. g and dz / t are
+// rounded to the compute dtype before their products, as on the TPU (:139,
+// :146-149). No float atomics: reruns are bit-identical. No codebook
+// gradient: the table is frozen (the wrapper enforces it).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -58,20 +59,48 @@
 
 namespace {
 
-constexpr int VR = 32;          // rows per score tile
-constexpr int VC = 64;          // columns per score tile
+constexpr int VR = 32;          // rows per FMA score tile
+constexpr int VC = 64;          // columns per FMA score tile
 constexpr int VD = 64;          // D chunk staged in shared memory
 constexpr int V_THREADS = 256;  // thread (ty, tx): rows ty*2+i (i<2), cols tx+16j (j<4)
-constexpr int V_SPLITS = 8;     // V ranges per row tile in the row pass
-constexpr int ROW_CHUNK = 256;  // rows per block in the column pass
-constexpr float MASK_VALUE = -1e30f;
+constexpr int TPAD = 8;         // bf16 padding of a shared row (16 bytes)
 constexpr float INIT_MAX = -3e38f;
+
+// Softmax statistics of a column set are kept as (m, z = sum e, w = sum e s),
+// e = exp(s - m): a rescale multiplies z and w alike, and the entropy is
+// log z - sum e (s - m) / z = log z + m - w / z. Merge two sets; an empty
+// set (INIT_MAX, 0, 0) merges as the identity.
+__device__ __forceinline__ void merge_mzw(float& m, float& z, float& w, float m2, float z2,
+                                          float w2) {
+  const float mn = fmaxf(m, m2);
+  const float a = expf(m - mn), b = expf(m2 - mn);
+  z = a * z + b * z2;
+  w = a * w + b * w2;
+  m = mn;
+}
+
+// 2^x in one MUFU.EX2 (a few ulp; 0 for -inf and below -126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (bv, bi) <- the better of itself and (bv2, bi2): the larger value, the
+// lower index on a tie. bi = -1 (no column) comes only with bv = INIT_MAX.
+__device__ __forceinline__ void merge_best(float& bv, int& bi, float bv2, int bi2) {
+  if (bv2 > bv || (bv2 == bv && bi2 < bi)) {
+    bv = bv2;
+    bi = bi2;
+  }
+}
+
+// ---- fp32: the FMA tile (32 rows x 64 columns, 256 threads) ----
 
 // s[i][j] = x[r0 + ty*2 + i] . en[c0 + tx + 16 j], zero outside N / V.
 // Starts with a barrier, so consecutive calls may reuse the staging buffers.
-template <typename T>
 __device__ __forceinline__ void score_tile(
-    const T* __restrict__ x, const T* __restrict__ en, int N, int V, int D,
+    const float* __restrict__ x, const float* __restrict__ en, int N, int V, int D,
     int r0, int c0, float (*xs)[VD + 1], float (*es)[VD + 1], float s[2][4]) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 #pragma unroll
@@ -82,11 +111,11 @@ __device__ __forceinline__ void score_tile(
     __syncthreads();
     for (int e = tid; e < VR * VD; e += V_THREADS) {
       const int r = e / VD, d = e % VD, gr = r0 + r, gd = d0 + d;
-      xs[r][d] = (gr < N && gd < D) ? to_f(x[(size_t)gr * D + gd]) : 0.f;
+      xs[r][d] = (gr < N && gd < D) ? x[(size_t)gr * D + gd] : 0.f;
     }
     for (int e = tid; e < VC * VD; e += V_THREADS) {
       const int c = e / VD, d = e % VD, gc = c0 + c, gd = d0 + d;
-      es[c][d] = (gc < V && gd < D) ? to_f(en[(size_t)gc * D + gd]) : 0.f;
+      es[c][d] = (gc < V && gd < D) ? en[(size_t)gc * D + gd] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -104,51 +133,36 @@ __device__ __forceinline__ void score_tile(
   }
 }
 
-// Merge softmax statistics (m, z, t = sum e (s - m)) of two column sets.
-__device__ __forceinline__ void merge_stats(float& m, float& z, float& t,
-                                            float m2, float z2, float t2) {
-  const float mn = fmaxf(m, m2);
-  const float a = expf(m - mn), b = expf(m2 - mn);
-  t = a * (t + z * (m - mn)) + b * (t2 + z2 * (m2 - mn));
-  z = a * z + b * z2;
-  m = mn;
-}
-
-template <typename T>
+// pass 1, fp32: block (32 rows, one split)
 __global__ void __launch_bounds__(V_THREADS) vq_rows_kernel(
-    const T* __restrict__ x, const T* __restrict__ en, const int* __restrict__ mask,
-    int N, int V, int D, int cols_per_split,
-    float* __restrict__ pm, float* __restrict__ pz, float* __restrict__ pt,
-    float* __restrict__ pbv, int* __restrict__ pbi) {
+    const float* __restrict__ x, const float* __restrict__ en, const int* __restrict__ mask,
+    int N, int V, int D, int cols_per_split, float* __restrict__ stats,
+    int* __restrict__ best_i) {
   __shared__ float xs[VR][VD + 1];
   __shared__ float es[VC][VD + 1];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int r0 = blockIdx.x * VR, split = blockIdx.y;
   const int cbeg = split * cols_per_split;
   const int cend = min(V, cbeg + cols_per_split);
-  float m[2] = {INIT_MAX, INIT_MAX}, z[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+  float m[2] = {INIT_MAX, INIT_MAX}, z[2] = {0.f, 0.f}, w[2] = {0.f, 0.f};
   float bv[2] = {INIT_MAX, INIT_MAX};
   int bi[2] = {-1, -1};
 
   for (int c0 = cbeg; c0 < cend; c0 += VC) {
     float s[2][4];
-    score_tile<T>(x, en, N, V, D, r0, c0, xs, es, s);
-    bool valid[4];
+    score_tile(x, en, N, V, D, r0, c0, xs, es, s);
+    bool live[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tx + 16 * j;
-      valid[j] = c < cend;
-      if (valid[j] && mask[c]) {
-        s[0][j] = MASK_VALUE;
-        s[1][j] = MASK_VALUE;
-      }
+      live[j] = c < cend && !mask[c];
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float tm = INIT_MAX;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (!valid[j]) continue;
+        if (!live[j]) continue;
         tm = fmaxf(tm, s[i][j]);
         if (s[i][j] > bv[i]) {  // columns rise with j: strict > keeps the lowest
           bv[i] = s[i][j];
@@ -158,116 +172,399 @@ __global__ void __launch_bounds__(V_THREADS) vq_rows_kernel(
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, off));
-      float te = 0.f, tt = 0.f;
+      float te = 0.f, tw = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (!valid[j]) continue;
+        if (!live[j]) continue;
         const float e = expf(s[i][j] - tm);
         te += e;
-        tt += e * (s[i][j] - tm);
+        tw += e * s[i][j];
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) {
         te += __shfl_xor_sync(0xffffffffu, te, off);
-        tt += __shfl_xor_sync(0xffffffffu, tt, off);
+        tw += __shfl_xor_sync(0xffffffffu, tw, off);
       }
-      merge_stats(m[i], z[i], t[i], tm, te, tt);
+      merge_mzw(m[i], z[i], w[i], tm, te, tw);
     }
   }
 
+  const size_t sn = (size_t)gridDim.y * N;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float obv = __shfl_xor_sync(0xffffffffu, bv[i], off);
-      const int obi = __shfl_xor_sync(0xffffffffu, bi[i], off);
-      if (obv > bv[i] || (obv == bv[i] && obi >= 0 && (bi[i] < 0 || obi < bi[i]))) {
-        bv[i] = obv;
-        bi[i] = obi;
-      }
-    }
+    for (int off = 8; off > 0; off >>= 1)
+      merge_best(bv[i], bi[i], __shfl_xor_sync(0xffffffffu, bv[i], off),
+                 __shfl_xor_sync(0xffffffffu, bi[i], off));
     const int row = r0 + ty * 2 + i;
     if (tx == 0 && row < N) {
       const size_t o = (size_t)split * N + row;
-      pm[o] = m[i];
-      pz[o] = z[i];
-      pt[o] = t[i];
-      pbv[o] = bv[i];
-      pbi[o] = bi[i];
+      stats[o] = m[i];
+      stats[sn + o] = z[i];
+      stats[2 * sn + o] = w[i];
+      stats[3 * sn + o] = bv[i];
+      best_i[o] = bi[i];
     }
   }
 }
 
-__global__ void vq_combine_kernel(
-    const float* __restrict__ pm, const float* __restrict__ pz, const float* __restrict__ pt,
-    const float* __restrict__ pbv, const int* __restrict__ pbi, int N, int splits,
-    int* __restrict__ k, float* __restrict__ ent, float* __restrict__ m_out,
-    float* __restrict__ z_out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  float m = INIT_MAX, z = 0.f, t = 0.f, bv = INIT_MAX;
-  int bi = 0;
-  for (int s = 0; s < splits; ++s) {  // splits cover rising column ranges
-    const size_t o = (size_t)s * N + row;
-    merge_stats(m, z, t, pm[o], pz[o], pt[o]);
-    if (pbi[o] >= 0 && pbv[o] > bv) {
-      bv = pbv[o];
-      bi = pbi[o];
-    }
-  }
-  k[row] = bi;
-  ent[row] = logf(z) - t / z;
-  m_out[row] = m;
-  z_out[row] = z;
-}
-
-template <typename T>
+// pass 2, fp32: block (32 rows, one split) -> col_part[row tile][its columns]
 __global__ void __launch_bounds__(V_THREADS) vq_cols_kernel(
-    const T* __restrict__ x, const T* __restrict__ en, const int* __restrict__ mask,
-    const float* __restrict__ m_row, const float* __restrict__ z_row,
-    int N, int V, int D, float* __restrict__ part) {
+    const float* __restrict__ x, const float* __restrict__ en, const int* __restrict__ mask,
+    const float* __restrict__ m_row, const float* __restrict__ z_row, int N, int V, int D,
+    int cols_per_split, float* __restrict__ col_part) {
   __shared__ float xs[VR][VD + 1];
   __shared__ float es[VC][VD + 1];
   __shared__ float red[16][VC];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int c0 = blockIdx.x * VC, chunk = blockIdx.y;
-  const int rbeg = chunk * ROW_CHUNK, rend = min(N, rbeg + ROW_CHUNK);
-  bool live[4];
+  const int r0 = blockIdx.x * VR, split = blockIdx.y;
+  const int cbeg = split * cols_per_split, cend = min(V, cbeg + cols_per_split);
+  float mr[2], iz[2];  // rows past N: p = exp(0 - 0) * 0 = 0
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + tx + 16 * j;
-    live[j] = c < V && !mask[c];
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + ty * 2 + i;
+    mr[i] = row < N ? m_row[row] : 0.f;
+    iz[i] = row < N ? 1.f / z_row[row] : 0.f;
   }
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int r0 = rbeg; r0 < rend; r0 += VR) {
+  for (int c0 = cbeg; c0 < cend; c0 += VC) {
     float s[2][4];
-    score_tile<T>(x, en, N, V, D, r0, c0, xs, es, s);
+    score_tile(x, en, N, V, D, r0, c0, xs, es, s);  // its first barrier: red is read
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r0 + ty * 2 + i;
-      if (row >= rend) continue;
-      const float mr = m_row[row], zr = z_row[row];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (live[j]) acc[j] += expf(s[i][j] - mr) / zr;
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      float acc = 0.f;
+      if (c < cend && !mask[c]) acc = expf(s[0][j] - mr[0]) * iz[0] + expf(s[1][j] - mr[1]) * iz[1];
+      red[ty][tx + 16 * j] = acc;
     }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) red[ty][tx + 16 * j] = acc[j];
-  __syncthreads();
-  if (tid < VC && c0 + tid < V) {
-    float sum = 0.f;
-    for (int g = 0; g < 16; ++g) sum += red[g][tid];
-    part[(size_t)chunk * V + c0 + tid] = sum;
+    __syncthreads();
+    if (tid < VC && c0 + tid < cend) {
+      float sum = 0.f;
+      for (int g = 0; g < 16; ++g) sum += red[g][tid];
+      col_part[(size_t)blockIdx.x * V + c0 + tid] = sum;
+    }
   }
 }
 
-__global__ void vq_reduce_kernel(const float* __restrict__ part, int chunks, int V,
+// ---- bf16: the tensor-core tile (ROWS rows x 128 columns, ROWS / 8 warps) ----
+//
+// The block keeps its ROWS x rows resident in shared memory (bf16 rows padded
+// by 16 bytes, so that the 8 row addresses of an `ldmatrix` fall on distinct
+// banks for any D % 16 = 0) and streams its split's codebook through a ring
+// of stages, each 128 columns x 64 values of D, by `cp.async`: one commit
+// group a stage, all but one in flight under the products, one barrier a
+// stage. The ring runs on across column tiles, so the next tile's first
+// stages arrive under the current tile's last products and epilogue. Warp
+// (wr, wc) forms the 32 x 32 block of s at rows 32 wr.. and columns 32 wc..
+// of the tile by `ldmatrix` + `mma.sync` m16n8k16 (2 A and 2 B
+// `ldmatrix.x4` feed 8 products a k-step), accumulated in fp32 over D.
+//
+// Every block reads its split's whole codebook from L2, so the L2 traffic is
+// (N / ROWS) x 8.3 MB a pass: 128 rows halve it where the x rows fit (D <=
+// 512: 217 KB, one block of 16 warps an SM); 64 rows otherwise (D <= 768,
+// 178 KB, one block of 8 warps). The tile epilogues' exponentials are
+// `ex2.approx` of one FFMA (a few ulp, far inside the checks).
+
+constexpr int FC = 128;             // columns per tile
+constexpr int FK = 64;              // D values per ring stage
+constexpr int F_STAGES = 4;
+constexpr int F_DMAX = 768;
+constexpr int F_DMAX_128 = 512;     // widest D of the 128-row tile
+constexpr int FLD = FK + TPAD;      // row stride of a ring stage
+constexpr int F_STATS = 5;          // pass 1's per-row statistics in shared memory
+constexpr float LOG2E = 1.4426950408889634f;
+
+size_t fwd_tc_smem_bytes(int rows, int D) {
+  return sizeof(bf16) * ((size_t)rows * (D + TPAD) + (size_t)F_STAGES * FC * FLD) +
+         sizeof(float) * 4 * rows * F_STATS;
+}
+
+// pass 1 (PSUM = false): stats [4][splits][N] = the split's (m, z, w, best
+// value) per row, best_i [splits][N]. pass 2 (PSUM = true): col_part[row
+// tile][c] = sum over the block's rows of exp(s - m) / z, from the combined
+// m_row and z_row.
+template <int ROWS, bool PSUM>
+__global__ void __launch_bounds__(ROWS * 4, 1) vq_fwd_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ en, const int* __restrict__ mask,
+    int N, int V, int D, int cols_per_split, float* __restrict__ stats,
+    int* __restrict__ best_i, const float* __restrict__ m_row, const float* __restrict__ z_row,
+    float* __restrict__ col_part) {
+  constexpr int THREADS = ROWS * 4, RG = ROWS / 32;  // RG row groups of 32 rows
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = D + TPAD;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = xs + ROWS * ld;
+  float* red = reinterpret_cast<float*>(ring + F_STAGES * FC * FLD);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = warp >> 2, wc = warp & 3;  // rows 32 wr.., columns 32 wc.. of a tile
+  const int r0 = blockIdx.x * ROWS, split = blockIdx.y;
+  const int cbeg = split * cols_per_split, cend = min(V, cbeg + cols_per_split);
+  const int chunks = (D + FK - 1) / FK;
+  const int total = cend > cbeg ? (cend - cbeg + FC - 1) / FC * chunks : 0;
+
+  // x rows, zeros past N: one commit group, which the first wait covers
+  const int xw = D / 8;  // 16-byte pieces a row
+  for (int e = tid; e < ROWS * xw; e += THREADS) {
+    const int r = e / xw, ck = e % xw;
+    const bool in = r0 + r < N;
+    cp_async16(smem_u32(xs + r * ld + ck * 8), x + (size_t)(in ? r0 + r : 0) * D + ck * 8, in);
+  }
+  cp_async_commit();
+  // stage g: columns [c0, c0 + 128) x D values [d0, d0 + 64) of en, zeros
+  // from cend on; always one commit group, empty past the last stage
+  auto load_stage = [&](int g) {
+    if (g < total) {
+      const int c0 = cbeg + g / chunks * FC, d0 = g % chunks * FK;
+      const int w = min(FK, D - d0) / 8;
+      bf16* dst = ring + (g % F_STAGES) * FC * FLD;
+      for (int e = tid; e < FC * w; e += THREADS) {
+        const int r = e / w, ck = e % w, c = c0 + r;
+        const bool in = c < cend;
+        cp_async16(smem_u32(dst + r * FLD + ck * 8), en + (size_t)(in ? c : 0) * D + d0 + ck * 8,
+                   in);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int g = 0; g < F_STAGES - 1; ++g) load_stage(g);
+
+  if (PSUM && tid < ROWS) {  // -m log2 e and 1 / z of the rows, read after the first barrier
+    const bool in = r0 + tid < N;  // rows past N: 2^(0 - 0) * 0 = 0
+    red[tid] = in ? -m_row[r0 + tid] * LOG2E : 0.f;
+    red[ROWS + tid] = in ? 1.f / z_row[r0 + tid] : 0.f;
+  }
+  float* colred = red + 2 * ROWS;  // pass 2: [RG][FC] column sums of the row groups
+
+  const uint32_t x_at = smem_u32(xs + (32 * wr + (lane & 15)) * ld + (lane >> 4) * 8);
+  const uint32_t e_off =
+      ((32 * wc + (lane & 7) + ((lane >> 4) << 3)) * FLD + ((lane >> 3) & 1) * 8) * sizeof(bf16);
+  const uint32_t ring_at = smem_u32(ring);
+
+  // pass 1: rows 32 wr + 16 mi + 8 h + gq, r4 = 2 mi + h: the running
+  // (m, -m log2 e, z, w) over the thread's columns, and the best (value, index)
+  float m[4], nml[4], z[4], w[4], bv[4];
+  int bi[4];
+#pragma unroll
+  for (int r4 = 0; r4 < 4; ++r4) {
+    m[r4] = bv[r4] = INIT_MAX;
+    nml[r4] = z[r4] = w[r4] = 0.f;
+    bi[r4] = -1;
+  }
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait(F_STAGES - 2);
+    __syncthreads();  // stage g has landed; stage g - 1's slot is free
+    load_stage(g + F_STAGES - 1);
+    const int kc = g % chunks, d0 = kc * FK, ksteps = min(FK, D - d0) / 16;
+    const uint32_t e_at = ring_at + (g % F_STAGES) * FC * FLD * sizeof(bf16) + e_off;
+#pragma unroll
+    for (int ks = 0; ks < FK / 16; ++ks) {
+      if (ks >= ksteps) break;
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], x_at + (mi * 16 * ld + d0 + ks * 16) * sizeof(bf16));
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        ldsm_x4(b[jj], e_at + (jj * 16 * FLD + ks * 16) * sizeof(bf16));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          mma_bf16(acc[mi][2 * jj], a[mi], b[jj][0], b[jj][1]);
+          mma_bf16(acc[mi][2 * jj + 1], a[mi], b[jj][2], b[jj][3]);
+        }
+    }
+    if (kc != chunks - 1) continue;
+
+    // the tile's epilogue: thread columns c0 + 32 wc + 8 j + 2 tq + e, rising with (j, e)
+    const int c0 = cbeg + g / chunks * FC;
+    const int cw = c0 + 32 * wc + 2 * tq;
+    bool live[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = cw + 8 * j + e;
+        live[j][e] = c < cend && !__ldg(mask + c);
+      }
+    if (!PSUM) {
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const int mi = r4 >> 1, h = r4 & 1;
+        float v[4][2], tm = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[j][e] = live[j][e] ? acc[mi][j][2 * h + e] : -INFINITY;
+            tm = fmaxf(tm, v[j][e]);
+          }
+        if (tm > bv[r4]) {  // a new best: the tile's lowest column at tm (strict >
+          bv[r4] = tm;      // keeps an earlier tile's on a tie)
+#pragma unroll
+          for (int j = 3; j >= 0; --j)
+#pragma unroll
+            for (int e = 1; e >= 0; --e)
+              if (v[j][e] == tm) bi[r4] = cw + 8 * j + e;
+        }
+        if (tm > m[r4]) {  // rescale z and w to the new maximum
+          const float a = ex2((m[r4] - tm) * LOG2E);
+          z[r4] *= a;
+          w[r4] *= a;
+          m[r4] = tm;
+          nml[r4] = -tm * LOG2E;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ee = ex2(fmaf(v[j][e], LOG2E, nml[r4]));  // 0 on a dead column
+            z[r4] += ee;
+            w[r4] = fmaf(ee, acc[mi][j][2 * h + e], w[r4]);
+          }
+      }
+    } else {
+      float nm[4], iz[4];
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const int row = 32 * wr + 16 * (r4 >> 1) + 8 * (r4 & 1) + gq;
+        nm[r4] = red[row];
+        iz[r4] = red[ROWS + row];
+      }
+      float cs[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sum = 0.f;
+#pragma unroll
+          for (int r4 = 0; r4 < 4; ++r4)
+            sum = fmaf(ex2(fmaf(acc[r4 >> 1][j][2 * (r4 & 1) + e], LOG2E, nm[r4])), iz[r4], sum);
+          // the warp's 32 rows: the 8 lanes of a column, in a fixed order
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          cs[j][e] = live[j][e] ? sum : 0.f;
+        }
+      if (gq == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float2*>(colred + wr * FC + 32 * wc + 8 * j + 2 * tq) =
+              make_float2(cs[j][0], cs[j][1]);
+      }
+      __syncthreads();  // colred complete; it is rewritten after the next stage's barrier
+      if (tid < FC && c0 + tid < cend) {
+        float sum = colred[tid];
+#pragma unroll
+        for (int q = 1; q < RG; ++q) sum += colred[q * FC + tid];
+        col_part[(size_t)blockIdx.x * V + c0 + tid] = sum;
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  }
+  cp_async_wait(0);
+  if (PSUM) return;
+
+  // the quad's four column sets, then the four column warps of a row, in order
+#pragma unroll
+  for (int r4 = 0; r4 < 4; ++r4) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[r4], off);
+      const float z2 = __shfl_xor_sync(0xffffffffu, z[r4], off);
+      const float w2 = __shfl_xor_sync(0xffffffffu, w[r4], off);
+      merge_mzw(m[r4], z[r4], w[r4], m2, z2, w2);
+      merge_best(bv[r4], bi[r4], __shfl_xor_sync(0xffffffffu, bv[r4], off),
+                 __shfl_xor_sync(0xffffffffu, bi[r4], off));
+    }
+    if (tq == 0) {
+      float* o = red + (wc * ROWS + 32 * wr + 16 * (r4 >> 1) + 8 * (r4 & 1) + gq) * F_STATS;
+      o[0] = m[r4];
+      o[1] = z[r4];
+      o[2] = w[r4];
+      o[3] = bv[r4];
+      o[4] = __int_as_float(bi[r4]);
+    }
+  }
+  __syncthreads();
+  if (tid < ROWS && r0 + tid < N) {
+    const float* a = red + tid * F_STATS;
+    float mm = a[0], zz = a[1], ww = a[2], bb = a[3];
+    int ii = __float_as_int(a[4]);
+    for (int q = 1; q < 4; ++q) {
+      const float* b = red + (q * ROWS + tid) * F_STATS;
+      merge_mzw(mm, zz, ww, b[0], b[1], b[2]);
+      merge_best(bb, ii, b[3], __float_as_int(b[4]));
+    }
+    const size_t sn = (size_t)gridDim.y * N, o = (size_t)split * N + r0 + tid;
+    stats[o] = mm;
+    stats[sn + o] = zz;
+    stats[2 * sn + o] = ww;
+    stats[3 * sn + o] = bb;
+    best_i[o] = ii;
+  }
+}
+
+// the splits merged in column order: strict > keeps the lowest index. The
+// loads of 8 splits are issued together ahead of their merges.
+__global__ void vq_combine_kernel(const float* __restrict__ stats, const int* __restrict__ best_i,
+                                  int N, int splits, int* __restrict__ k,
+                                  float* __restrict__ ent, float* __restrict__ m_out,
+                                  float* __restrict__ z_out) {
+  constexpr int B = 8;
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const size_t sn = (size_t)splits * N;
+  float m = INIT_MAX, z = 0.f, w = 0.f, bv = INIT_MAX;
+  int bi = 0;
+  for (int s0 = 0; s0 < splits; s0 += B) {
+    float pm[B], pz[B], pw[B], pb[B];
+    int pi[B];
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+      const size_t o = (size_t)min(s0 + q, splits - 1) * N + row;
+      pm[q] = stats[o];
+      pz[q] = stats[sn + o];
+      pw[q] = stats[2 * sn + o];
+      pb[q] = stats[3 * sn + o];
+      pi[q] = best_i[o];
+    }
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+      if (s0 + q >= splits) break;
+      merge_mzw(m, z, w, pm[q], pz[q], pw[q]);
+      if (pi[q] >= 0 && pb[q] > bv) {
+        bv = pb[q];
+        bi = pi[q];
+      }
+    }
+  }
+  k[row] = bi;
+  ent[row] = logf(z) + m - w / z;
+  m_out[row] = m;
+  z_out[row] = z;
+}
+
+// psum = the (row tile, column) partials summed in row-tile order
+__global__ void vq_reduce_kernel(const float* __restrict__ col_part, int row_tiles, int V,
                                  float* __restrict__ psum) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= V) return;
   float sum = 0.f;
-  for (int i = 0; i < chunks; ++i) sum += part[(size_t)i * V + c];
+  for (int i = 0; i < row_tiles; ++i) sum += col_part[(size_t)i * V + c];
   psum[c] = sum;
 }
 
@@ -530,7 +827,6 @@ __global__ void __launch_bounds__(V_THREADS) vq_bwd_fma_kernel(
 constexpr int TR = 64;         // rows per block
 constexpr int T_THREADS = 256;
 constexpr int T_DMAX = 512;    // the dx accumulators cover D = 8 warps x 64 columns
-constexpr int TPAD = 8;        // bf16 padding of a shared row
 constexpr int WLD = VC + TPAD;  // row stride of the w tile
 
 size_t tc_smem_bytes(int D) {
@@ -865,40 +1161,66 @@ cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void*
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_vq(const void* xv, const void* env, const int* mask, int N, int V, int D,
-                      float* part_f, int* part_i, float* col_part, int* k, float* ent,
-                      float* m, float* z, float* psum, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(xv);
-  const T* en = static_cast<const T*>(env);
-  const int col_tiles = (V + VC - 1) / VC;
-  const int cols_per_split = ((col_tiles + V_SPLITS - 1) / V_SPLITS) * VC;
-  const size_t sn = (size_t)V_SPLITS * N;
-  float *pm = part_f, *pz = part_f + sn, *pt = part_f + 2 * sn, *pbv = part_f + 3 * sn;
-  vq_rows_kernel<T><<<dim3((N + VR - 1) / VR, V_SPLITS), V_THREADS, 0, stream>>>(
-      x, en, mask, N, V, D, cols_per_split, pm, pz, pt, pbv, part_i);
-  cudaError_t err = cudaGetLastError();
+template <int ROWS>
+cudaError_t launch_vq_tc(const bf16* x, const bf16* en, const int* mask, int N, int V, int D,
+                         const dim3 grid, int cols_per_split, float* stats, int* best_i,
+                         float* m, float* z, float* col_part, int* k, float* ent,
+                         cudaStream_t stream) {
+  const size_t smem = fwd_tc_smem_bytes(ROWS, D);
+  cudaError_t err = cudaFuncSetAttribute(vq_fwd_tc_kernel<ROWS, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  vq_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
-      pm, pz, pt, pbv, part_i, N, V_SPLITS, k, ent, m, z);
+  err = cudaFuncSetAttribute(vq_fwd_tc_kernel<ROWS, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  vq_fwd_tc_kernel<ROWS, false><<<grid, ROWS * 4, smem, stream>>>(
+      x, en, mask, N, V, D, cols_per_split, stats, best_i, nullptr, nullptr, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int chunks = (N + ROW_CHUNK - 1) / ROW_CHUNK;
-  vq_cols_kernel<T><<<dim3(col_tiles, chunks), V_THREADS, 0, stream>>>(
-      x, en, mask, m, z, N, V, D, col_part);
+  vq_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(stats, best_i, N, grid.y, k, ent, m, z);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  vq_reduce_kernel<<<(V + 255) / 256, 256, 0, stream>>>(col_part, chunks, V, psum);
+  vq_fwd_tc_kernel<ROWS, true><<<grid, ROWS * 4, smem, stream>>>(
+      x, en, mask, N, V, D, cols_per_split, nullptr, nullptr, m, z, col_part);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_vq(int is_bf16, const void* x, const void* en, const int* mask, int N,
+                      int V, int D, int rows, int splits, float* stats, int* best_i,
+                      float* col_part, int* k, float* ent, float* m, float* z, float* psum,
+                      cudaStream_t stream) {
+  const int cols = is_bf16 ? FC : VC;
+  const int col_tiles = (V + cols - 1) / cols, row_tiles = (N + rows - 1) / rows;
+  const int cols_per_split = (col_tiles + splits - 1) / splits * cols;
+  const dim3 grid(row_tiles, splits);
+  cudaError_t err;
+  if (is_bf16) {
+    const bf16 *xb = static_cast<const bf16*>(x), *eb = static_cast<const bf16*>(en);
+    err = rows == 128 ? launch_vq_tc<128>(xb, eb, mask, N, V, D, grid, cols_per_split, stats,
+                                          best_i, m, z, col_part, k, ent, stream)
+                      : launch_vq_tc<64>(xb, eb, mask, N, V, D, grid, cols_per_split, stats,
+                                         best_i, m, z, col_part, k, ent, stream);
+  } else {
+    const float *xf = static_cast<const float*>(x), *ef = static_cast<const float*>(en);
+    vq_rows_kernel<<<grid, V_THREADS, 0, stream>>>(xf, ef, mask, N, V, D, cols_per_split, stats,
+                                                   best_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    vq_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(stats, best_i, N, splits, k, ent, m, z);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    vq_cols_kernel<<<grid, V_THREADS, 0, stream>>>(xf, ef, mask, m, z, N, V, D, cols_per_split,
+                                                   col_part);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  vq_reduce_kernel<<<(V + 127) / 128, 128, 0, stream>>>(col_part, row_tiles, V, psum);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
-
-// Scratch sizes the caller allocates.
-int sc_vq_splits(void) { return V_SPLITS; }
-int sc_vq_row_chunk(void) { return ROW_CHUNK; }
 
 // Straight-through backward. x, g (N, D) and en (V, D) in the compute dtype
 // (is_bf16), row-major, 16-byte aligned, D a multiple of 16 (at most 512 in
@@ -920,18 +1242,23 @@ int sc_vq_bwd(const void* x, const void* g, const void* en, const float* norms,
                             dt_part, dx, dt, stream);
 }
 
-// x (N, D), en (V, D): fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1), row-major.
-// mask (V,) int32, nonzero = excluded column. Scratch: part_f 4*splits*N
-// floats, part_i splits*N ints, col_part chunks*V floats. Outputs: k (N,)
-// int32, ent/m/z (N,) fp32, psum (V,) fp32. Returns a cudaError_t.
-int sc_vq_fwd(const void* x, const void* en, const int* mask, int N, int V, int D,
-              int is_bf16, float* part_f, int* part_i, float* col_part, int* k,
+// Forward. x (N, D) and en (V, D) in the compute dtype (is_bf16), row-major,
+// 16-byte aligned, D a multiple of 16 (at most 768 in bf16, 1024 in fp32);
+// mask (V,) int32, nonzero = excluded column. rows (bf16: 128 up to D = 512,
+// else 64; fp32: 32) and splits come from the wrapper's plan. Scratch: stats 4 * splits * N
+// fp32, best_i splits * N int32, col_part ceil(N / rows) * V fp32. Outputs:
+// k (N,) int32, ent, m, z (N,) fp32, psum (V,) fp32. Returns a cudaError_t.
+int sc_vq_fwd(const void* x, const void* en, const int* mask, int N, int V, int D, int is_bf16,
+              int rows, int splits, float* stats, int* best_i, float* col_part, int* k,
               float* ent, float* m, float* z, float* psum, cudaStream_t stream) {
-  if (N <= 0 || V <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = is_bf16
-      ? launch_vq<bf16>(x, en, mask, N, V, D, part_f, part_i, col_part, k, ent, m, z, psum, stream)
-      : launch_vq<float>(x, en, mask, N, V, D, part_f, part_i, col_part, k, ent, m, z, psum, stream);
-  return (int)err;
+  const int cols = is_bf16 ? FC : VC;
+  const int col_tiles = V > 0 ? (V + cols - 1) / cols : 0;
+  const int want_rows = !is_bf16 ? VR : D <= F_DMAX_128 ? 128 : 64;
+  if (N <= 0 || V <= 0 || D <= 0 || D % 16 || D > (is_bf16 ? F_DMAX : 1024) ||
+      rows != want_rows || splits < 1 || splits > col_tiles)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_vq(is_bf16, x, en, mask, N, V, D, rows, splits, stats, best_i, col_part, k,
+                        ent, m, z, psum, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) pieces in inline PTX: mbarriers, TMA tile loads and the
 // warpgroup product `wgmma` with its shared-memory descriptors, used by K1a's
 // projection GEMM (fused_attention_block.cu); `cp.async`, `ldmatrix` and the
-// bf16 warp product `mma.sync` m16n8k16, used by K3b (fused_keyword.cu).
+// bf16 warp product `mma.sync` m16n8k16, used by K3 and K3b (fused_keyword.cu).
 #pragma once
 #include <cuda.h>  // CUtensorMap (a type only: the encoder comes from the runtime)
 #include <cuda_runtime.h>

@@ -11,8 +11,10 @@ memory, forward (Pallas `_fwd_kernel`, :92) and backward (`_bwd_kernel`,
 sums of softmax(s) psum (V,). `st_backward` returns, for the keyword
 cotangent g (N, D): dx = (dz / t) en and dt = Σ dz (-s / t²), with
 u = (g enᵀ) ‖emb‖, p = softmax(s / t), dz = p (u - Σ p u). On a CUDA tensor
-each runs its hand-written kernels in ``csrc/fused_keyword.cu``; on a CPU
-tensor its plain PyTorch twin. The gather `emb[k]` and the perplexity and
+each runs its hand-written kernels in ``csrc/fused_keyword.cu``, over a grid
+of (row tiles, V splits) that a cached plan (`_fwd_plan`, `_bwd_plan`)
+chooses per shape so that every row count fills the card; on a CPU tensor
+its plain PyTorch twin. The gather `emb[k]` and the perplexity and
 entropy reductions stay plain torch, as they are XLA outside the kernel in
 JAX (:334-366). The codebook gets no gradient: the token table is frozen in
 every reference configuration, and `fused_cosine_vq` refuses a table that
@@ -73,21 +75,20 @@ def _launch(xn, en, mask):
     for t in (xn, en, mask):
         if t.device != xn.device or not t.is_contiguous():
             raise ValueError("cosine_vq_stats: inputs must be contiguous on one device")
+    if any(t.data_ptr() % 16 for t in (xn, en)):
+        raise ValueError("cosine_vq_stats: x and en must be 16-byte aligned")
+    rows, splits = _fwd_plan(n, v, d, xn.dtype, _sm_count(xn.device))
     lib = kernels()
-    splits, row_chunk = lib.sc_vq_splits(), lib.sc_vq_row_chunk()
-    chunks = -(-n // row_chunk)
-    f32 = dict(dtype=torch.float32, device=xn.device)
     with torch.cuda.device(xn.device):
-        part_f = torch.empty(4 * splits * n, **f32)
-        part_i = torch.empty(splits * n, dtype=torch.int32, device=xn.device)
-        col_part = torch.empty(chunks * v, **f32)
+        scratch = _fwd_scratch(n, v, rows, splits, xn.device)
         k = torch.empty(n, dtype=torch.int32, device=xn.device)
-        ent, m, z = (torch.empty(n, **f32) for _ in range(3))
-        psum = torch.empty(v, **f32)
+        ent = torch.empty(n, dtype=torch.float32, device=xn.device)
+        psum = torch.empty(v, dtype=torch.float32, device=xn.device)
         check(lib.sc_vq_fwd(xn.data_ptr(), en.data_ptr(), mask.data_ptr(), n, v, d,
-                            int(xn.dtype == torch.bfloat16), part_f.data_ptr(),
-                            part_i.data_ptr(), col_part.data_ptr(), k.data_ptr(),
-                            ent.data_ptr(), m.data_ptr(), z.data_ptr(), psum.data_ptr(),
+                            int(xn.dtype == torch.bfloat16), rows, splits,
+                            *(scratch[key].data_ptr() for key in ("stats", "best_i", "col_part")),
+                            k.data_ptr(), ent.data_ptr(), scratch["m"].data_ptr(),
+                            scratch["z"].data_ptr(), psum.data_ptr(),
                             torch.cuda.current_stream().cuda_stream),
               "cosine_vq_stats")
     LAUNCHES += 1
@@ -121,49 +122,108 @@ def plain_st_backward(xn, g, en, norms, mask, temp: float):
     return dx, dt
 
 
+H100_SMS = 132
+_BLOCK_OVERHEAD = 0.5  # a block's own loads and writes, in column tiles
+
+
+def _best_splits(row_tiles: int, col_tiles: int, slots: int, scratch_per_split: int,
+                 cap: int) -> int:
+    """The split count of V whose blocks finish soonest on `slots` resident
+    blocks: a block costs its column tiles plus a fixed overhead, the blocks
+    run in whole waves, no split is empty and, beyond one split, the
+    partials take at most `cap` bytes. Ties go to fewer splits."""
+    best_cost, best = math.inf, 1
+    for splits in range(1, col_tiles + 1):
+        per = -(-col_tiles // splits)
+        if -(-col_tiles // per) != splits:
+            continue  # the last split would be empty
+        if splits > 1 and splits * scratch_per_split > cap:
+            break
+        cost = -(-row_tiles * splits // slots) * (per + _BLOCK_OVERHEAD)
+        if cost < best_cost:
+            best_cost, best = cost, splits
+    return best
+
+
+def _check_width(what: str, d: int, dtype, max_d) -> None:
+    if dtype not in max_d:
+        raise TypeError(f"{what}: dtype {dtype}")
+    if d <= 0 or d % 16 or d > max_d[dtype]:
+        raise ValueError(f"{what}: D={d} must be a positive multiple of 16 and at most "
+                         f"{max_d[dtype]} in {dtype}")
+
+
+# K3's grid (csrc/fused_keyword.cu): blocks of `rows` keyword rows x one of
+# `splits` ranges of whole codebook tiles, `_FWD_COLS` columns each
+_FWD_COLS = {torch.bfloat16: 128, torch.float32: 64}  # the tensor-core tile, the FMA tile
+_FWD_MAX_D = {torch.bfloat16: 768, torch.float32: 1024}
+# resident blocks an SM: the tensor-core tile takes 178-217 KB of shared
+# memory; the FMA tile 25-29 KB and 48 registers a thread
+_FWD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 4}
+FWD_SCRATCH_CAP = 16 << 20  # bytes of the splits' row statistics (5 x splits x N x 4)
+
+
+def _fwd_rows(d: int, dtype) -> int:
+    """Rows a K3 block: the tensor-core tile keeps them in shared memory
+    beside a 74 KB codebook ring, 128 up to D=512 (217 KB) and 64 beyond (178
+    KB at D=768); every block reads its split's codebook from L2 once, so
+    128 rows halve that traffic. The FMA tile: 32."""
+    return 32 if dtype == torch.float32 else 128 if d <= 512 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(n: int, v: int, d: int, dtype=torch.bfloat16, sms: int = H100_SMS):
+    """(rows, splits) of K3's grid for N rows, V codebook columns and width
+    D (`_best_splits`: whole waves x tiles per split, at most
+    FWD_SCRATCH_CAP bytes of split statistics). Raises on a width the
+    kernels do not take: D a multiple of 16 (16-byte rows for `cp.async`
+    and `ldmatrix`), at most 768 in bf16 (the x rows and the codebook ring in
+    shared memory) or 1024 in fp32."""
+    _check_width("cosine_vq_stats", d, dtype, _FWD_MAX_D)
+    if n <= 0 or v <= 0:
+        raise ValueError(f"cosine_vq_stats: N={n}, V={v}")
+    rows = _fwd_rows(d, dtype)
+    splits = _best_splits(-(-n // rows), -(-v // _FWD_COLS[dtype]),
+                          sms * _FWD_BLOCKS_PER_SM[dtype], 5 * 4 * n, FWD_SCRATCH_CAP)
+    return rows, splits
+
+
+def _fwd_scratch(n: int, v: int, rows: int, splits: int, device) -> Dict[str, torch.Tensor]:
+    """K3's scratch for a plan, two allocations: the splits' (m, z, w, best
+    value) and best index per row, one column-sum partial per (row tile,
+    column), and the combined m and z per row."""
+    sizes = {"stats": 4 * splits * n, "col_part": -(-n // rows) * v, "m": n, "z": n}
+    buf = torch.empty(sum(sizes.values()), dtype=torch.float32, device=device)
+    out = dict(zip(sizes, buf.split(list(sizes.values()))))
+    out["best_i"] = torch.empty(splits * n, dtype=torch.int32, device=device)
+    return out
+
+
 # K3b's grid (csrc/fused_keyword.cu): blocks of `rows` keyword rows x one of
 # `splits` ranges of whole 64-column codebook tiles
 _BWD_COLS = 64
 _BWD_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # the tensor-core tile, the FMA tile
 _BWD_MAX_D = {torch.bfloat16: 512, torch.float32: 1024}
 BWD_SCRATCH_CAP = 64 << 20  # bytes of partial dx (splits x N x D fp32) a plan may use
-_BWD_BLOCK_OVERHEAD = 0.5  # a block's x and g loads and dx write, in column tiles
-H100_SMS = 132
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_plan(n: int, v: int, d: int, dtype=torch.bfloat16, sms: int = H100_SMS):
     """(rows, splits) of K3b's grid for N rows, V codebook columns and width
-    D: the split count whose blocks finish soonest on `sms` SMs, a block
-    costing its column tiles plus a fixed overhead and the blocks running in
-    whole waves, with no empty split and, beyond one split, at most
-    BWD_SCRATCH_CAP bytes of partial dx. Ties go to fewer splits. Raises on a
-    width the kernels do not take: D a multiple of 16 (16-byte rows for
-    `cp.async` and `ldmatrix`), at most 512 in bf16 (the dx accumulators of 8
-    warps x 64 columns) or 1024 in fp32."""
-    if dtype not in _BWD_ROWS:
-        raise TypeError(f"st_backward: dtype {dtype}")
-    if d <= 0 or d % 16 or d > _BWD_MAX_D[dtype]:
-        raise ValueError(f"st_backward: D={d} must be a positive multiple of 16 and at most "
-                         f"{_BWD_MAX_D[dtype]} in {dtype}")
+    D (`_best_splits`: whole waves x tiles per split, at most
+    BWD_SCRATCH_CAP bytes of partial dx). Raises on a width the kernels do
+    not take: D a multiple of 16 (16-byte rows for `cp.async` and
+    `ldmatrix`), at most 512 in bf16 (the dx accumulators of 8 warps x 64
+    columns) or 1024 in fp32."""
+    _check_width("st_backward", d, dtype, _BWD_MAX_D)
     if n <= 0 or v <= 0:
         raise ValueError(f"st_backward: N={n}, V={v}")
     rows = _BWD_ROWS[dtype]
     # one tensor-core block an SM (208 KB of shared memory at D=512); two FMA
     # blocks up to D=512
     slots = sms * (2 if dtype == torch.float32 and d <= 512 else 1)
-    row_tiles, col_tiles = -(-n // rows), -(-v // _BWD_COLS)
-    best_cost, best = math.inf, 1
-    for splits in range(1, col_tiles + 1):
-        per = -(-col_tiles // splits)
-        if -(-col_tiles // per) != splits:
-            continue  # the last split would be empty
-        if splits > 1 and splits * n * d * 4 > BWD_SCRATCH_CAP:
-            break
-        cost = -(-row_tiles * splits // slots) * (per + _BWD_BLOCK_OVERHEAD)
-        if cost < best_cost:
-            best_cost, best = cost, splits
-    return rows, best
+    return rows, _best_splits(-(-n // rows), -(-v // _BWD_COLS), slots, n * d * 4,
+                              BWD_SCRATCH_CAP)
 
 
 def _bwd_scratch(n: int, d: int, rows: int, splits: int, device) -> Dict[str, torch.Tensor]:

@@ -65,13 +65,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sc_flash_attention.argtypes = [p, p, p, p, i64p, p, p, i, i, i, i, i, f, p]
     lib.sc_conv0.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.sc_fab_attention_bwd.argtypes = [p, p, p, i, p, p, p, p, p, u, f, f, p, i, i, i, i, i, p]
-    lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
     lib.sc_vq_bwd.argtypes = [p, p, p, p, p, i, i, i, f, i, i, i, p, p, p, p, p, p]
-    lib.sc_vq_splits.argtypes = []
-    lib.sc_vq_row_chunk.argtypes = []
     for fn in (lib.sc_fab_gemm, lib.sc_fab_attention, lib.sc_fab_attention_bwd,
                lib.sc_fused_attention, lib.sc_flash_attention, lib.sc_conv0,
-               lib.sc_vq_fwd, lib.sc_vq_bwd, lib.sc_vq_splits, lib.sc_vq_row_chunk):
+               lib.sc_vq_fwd, lib.sc_vq_bwd):
         fn.restype = ctypes.c_int
     lib.sc_error_string.argtypes = [i]
     lib.sc_error_string.restype = ctypes.c_char_p

@@ -11,10 +11,10 @@ Tolerances: fp32 1e-4 abs (K1) or 1e-4 x max(1, RMS) (K1 with dropout, bias
 or gate, K2, K4, K5, K6); bf16 K1, K2, K4, K5 and K6 error beyond half an ulp
 of the bf16 output <= 2e-2 x the output's RMS; K4's lse 1e-4 relative; K3
 targets equal wherever the top-2 margin exceeds 1e-3 (bf16) or 1e-5 (fp32),
-ent and psum to rtol 1e-3; K3b dx to 1e-4 (fp32) or 1e-2
+ent and psum to rtol 1e-3, exact ties to the lowest index; K3b dx to 1e-4 (fp32) or 1e-2
 (bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes; the bf16 attention
 kernels against their numerical model (`nn/attention_numerics.py`) 4e-3 x RMS
-beyond half an ulp, a fifth of what the twin is allowed. K2 and K3b repeat
+beyond half an ulp, a fifth of what the twin is allowed. K2, K3 and K3b repeat
 bit for bit (no float atomics), as do K1, K4, K5 and K6.
 """
 import pytest
@@ -81,16 +81,16 @@ def test_fused_attention_block_rejects_misaligned_input(cuda_device):
         fab.fused_attention_block(shifted, *args[1:], n_heads=2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,v", [(600, 512, 8112), (4800, 512, 8112), (9600, 512, 8112),
-                                   (37, 64, 300)])
-def test_cosine_vq_kernel_matches_plain(cuda_device, dtype, n, d, v):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.nn.functional.normalize(torch.randn(n, d, generator=g, device=cuda_device), dim=-1)
-    en = torch.nn.functional.normalize(torch.randn(v, d, generator=g, device=cuda_device), dim=-1)
-    x, en = x.to(dtype).contiguous(), en.to(dtype).contiguous()
-    mask = fk.column_mask(v, SPECIAL, cuda_device)
+def _vq_inputs(dev, dtype, n, d, v, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.nn.functional.normalize(torch.randn(n, d, generator=g, device=dev), dim=-1)
+    en = torch.nn.functional.normalize(torch.randn(v, d, generator=g, device=dev), dim=-1)
+    return x.to(dtype).contiguous(), en.to(dtype).contiguous()
+
+
+def _check_vq(x, en, mask, dtype):
+    """K3 against its twin: targets equal where the top-2 margin is decided,
+    ent and psum to rtol 1e-3, one wrapper call counted, reruns identical."""
     before = fk.LAUNCHES
     k1, e1, p1 = fk.cosine_vq_stats(x, en, mask)
     assert fk.LAUNCHES == before + 1
@@ -104,6 +104,80 @@ def test_cosine_vq_kernel_matches_plain(cuda_device, dtype, n, d, v):
     torch.testing.assert_close(p1, p0, rtol=1e-3, atol=0)
     again = fk.cosine_vq_stats(x, en, mask)
     assert all(torch.equal(a, b) for a, b in zip(again, (k1, e1, p1)))  # deterministic
+    return k1, k0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,v", [(600, 512, 8112), (4800, 512, 8112), (9600, 512, 8112),
+                                   (37, 64, 300), (8, 512, 8112), (64, 512, 8112),
+                                   (75, 512, 8112), (512, 512, 8112), (1024, 512, 8112),
+                                   (600, 768, 8112)])
+def test_cosine_vq_kernel_matches_plain(cuda_device, dtype, n, d, v):
+    """K3 on its (row tiles, V splits) grid at every N the paths record (one
+    query's 8 or 75 keywords up to the plus families' 9600 training rows), a
+    ragged small case and the large family's width, D=768."""
+    x, en = _vq_inputs(cuda_device, dtype, n, d, v)
+    _check_vq(x, en, fk.column_mask(v, SPECIAL, cuda_device), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cosine_vq_exact_ties_go_to_the_lowest_index(cuda_device, dtype):
+    """Every row is a codebook vector that appears three times, in different
+    tiles and splits: the scores tie exactly and the lowest index must win,
+    as in the twin (torch.argmax) and jnp.argmax."""
+    n, d, v = 600, 512, 8112
+    x, en = _vq_inputs(cuda_device, dtype, n, d, v, seed=3)
+    sources = 4 + 8 * torch.arange(250, device=cuda_device)  # ids 4, 12, .., 1996
+    en[sources + 5] = en[sources]  # the same column tile, or the next one
+    en[sources + 4000] = en[sources]  # a later tile, and a later split
+    src = sources[torch.arange(n, device=cuda_device) % 250]
+    x = en[src].contiguous()
+    mask = fk.column_mask(v, SPECIAL, cuda_device)
+    k1, k0 = _check_vq(x, en, mask, dtype)
+    assert torch.equal(k1.long(), k0.long())
+    assert torch.equal(k1.long(), src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cosine_vq_with_an_all_masked_split(cuda_device, dtype):
+    """V=300 runs as one split per column tile; the second split is masked
+    whole, so its statistics must merge as the identity (no NaN)."""
+    n, d, v = 37, 64, 300
+    rows, splits = fk._fwd_plan(n, v, d, dtype, fk._sm_count(cuda_device))
+    cols = fk._FWD_COLS[dtype]
+    assert splits == -(-v // cols) >= 3
+    x, en = _vq_inputs(cuda_device, dtype, n, d, v, seed=5)
+    mask = fk.column_mask(v, SPECIAL + tuple(range(cols, 2 * cols)), cuda_device)
+    k1, e1, p1 = fk.cosine_vq_stats(x, en, mask)
+    assert bool(torch.isfinite(e1).all()) and bool(torch.isfinite(p1).all())
+    assert torch.all(p1[cols:2 * cols] == 0)
+    _check_vq(x, en, mask, dtype)
+
+
+@pytest.mark.cuda
+def test_cosine_vq_rejects_bad_inputs(cuda_device):
+    n, v = 37, 300
+    mask = fk.column_mask(v, SPECIAL, cuda_device)
+    before = fk.LAUNCHES
+    x, en = _vq_inputs(cuda_device, torch.bfloat16, n, 72, v)
+    with pytest.raises(ValueError, match="multiple of 16"):  # D % 16 != 0
+        fk.cosine_vq_stats(x, en, mask)
+    x, en = _vq_inputs(cuda_device, torch.bfloat16, n, 784, v)
+    with pytest.raises(ValueError, match="at most 768"):  # wider than the shared x rows
+        fk.cosine_vq_stats(x, en, mask)
+    x, en = _vq_inputs(cuda_device, torch.bfloat16, n, 64, v)
+    with pytest.raises(TypeError, match="dtypes"):
+        fk.cosine_vq_stats(x, en.float(), mask)
+    shifted = torch.empty(n * 64 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(n, 64)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        fk.cosine_vq_stats(shifted, en, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.cosine_vq_stats(x, en.T.contiguous().T, mask)
+    assert fk.LAUNCHES == before
 
 
 def _close(got, want, dtype):
