@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase families # paths E-I only (no kernels line)
     python3 chip_smoke.py --phase profile  # device time by kernel: serving
                                            # cells and 5 training cells
+    python3 chip_smoke.py --phase fit      # phase 6 (cached) and phase J only
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -39,6 +40,23 @@ Phases, each fatal on failure:
   7. slice parity: the fp32 model on the card (kernels) against the same
      weights on the CPU (plain twins): serving features and retrieval, and
      one training step (B=2, dropout off): loss, gradients, parameters;
+  J. the training entry point: `speechclip_plus_tpu_torch.run_task
+     TrainKWClip_GeneralTransformer --train` in process with
+     config/speechclip_plus/base/synthetic_fit.yaml (overridden in memory) on
+     a Flickr-shaped tree of 160 train and 24 dev images with 5 spoken
+     captions each, written by scripts/make_synthetic_dataset.py under a
+     temporary directory: hybrid+ base bf16, B=128 crops of 102400 samples,
+     the image cache, two epochs with validation, keyword artifacts and
+     checkpoints; then `--resume` from checkpoints/last for 3 more steps,
+     whose model and Adam state must equal bit for bit those of an unbroken
+     run that reads its batches through the prefetch thread;
+     finite losses and recalls, the checkpoint directories and fit_state.json,
+     the restored step and epoch, launch counts equal to the plan of a step,
+     an eval batch and an image-cache batch; prints the loop's ms/step and
+     pairs/s (the median of the Trainer's steps_per_sec windows, and all
+     steps over the Trainer's passes over the loader, which hold each
+     epoch's loader restart and no validation or save) beside phase 6's bare
+     step, the loader wait per step and the cache, validation and save times;
   A. hybrid+ with the WavLM-Base+ tower (hybrid_plus_wavlm.yaml; K1 in its
      gate mode in every tower layer): serving at B = 1, 8, 64 for both
      feature sources, the training phase with cached image features, and the
@@ -1846,6 +1864,226 @@ def phase_parity(torch, label, config, clip_keys=None):
           f"{' and '.join(sources)} over a 1000-image index ({time.perf_counter() - t0:.1f} s)")
 
 
+# ------------------------------------------------------------ phase J ----
+
+FIT_CONFIG = "config/speechclip_plus/base/synthetic_fit.yaml"
+FIT_TREE = dict(train=160, dev=24, test=8, caps=5)  # images per split, captions each
+FIT_EPOCHS = 2  # of the first leg, each with validation
+FIT_MORE = 3  # optimizer steps of the resumed run past the first leg
+
+
+def fit_plans():
+    """Launches of one unit of the fit: a training step with cached image
+    features, one eval batch (both branches, no dropout) and one batch of the
+    image cache (the ViT)."""
+    step = {**speech_query_plan("k1", True), "fused_attention_block_bwd": 1,
+            "fused_cosine_vq_bwd": 1}
+    return step, speech_query_plan("k1", True), k1_plan(12)
+
+
+def fit_run(torch, label, cfg, save_path, tree, argv=(), njobs=4):
+    """One `run_task` of TrainKWClip_GeneralTransformer on the card with `cfg`
+    in memory and `njobs` decode workers (0: the prefetch thread); returns
+    (trainer, seconds, state snapshot on the host)."""
+    from speechclip_plus_tpu_torch.run_task import main as run_task
+
+    t0 = time.perf_counter()
+    trainer = run_task(["TrainKWClip_GeneralTransformer", "--train", "--device", "cuda",
+                        "--dataset_root", tree, "--save_path", save_path, "--seed", "0",
+                        "--njobs", str(njobs), "--log_level", "WARNING", *argv], config=cfg)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    snap = ({k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+            {i: {k: v.detach().cpu().clone() for k, v in st.items()}
+             for i, st in trainer.optimizer.adam.state_dict()["state"].items()})
+    print(f"[fit] {label} ({njobs} decode workers): {trainer.state.step} micro-steps, epoch "
+          f"{trainer.epoch}, in {sec:.1f} s")
+    return trainer, sec, snap
+
+
+def free_cuda(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def state_difference(torch, a, b):
+    """(largest |a - b| over model tensors and Adam state, names of the
+    tensors that differ)."""
+    worst, names = 0.0, []
+    pairs = [(k, a[0][k], b[0][k]) for k in a[0]]
+    pairs += [(f"adam[{i}].{k}", a[1][i][k], b[1][i][k]) for i in a[1] for k in a[1][i]]
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            names.append(name)
+            if x.is_floating_point():
+                worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst, names
+
+
+def make_synthetic_tree(root, sizes):
+    out = subprocess.run(
+        [sys.executable, "scripts/make_synthetic_dataset.py", "--root", root,
+         "--train-images", str(sizes["train"]), "--dev-images", str(sizes["dev"]),
+         "--test-images", str(sizes["test"]), "--caps-per-image", str(sizes["caps"])],
+        capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, f"synthetic dataset: {out.stderr[-2000:]}")
+    return out.stdout.strip()
+
+
+def phase_fit(torch, bare_ms):
+    """Phase J: the port's training entry point, `run_task
+    TrainKWClip_GeneralTransformer --train`, on a synthetic Flickr-shaped tree
+    written by `scripts/make_synthetic_dataset.py` under a temporary directory:
+    hybrid+ base at full width (bf16, B=128 crops of 102400 samples, dev
+    batches of 64) with the image cache, FIT_EPOCHS epochs with validation,
+    keyword artifacts and checkpoints; then `--resume` from checkpoints/last
+    for FIT_MORE optimizer steps, against an unbroken run over the same steps
+    that reads its batches through the prefetch thread. Returns the launch
+    counts of the three runs."""
+    import shutil
+    import tempfile
+
+    from speechclip_plus_tpu_torch.config import load_config
+    from speechclip_plus_tpu_torch.tasks import trainer as trainer_module
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        tree = os.path.join(tmp, "flickr")
+        t0 = time.perf_counter()
+        made = make_synthetic_tree(tree, FIT_TREE)
+        print(f"[fit] {made} in {time.perf_counter() - t0:.1f} s")
+
+        def cfg_for(max_steps, artifacts):
+            cfg = load_config(FIT_CONFIG)  # the YAML stays as it is; overrides in memory
+            cfg.trainer.max_steps = max_steps
+            cfg.trainer.log_every_n_steps = 2
+            cfg.log_setting.log_detokenize_results = artifacts
+            cfg.log_setting.log_detokenize_results_every_n_epoch = FIT_EPOCHS
+            cfg.log_setting.log_draw_pca_every_n_epoch = FIT_EPOCHS
+            return cfg
+
+        base = load_config(FIT_CONFIG)
+        batch, dev_batch = int(base.data.batch_size), int(base.data.dev_batch_size)
+        per_epoch = FIT_TREE["train"] * FIT_TREE["caps"] // batch
+        dev_batches = -(-FIT_TREE["dev"] * FIT_TREE["caps"] // dev_batch)
+        cache_batches = -(-FIT_TREE["train"] // 64) + -(-FIT_TREE["dev"] // 64)
+        first_leg = FIT_EPOCHS * per_epoch
+        total = first_leg + FIT_MORE
+
+        restored = {}
+        resume = trainer_module.Trainer.resume
+
+        def recording_resume(self, path):
+            resume(self, path)
+            restored.update(step=self.state.step, epoch=self.epoch, skip=self._skip_batches)
+
+        trainer_module.Trainer.resume = recording_resume
+        reset_counts()
+        try:
+            stop_dir, resumed_dir, whole_dir = (os.path.join(tmp, d)
+                                                for d in ("stop", "resumed", "unbroken"))
+            first, first_s, _ = fit_run(torch, f"first leg, {first_leg} steps", cfg_for(
+                first_leg, True), stop_dir, tree)
+            timings = first.timings
+            del first
+            free_cuda(torch)
+            second, _, resumed = fit_run(
+                torch, f"--resume from checkpoints/last to {total} steps",
+                cfg_for(total, False), resumed_dir, tree,
+                ("--resume", os.path.join(stop_dir, "checkpoints", "last")))
+            validations = len(second.timings["validate_s"])
+            del second
+            free_cuda(torch)
+            # the unbroken run reads its batches through the prefetch thread:
+            # the batches do not depend on the worker count
+            whole, _, unbroken = fit_run(torch, f"unbroken run of {total} steps",
+                                         cfg_for(total, False), whole_dir, tree, njobs=0)
+            validations += len(whole.timings["validate_s"]) + len(timings["validate_s"])
+            thread_timings = whole.timings
+            del whole
+            free_cuda(torch)
+        finally:
+            trainer_module.Trainer.resume = resume
+        step_plan, eval_plan, cache_plan = fit_plans()
+        expect = {}
+        add_counts(expect, step_plan, first_leg + FIT_MORE + total)
+        add_counts(expect, eval_plan, validations * dev_batches)
+        add_counts(expect, cache_plan, 3 * cache_batches)
+        counts = read_counts(torch, "J fit (three runs)", expect)
+
+        # what the first leg left, and what the resumed run restored
+        ck = os.path.join(stop_dir, "checkpoints")
+        for name in ("last", "val_loss", "val_recall_mean_10"):
+            kept = [d for d in os.listdir(os.path.join(ck, name)) if d.isdigit()]
+            require(kept, f"fit: checkpoints/{name} holds no step")
+        with open(os.path.join(ck, "fit_state.json")) as f:
+            fit_state = json.load(f)
+        require(fit_state == {"epoch": FIT_EPOCHS, "opt_step": first_leg, "batches_done": 0},
+                f"fit: fit_state.json {fit_state}")
+        require(restored == {"step": first_leg, "epoch": FIT_EPOCHS, "skip": 0},
+                f"fit: restored {restored}, expected step {first_leg} epoch {FIT_EPOCHS}")
+        for run in (resumed_dir, whole_dir, stop_dir):
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            bad = [(k, v) for r in rows for k, v in r.items()
+                   if isinstance(v, float) and not np.isfinite(v)]
+            require(rows and not bad, f"fit: {run}: non-finite metrics {bad[:5]}")
+        train_rows = [r for r in rows if "train_loss" in r]
+        val_rows = [r for r in rows if "val_loss" in r]
+        require(len(val_rows) == FIT_EPOCHS + 1 and all("val_recall_mean_10" in r for r in val_rows),
+                f"fit: {len(val_rows)} validations logged")
+        artifacts = sorted(os.listdir(os.path.join(stop_dir, "retokenizeText")))
+        require(artifacts == [f"keywords_ep{FIT_EPOCHS}.json"], f"fit: artifacts {artifacts}")
+
+        # the loop's own clock, two ways: the median of the Trainer's
+        # steps_per_sec windows after the first step (which holds the loader's
+        # start and the first launches), which drops the windows that hold an
+        # epoch's restart; and the whole: every step over the Trainer's passes
+        # over the loader, each from the loader's start to the end of its last
+        # step on the card, so the restarts are in it and validation and
+        # saves are not
+        print(card_line())
+        for what, path, t in (("4 decode workers (first leg)", stop_dir, timings),
+                              ("the prefetch thread (unbroken run)", whole_dir, thread_timings)):
+            with open(os.path.join(path, "metrics.jsonl")) as f:
+                rates = [r["steps_per_sec"] for r in map(json.loads, f)
+                         if "steps_per_sec" in r and r["micro_step"] > 1]
+            median_ms = 1e3 / float(np.median(rates))
+            wait = np.array(t["loader_wait_s"]) * 1e3
+            whole_ms = 1e3 * sum(t["train_s"]) / len(wait)
+            print(f"[fit] loop with {what}, B={batch}: median window {median_ms:.2f} ms/step, "
+                  f"{batch * 1e3 / median_ms:.1f} pairs/s ({len(rates)} steps_per_sec windows of "
+                  f"2 steps), {median_ms / bare_ms:.2f}x the bare step; whole {whole_ms:.2f} "
+                  f"ms/step, {batch * 1e3 / whole_ms:.1f} pairs/s ({len(wait)} steps in "
+                  f"{sum(t['train_s']):.2f} s of {len(t['train_s'])} passes over the loader), "
+                  f"{whole_ms / bare_ms:.2f}x the bare step; bare step of phase 6 in this run "
+                  f"{bare_ms:.2f} ms/step")
+            print(f"[fit] loader wait per step (next batch + copy to the card) with {what}: "
+                  f"median {np.median(wait):.2f} ms, mean {wait.mean():.2f}, max {wait.max():.2f} "
+                  f"over {len(wait)} steps")
+        print(f"[fit] first leg {first_s:.1f} s: image cache "
+              f"{', '.join(f'{t:.2f}' for t in timings['image_cache_s'])} s "
+              f"(train, dev: {cache_batches} ViT batches of 64); validation "
+              f"{', '.join(f'{t:.2f}' for t in timings['validate_s'])} s ({dev_batches} "
+              f"batches of {dev_batch}; keyword artifacts "
+              f"{', '.join(f'{t:.2f}' for t in timings['artifacts_s'])} s of them); checkpoint "
+              f"save {', '.join(f'{t:.2f}' for t in timings['save_s'])} s")
+        print(f"[fit] losses: train {train_rows[0]['train_loss']:.4f} -> "
+              f"{train_rows[-1]['train_loss']:.4f}; val_loss "
+              + ", ".join(f"{r['val_loss']:.4f}" for r in val_rows) + "; val_recall_mean_10 "
+              + ", ".join(f"{r['val_recall_mean_10']:.2f}" for r in val_rows))
+        worst, names = state_difference(torch, resumed, unbroken)
+        print(f"[fit] resumed vs unbroken after {total} steps: "
+              + ("bit-identical (model state_dict and Adam state)" if not names else
+                 f"{len(names)} tensors differ, max |diff| {worst:.3e}: {names[:8]}"))
+        require(not names, "fit: the resumed run differs from the unbroken run")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def profile_cell(torch, label, fn, n=3):
     """Device time by kernel over n calls of fn (torch.profiler), and the
     device's busy share of the profiled wall time: the union of the kernels'
@@ -1967,7 +2205,7 @@ def phase_families(torch):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "families", "profile"),
+    ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit"),
                     default="all")
     args = ap.parse_args()
     import torch
@@ -1994,6 +2232,10 @@ def main() -> int:
         if args.phase == "families":
             phase_families(torch)
             return 0
+        if args.phase == "fit":
+            _, ms = phase_train(torch, "HuBERT (K1 route)", CONFIG, cells=("cached",))
+            phase_fit(torch, ms["cached"])
+            return 0
         rows = phase_kernels(torch)
         if args.phase == "all":
             by_path, ms = {}, {}
@@ -2002,6 +2244,7 @@ def main() -> int:
             by_path["train"], ms["hubert"] = phase_train(torch, hubert, CONFIG)
             phase_parity(torch, hubert, CONFIG)
             phase_train_parity(torch, hubert, CONFIG)
+            by_path["fit"] = phase_fit(torch, ms["hubert"]["cached"])
             by_path["A_serve"] = phase_model(torch, wavlm, WAVLM_CONFIG, wires=(False,),
                                              n_img=256, stream=False)
             by_path["A_train"], ms["wavlm"] = phase_train(torch, wavlm, WAVLM_CONFIG,
