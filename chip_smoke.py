@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py                  # every phase (needs one H100)
     python3 chip_smoke.py --phase kernels  # build + kernel-vs-plain checks only
-    python3 chip_smoke.py --phase families # paths E-I only (no kernels line)
+    python3 chip_smoke.py --phase families # paths E-I and L only (no kernels line)
     python3 chip_smoke.py --phase profile  # device time by kernel: serving
                                            # cells and 5 training cells
-    python3 chip_smoke.py --phase fit      # phase 6 (cached) and phase J only
+    python3 chip_smoke.py --phase fit      # phase 6 (cached), phase J and path K only
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -57,6 +57,18 @@ Phases, each fatal on failure:
      steps over the Trainer's passes over the loader, which hold each
      epoch's loader restart and no validation or save) beside phase 6's bare
      step, the loader wait per step and the cache, validation and save times;
+  K. the inference and evaluation entry points, inside J on the directory its
+     first leg saved: `api.load_from_checkpoint` of `last` (bit for bit
+     against the Trainer's final model, and its `encode_speech` at B=8 against
+     that model's) and of the best `val_recall_mean_10` step (against its
+     file); `feature_extractor_s3prl` at B=8 (timed) and B=8, 64 (peak
+     memory); `extract_keywords` at B=8 (full CLIP ids); `search_text` at B =
+     1, 8, 64 over a 256-image index with config/dev/merges.txt, against a
+     plain ranking; a Lightning `.ckpt` written from the same model under the
+     reference's names (fairseq, OpenAI CLIP, avssl; the config pickled as
+     `OrderedNamespace`), loaded back (every tensor bit for bit, pos_conv to
+     1e-6 relative), and `run_task --test --ckpt` on J's tree; launch counts
+     equal to the plan, K1 and K3 held at the recorded shapes;
   A. hybrid+ with the WavLM-Base+ tower (hybrid_plus_wavlm.yaml; K1 in its
      gate mode in every tower layer): serving at B = 1, 8, 64 for both
      feature sources, the training phase with cached image features, and the
@@ -81,7 +93,10 @@ Phases, each fatal on failure:
      weights with the knob off: cascaded features (rms(diff)/rms <= 5e-2,
      path C's tolerance for two routes of a bf16 tower) and the first step's loss,
      ms/step and peak memory of both and of `clip.text_remat` full and attn
-     with the knob off; fp32 card-vs-CPU parity with the knob on.
+     with the knob off; fp32 card-vs-CPU parity with the knob on;
+  L. hybrid+ with the data2vec-audio base tower (hybrid_plus_data2vec.yaml)
+     through the family path (319 frames for 102400 samples), and its fp32
+     card-vs-CPU parity of serving and of one training step.
 Phase 2 also holds the pieces those paths add against their twins: K2 with
 the causal bias at the text shape (128, 77, 512, H=8) and K1 context-only
 there, K1 and K2 at (128, 328, 768) with one head (p=0.1 and 0), each against
@@ -113,6 +128,7 @@ import numpy as np
 
 CONFIG = "config/speechclip_plus/base/hybrid_plus.yaml"
 WAVLM_CONFIG = "config/speechclip_plus/base/hybrid_plus_wavlm.yaml"
+DATA2VEC_CONFIG = "config/speechclip_plus/base/hybrid_plus_data2vec.yaml"  # path L
 FAMILY_CONFIGS = {  # paths E-H
     "E cascaded": "config/speechclip_plus/base/cascaded.yaml",
     "F parallel": "config/speechclip_plus/base/parallel.yaml",
@@ -1312,10 +1328,14 @@ def phase_family(torch, label, config):
     _, model, mc = built
     torch.cuda.synchronize()
     src = mc.retrieval_audio_feat_src
+    with torch.no_grad():  # the frontend alone: no kernel of the port
+        frames = model.audio_encoder.feature_extractor(
+            torch.zeros(1, TRAIN_WAV, device="cuda")).shape[1]
     print(f"[build] path {label}: {mc.branch_type or 'ParallelBranch'} bf16 on cuda:0 in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters); "
-          f"retrieval.audio_feat_src {src}")
+          f"retrieval.audio_feat_src {src}; {frames} frames for {TRAIN_WAV} samples")
+    require(frames == 319, f"{label}: {frames} frames for {TRAIN_WAV} samples, not 319")
     sc = SpeechCLIP(model, "cuda")
     seen, hooks = record_shapes(torch, model)
     query, full, _ = family_plans(mc)
@@ -1945,6 +1965,7 @@ def phase_fit(torch, bare_ms):
     import shutil
     import tempfile
 
+    from speechclip_plus_tpu_torch.api import SpeechCLIP
     from speechclip_plus_tpu_torch.config import load_config
     from speechclip_plus_tpu_torch.tasks import trainer as trainer_module
 
@@ -1984,9 +2005,15 @@ def phase_fit(torch, bare_ms):
         try:
             stop_dir, resumed_dir, whole_dir = (os.path.join(tmp, d)
                                                 for d in ("stop", "resumed", "unbroken"))
-            first, first_s, _ = fit_run(torch, f"first leg, {first_leg} steps", cfg_for(
-                first_leg, True), stop_dir, tree)
+            first, first_s, first_state = fit_run(torch, f"first leg, {first_leg} steps",
+                                                  cfg_for(first_leg, True), stop_dir, tree)
             timings = first.timings
+            # path K's reference: the first leg's final model on a B=8 ragged
+            # batch (one encode_speech, in J's plan)
+            k_wavs = ragged_wavs(np.random.RandomState(11), 8, False)
+            k_reference = {key: value.detach().cpu().clone() for key, value in
+                           SpeechCLIP(first.model, "cuda").encode_speech(k_wavs).items()
+                           if key in ("parallel_audio_feat", "cascaded_audio_feat")}
             del first
             free_cuda(torch)
             second, _, resumed = fit_run(
@@ -2011,6 +2038,7 @@ def phase_fit(torch, bare_ms):
         add_counts(expect, step_plan, first_leg + FIT_MORE + total)
         add_counts(expect, eval_plan, validations * dev_batches)
         add_counts(expect, cache_plan, 3 * cache_batches)
+        add_counts(expect, speech_query_plan("k1", True))  # path K's reference
         counts = read_counts(torch, "J fit (three runs)", expect)
 
         # what the first leg left, and what the resumed run restored
@@ -2079,9 +2107,296 @@ def phase_fit(torch, bare_ms):
               + ("bit-identical (model state_dict and Adam state)" if not names else
                  f"{len(names)} tensors differ, max |diff| {worst:.3e}: {names[:8]}"))
         require(not names, "fit: the resumed run differs from the unbroken run")
-        return counts
+        k_counts = phase_inference(torch, ck, tree, tmp, first_state[0], k_wavs, k_reference)
+        return counts, k_counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ path K ----
+
+class OrderedNamespace:
+    """Stands in for the reference's config class in the Lightning checkpoint
+    path K writes: pickled under this name, which the port's importer
+    unpickles through its shim."""
+
+    def __init__(self, d):
+        for key, value in d.items():
+            setattr(self, key, OrderedNamespace(value) if isinstance(value, dict) else value)
+
+
+def reference_state_dict(torch, state):
+    """A hybrid+ port `state_dict` under the reference's names, fp32 on the
+    host: fairseq HuBERT under `audio_encoder.encoder.` (q, k and v split out
+    of the packed projection, the pos_conv weight as weight_norm's `weight_g`
+    and `weight_v`), OpenAI CLIP under `clip.model.` (packed qkv, the reduced
+    token table as it is), and avssl's branch names."""
+    import re
+
+    out = {}
+    for name, t in state.items():
+        t = t.detach().float().cpu()
+        root, _, rest = name.partition(".")
+        if name == "weightedsum":
+            out["audio_encoder.weightedsum_layer.weights"] = t
+        elif name == "criterion_log_inv_temp":
+            out["criterion.temperature"] = t
+        elif root == "audio_encoder":
+            p = "audio_encoder.encoder."
+            qkv = re.fullmatch(r"layers\.(\d+)\.self_attn\.in_proj_(weight|bias)", rest)
+            if qkv:
+                for n, part in zip("qkv", t.chunk(3)):
+                    out[f"{p}encoder.layers.{qkv[1]}.self_attn.{n}_proj.{qkv[2]}"] = part.clone()
+            elif rest == "pos_conv.conv.weight":
+                out[f"{p}encoder.pos_conv.0.weight_g"] = t.norm(dim=(0, 1), keepdim=True)
+                out[f"{p}encoder.pos_conv.0.weight_v"] = t
+            else:
+                for pattern, repl in (
+                        (r"feature_extractor\.conv_layers\.(\d+)\.", r"feature_extractor.conv_layers.\1.0."),
+                        (r"feature_extractor\.gn\.", "feature_extractor.conv_layers.0.2."),
+                        (r"pos_conv\.conv\.", "encoder.pos_conv.0."),
+                        (r"encoder_layer_norm\.", "encoder.layer_norm."),
+                        (r"layers\.", "encoder.layers.")):
+                    rest, n = re.subn("^" + pattern, repl, rest)
+                    if n:
+                        break
+                out[p + rest] = t
+        elif root == "clip":
+            rest = re.sub(r"transformer\.blocks\.(\d+)\.(c_fc|c_proj)", r"transformer.resblocks.\1.mlp.\2",
+                          rest).replace("transformer.blocks.", "transformer.resblocks.")
+            out["clip.model." + rest.removeprefix("text.")] = t
+        elif root == "cascaded_branch":
+            for pattern, repl in (("downsampling.conv.", "downsampling.conv.0."),
+                                  ("downsampling.weight_proj.", "downsampling.weight_proj.1."),
+                                  ("head.linear_proj.", "linear_proj."),
+                                  ("head.bn_layer.", "bn_layer.bn_layer.")):
+                if rest.startswith(pattern):
+                    rest = repl + rest[len(pattern):]
+            out[f"{root}.{rest}"] = t
+        else:
+            raise SmokeFailure(f"reference writer: no reference name for {name}")
+    out["cascaded_branch.bn_layer.bn_layer.num_batches_tracked"] = torch.tensor(1)
+    return out
+
+
+def seconds_median(torch, fn, n=5):
+    """(median seconds over n calls, last result), each call timed with
+    `utils.profiling.StepTimer`, which synchronizes the card."""
+    from speechclip_plus_tpu_torch.utils import StepTimer
+
+    times, out = [], None
+    for _ in range(n):
+        timer = StepTimer(1)
+        timer.tick()
+        out = fn()
+        timer.tick(sync_on=torch.zeros(1, device="cuda"))
+        times.append(1.0 / timer.steps_per_sec)
+    return float(np.median(times)), out
+
+
+def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
+    """Path K: the inference and evaluation entry points on the directory that
+    phase J's first leg saved (`ck`, hybrid+ base bf16): `load_from_checkpoint`
+    of `last` and of the best `val_recall_mean_10` step, `encode_speech`,
+    `feature_extractor_s3prl`, `extract_keywords`, `search_text` over a
+    256-image index; then a full-width Lightning `.ckpt` written from the same
+    model under the reference's names, loaded back, and `run_task --test
+    --ckpt` on phase J's tree. Returns the launch counts."""
+    from speechclip_plus_tpu_torch.api import load_from_checkpoint
+    from speechclip_plus_tpu_torch.checkpoint import CheckpointManager
+    from speechclip_plus_tpu_torch.data.tokenizer import SimpleTokenizer
+    from speechclip_plus_tpu_torch.run_task import main as run_task
+    from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
+    from speechclip_plus_tpu_torch.tasks import base_task
+
+    full = speech_query_plan("k1", True)  # encode_speech / extract_keywords: 13 K1, 1 K3
+    tower_branch = k1_plan(12, 1)  # feature_extractor_s3prl: the tower and the branch
+    label = "path K inference"
+    reset_counts()
+    expect, shape_sets, hooks = {}, [], []
+
+    def differing(model, want, skip=()):
+        got = model.state_dict()
+        require(got.keys() == want.keys(), f"{label}: state_dict keys differ")
+        return [n for n in got if n not in skip and not torch.equal(got[n].cpu(), want[n].cpu())]
+
+    def record(model):  # the shapes at which `model` calls K1 context-only and K3
+        shapes, h = record_shapes(torch, model)
+        shape_sets.append(shapes)
+        hooks.extend(h)
+
+    load_s, sc = seconds_median(torch, lambda: load_from_checkpoint(ck))
+    bad = differing(sc.model, final_state)
+    require(not bad, f"{label}: load_from_checkpoint(last) differs from the trainer: {bad[:5]}")
+    record(sc.model)
+    out = sc.encode_speech(wavs8)
+    add_counts(expect, full)
+    for key, want in reference.items():
+        require(torch.equal(out[key].cpu(), want), f"{label}: encode_speech {key} differs from "
+                "the trainer's model")
+    best = CheckpointManager(ck).best_step("val_recall_mean_10")
+    saved = torch.load(os.path.join(ck, "val_recall_mean_10", str(best), "state.pt"),
+                       map_location="cpu", weights_only=True)["model"]
+    monitor_s, by_monitor = seconds_median(
+        torch, lambda: load_from_checkpoint(ck, monitor="val_recall_mean_10"), n=1)
+    bad = differing(by_monitor.model, saved)
+    require(not bad, f"{label}: the monitor's step {best} differs from its file: {bad[:5]}")
+    del by_monitor, saved
+    free_cuda(torch)
+    print(f"[K] load_from_checkpoint({ck}): last (step of fit_state.json) in {load_s:.2f} s "
+          f"(median of 5), val_recall_mean_10's best step {best} in {monitor_s:.2f} s: both the "
+          f"saved state_dict bit for bit; encode_speech B=8 equals the trainer's model bit for bit")
+
+    # where the directory route's time goes, step by step as load_from_checkpoint
+    # takes it: the seeded build on the host, reading the file, filling the
+    # model, moving it to the card (the first three median of 3, the move once)
+    from speechclip_plus_tpu_torch.config import ConfigNode
+    from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
+
+    node = ConfigNode(CheckpointManager.load_config(ck))
+    state_pt = os.path.join(ck, "last", str(CheckpointManager(ck).latest_step()), "state.pt")
+    build_s, (host_model, _, _) = seconds_median(
+        torch, lambda: build_model_from_config(node, device="cpu"), n=3)
+    read_s, payload = seconds_median(
+        torch, lambda: torch.load(state_pt, map_location="cpu", weights_only=True), n=3)
+    fill_s, _ = seconds_median(torch, lambda: host_model.load_state_dict(payload["model"]), n=3)
+    move_s, _ = seconds_median(torch, lambda: host_model.to("cuda"), n=1)
+    del host_model, payload
+    free_cuda(torch)
+    print(f"[K] load_from_checkpoint(last), its steps: build with the seeded init on the host "
+          f"{build_s:.3f} s, torch.load {read_s:.3f} s, load_state_dict {fill_s:.3f} s (median "
+          f"of 3 each), to the card {move_s:.3f} s (once); sum "
+          f"{build_s + read_s + fill_s + move_s:.3f} s against {load_s:.3f} s for the whole call")
+
+    # feature_extractor_s3prl: the (L+1)-deep stack is built only here
+    def fe8():
+        return sc.feature_extractor_s3prl(wavs8)
+    fe_ms = median_ms(torch, fe8, runs=5, warmup=1)
+    add_counts(expect, tower_branch, 6)
+    peak = {}
+    for b, wavs in ((8, wavs8), (64, ragged_wavs(np.random.RandomState(12), 64, False))):
+        free_cuda(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        last, hidden = sc.feature_extractor_s3prl(wavs)
+        torch.cuda.synchronize()
+        peak[b] = ((torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+                   torch.cuda.max_memory_allocated() / 2 ** 30)
+        add_counts(expect, tower_branch)
+        require(len(hidden) == 14 and tuple(last.shape) == (b, 319, 768)
+                and all(tuple(h.shape) == (b, 319, 768) for h in hidden)
+                and bool(torch.isfinite(last.float()).all()),
+                f"{label}: feature_extractor_s3prl B={b}: {len(hidden)} states, {tuple(last.shape)}")
+        del last, hidden
+    free_cuda(torch)
+
+    def kw8():
+        return sc.extract_keywords(wavs8)
+    kw_ms = median_ms(torch, kw8, runs=5, warmup=1)
+    add_counts(expect, full, 6)
+    kw = kw8()
+    add_counts(expect, full)
+    original = kw["vq_results"]["targets_original"]
+    slots = kw["dsample_results"]["dsample_feats_length"].cpu().numpy()
+    require(original.shape[0] == 8 and np.isin(original, sc.vocab.selected_ids).all()
+            and original.max() < 49408 and (slots >= 1).all(),
+            f"{label}: extract_keywords targets_original {original.shape}")
+    print(f"[K] feature_extractor_s3prl B=8: {fe_ms:.2f} ms (median of 5, CUDA events), 14 "
+          f"states of (B, 319, 768) (13 tower + the branch's); peak above the resident model "
+          f"B=8 {peak[8][0]:.1f} MiB ({peak[8][1]:.2f} GiB allocated), B=64 {peak[64][0]:.1f} "
+          f"MiB ({peak[64][1]:.2f} GiB); extract_keywords B=8: {kw_ms:.2f} ms, targets_original "
+          f"{original.shape} in the full CLIP vocabulary, {slots.tolist()} slots")
+
+    # search_text with the dev merges, against a plain ranking
+    sc.tokenizer = SimpleTokenizer("config/dev/merges.txt")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.randn(256, 224, 224, 3, generator=gen, device="cuda")
+    index = build_image_index(sc, images, np.arange(256) + 5000, batch_size=256)
+    add_counts(expect, k1_plan(12))
+    del images
+    retriever = SpeechRetriever(sc, index)
+    words = ["the", "cat", "runs", "at", "a", "dog", "in"]
+    rng = np.random.RandomState(13)
+    text_ms = {}
+    for b in (1, 8, 64):
+        texts = [" ".join(rng.choice(words, size=rng.randint(2, 9))) for _ in range(b)]
+        ids, scores = retriever.search_text(texts, k=10)
+        with torch.inference_mode():
+            tok = retriever._text_processor.prep_text(texts, context_length=77)
+            feat = sc.model.clip.encode_text(torch.from_numpy(np.asarray(tok, np.int64)).cuda())
+            plain = (feat.float() / feat.float().norm(dim=-1, keepdim=True).clamp_min(1e-8)
+                     ) @ index.feats.T
+            want_scores, want_idx = torch.sort(plain, dim=-1, descending=True)
+        require((ids == index.ids[want_idx[:, :10].cpu().numpy()]).all()
+                and np.array_equal(scores, want_scores[:, :10].cpu().numpy()),
+                f"{label}: search_text B={b} differs from the plain ranking")
+        check_search(ids, scores, b, 10, index.ids, f"{label} search_text B={b}")
+        text_ms[b] = median_ms(torch, lambda: retriever.search_text(texts, k=10), runs=5,
+                               warmup=1)
+    print(f"[K] search_text over 256 images (config/dev/merges.txt): ids and scores equal to "
+          f"encode_text -> L2 -> product -> sort; " + ", ".join(
+              f"B={b} {ms:.2f} ms" for b, ms in text_ms.items()) + " (median of 5)")
+    for h in hooks:
+        h.remove()
+    hooks = []
+    del sc, index, retriever
+    free_cuda(torch)
+
+    # a Lightning .ckpt at full width, from the same model under reference names
+    path = os.path.join(tmp, "hybrid_plus_base.ckpt")
+    config = CheckpointManager.load_config(ck)
+    t0 = time.perf_counter()
+    torch.save({"state_dict": reference_state_dict(torch, final_state),
+                "hyper_parameters": {"config": OrderedNamespace(config)},
+                "epoch": FIT_EPOCHS, "global_step": 0}, path)
+    write_s = time.perf_counter() - t0
+    ckpt_s, from_ckpt = seconds_median(torch, lambda: load_from_checkpoint(path))
+    pos = "audio_encoder.pos_conv.conv.weight"
+    bad = differing(from_ckpt.model, final_state, skip=(pos,))
+    a, b = from_ckpt.model.state_dict()[pos].float().cpu(), final_state[pos].float().cpu()
+    pos_rel = ((a - b).abs().max() / b.abs().max()).item()
+    require(not bad, f"{label}: tensors of the .ckpt differ: {bad[:5]}")
+    require(pos_rel <= 1e-6, f"{label}: pos_conv after the weight-norm round trip: {pos_rel}")
+    require(from_ckpt.tokenizer is None and from_ckpt.vocab is not None,
+            f"{label}: the .ckpt's config (bpe_path null, the reduced vocabulary)")
+    del from_ckpt
+    free_cuda(torch)
+    print(f"[K] Lightning .ckpt ({os.path.getsize(path) / 2 ** 20:.0f} MiB, written in "
+          f"{write_s:.1f} s): load_from_checkpoint in {ckpt_s:.2f} s (median of 5); every "
+          f"tensor equal to the trainer's bit for bit but pos_conv, within {pos_rel:.1e} "
+          f"relative (the weight-norm round trip)")
+
+    # run_task --test --ckpt on phase J's tree; its model's shapes recorded too
+    build_model = base_task.build_model_from_config
+
+    def recording_build(*args, **kwargs):
+        built = build_model(*args, **kwargs)
+        record(built[0])
+        return built
+
+    base_task.build_model_from_config = recording_build
+    try:
+        t0 = time.perf_counter()
+        trainer = run_task(["TrainKWClip_GeneralTransformer", "--test", "--device", "cuda",
+                            "--ckpt", path, "--dataset_root", tree,
+                            "--save_path", os.path.join(tmp, "test_from_ckpt"), "--njobs", "0",
+                            "--log_level", "WARNING"])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+    finally:
+        base_task.build_model_from_config = build_model
+    for h in hooks:
+        h.remove()
+    test_caps = FIT_TREE["test"] * FIT_TREE["caps"]
+    add_counts(expect, k1_plan(12), -(-FIT_TREE["test"] // 64))  # the test split's images
+    add_counts(expect, full, -(-test_caps // int(trainer.cfg.data.dev_batch_size)))
+    del trainer
+    free_cuda(torch)
+    print(f"[K] run_task --test --ckpt {os.path.basename(path)} on the synthetic test split "
+          f"({test_caps} captions): {test_s:.1f} s")
+    counts = read_counts(torch, label, expect)
+    check_path_shapes(torch, label, set().union(*shape_sets))
+    return counts
 
 
 def profile_cell(torch, label, fn, n=3):
@@ -2182,12 +2497,15 @@ def phase_profile(torch):
 
 
 def phase_families(torch):
-    """Paths E-I with their parity phases; returns the launch counts by path."""
+    """Paths E-I and L with their parity phases; returns the launch counts by
+    path."""
     by_path, ms = {}, {}
-    for label, config in FAMILY_CONFIGS.items():
+    for label, config in {**FAMILY_CONFIGS, "L data2vec hybrid+": DATA2VEC_CONFIG}.items():
         counts, ms[label] = phase_family(torch, label, config)
         by_path[f"{label[0]}_serve"], by_path[f"{label[0]}_train"] = (
             counts["serve"], counts["train"])
+    phase_parity(torch, "path L data2vec hybrid+", DATA2VEC_CONFIG)
+    phase_train_parity(torch, "path L data2vec hybrid+", DATA2VEC_CONFIG)
     cascaded = FAMILY_CONFIGS["E cascaded"]
     phase_parity(torch, "path E cascaded", cascaded)
     phase_train_parity(torch, "path E cascaded", cascaded, batch_size=4,
@@ -2234,7 +2552,7 @@ def main() -> int:
             return 0
         if args.phase == "fit":
             _, ms = phase_train(torch, "HuBERT (K1 route)", CONFIG, cells=("cached",))
-            phase_fit(torch, ms["cached"])
+            phase_fit(torch, ms["cached"])  # J, then K
             return 0
         rows = phase_kernels(torch)
         if args.phase == "all":
@@ -2244,7 +2562,7 @@ def main() -> int:
             by_path["train"], ms["hubert"] = phase_train(torch, hubert, CONFIG)
             phase_parity(torch, hubert, CONFIG)
             phase_train_parity(torch, hubert, CONFIG)
-            by_path["fit"] = phase_fit(torch, ms["hubert"]["cached"])
+            by_path["fit"], by_path["K"] = phase_fit(torch, ms["hubert"]["cached"])
             by_path["A_serve"] = phase_model(torch, wavlm, WAVLM_CONFIG, wires=(False,),
                                              n_img=256, stream=False)
             by_path["A_train"], ms["wavlm"] = phase_train(torch, wavlm, WAVLM_CONFIG,

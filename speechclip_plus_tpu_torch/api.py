@@ -1,20 +1,31 @@
 """High-level library API (port of ``speechclip_plus_tpu/api.py``).
 
+The reference's library usage (`example.py:10-33`):
+
+    model = load_from_checkpoint(path)
+    feat, hidden_states = model.feature_extractor_s3prl(wav=[...])
+    out = model.encode_speech(wav=[...])
+
 `SpeechCLIP(model, device)` wraps a KWClip model for inference on ragged
 host-side waveform lists: they are padded to the same length buckets as the
 JAX package (`_BUCKETS`), int16 PCM stays int16 on the host (half the
-transfer bytes) and is scaled by 1/32768 on the device.
+transfer bytes) and is scaled by 1/32768 on the device. `load_from_checkpoint`
+builds one from a directory the Trainer saved (`<save_path>/checkpoints`, the
+config inside) or from a reference PyTorch-Lightning `.ckpt`; both run on the
+card unless the caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .config import ConfigNode, load_config
 from .models.kwclip import KWClip, KWClipConfig
 
-__all__ = ["SpeechCLIP"]
+__all__ = ["SpeechCLIP", "load_from_checkpoint"]
 
 _BUCKETS = (16000, 32000, 48000, 64000, 80000, 102400, 160000, 240000)
 _PCM16_SCALE = 1.0 / 32768.0
@@ -41,11 +52,15 @@ def _pad_wavs(wavs: Sequence[np.ndarray], buckets=_BUCKETS) -> Tuple[np.ndarray,
 
 
 class SpeechCLIP:
-    """Inference wrapper: a KWClip model (eval mode) on `device`."""
+    """Inference wrapper: a KWClip model (eval mode) on `device`, with the BPE
+    tokenizer and the reduced vocabulary when the model has them (text
+    queries, keyword ids in the full CLIP vocabulary)."""
 
-    def __init__(self, model: KWClip, device="cuda"):
+    def __init__(self, model: KWClip, device="cuda", tokenizer=None, vocab=None):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self.tokenizer = tokenizer
+        self.vocab = vocab
 
     @property
     def cfg(self) -> KWClipConfig:
@@ -69,3 +84,64 @@ class SpeechCLIP:
         parallel and cascaded features, VQ results, keywords, CIF results."""
         wav, wav_len, _ = self.to_device(wavs)
         return self.model.encode_speech(wav, wav_len)
+
+    @torch.inference_mode()
+    def feature_extractor_s3prl(self, wavs: Sequence[np.ndarray]
+                                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Reference `feature_extractor_s3prl` (`kwClip.py:965-997`): (the last
+        hidden state, every hidden state: the tower's L+1, then the branch
+        transformer's layers over the frames)."""
+        wav, wav_len, _ = self.to_device(wavs)
+        return self.model.feature_extractor(wav, wav_len)
+
+    def extract_keywords(self, wavs: Sequence[np.ndarray]) -> dict:
+        """Reference `extract_keywords` (`kwClip.py:1093-1103`): the VQ results
+        with `targets_original`, the targets as ids of the full CLIP vocabulary
+        (B, slots), when the model has a reduced vocabulary; and the CIF
+        results."""
+        out = self.encode_speech(wavs)
+        vq = dict(out["vq_results"]) if out.get("vq_results") else None
+        if vq is not None and self.vocab is not None:
+            targets = vq["targets"].reshape(len(wavs), -1).cpu().numpy()
+            vq["targets_original"] = self.vocab.to_original(targets)
+        return {"vq_results": vq, "dsample_results": out.get("dsample_results")}
+
+
+def _tokenizer_for(cfg_node: ConfigNode):
+    """The BPE tokenizer of `data.dataset.bpe_path`, when that file exists."""
+    data = getattr(cfg_node, "data", None)
+    bpe = getattr(getattr(data, "dataset", None), "bpe_path", None)
+    if bpe and os.path.exists(bpe):
+        from .data.tokenizer import SimpleTokenizer
+
+        return SimpleTokenizer(bpe)
+    return None
+
+
+def load_from_checkpoint(path: str, config: Optional[str] = None,
+                         monitor: Optional[str] = None, device="cuda") -> SpeechCLIP:
+    """A SpeechCLIP on `device` from a checkpoint, with no other argument: the
+    config rides inside (reference `base_model.py:10-27`).
+
+    A `*.ckpt` path is a reference PyTorch-Lightning file
+    (`checkpoint.lightning_import`); `config`, a YAML path, is merged over
+    its config. Any other path is a directory the Trainer saved
+    (`<save_path>/checkpoints`): the config it embeds and the model of
+    `CheckpointManager.restore`, the `last` step or `monitor`'s best."""
+    from .checkpoint import CheckpointManager, lightning_to_kwclip, load_lightning_checkpoint
+    from .tasks.builder import build_model_from_config
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_from_checkpoint: no CUDA device (pass device='cpu')")
+    if path.endswith(".ckpt"):
+        sd, cfg_node, _ = load_lightning_checkpoint(path)
+        if config:
+            cfg_node.deep_update(load_config(config))
+        model, _, vocab = build_model_from_config(cfg_node, device="cpu")
+        lightning_to_kwclip(sd, model)
+    else:
+        cfg_node = ConfigNode(CheckpointManager.load_config(path))
+        model, _, vocab = build_model_from_config(cfg_node, device="cpu")
+        CheckpointManager(path).restore(model, monitor=monitor)
+    return SpeechCLIP(model, device, tokenizer=_tokenizer_for(cfg_node), vocab=vocab)

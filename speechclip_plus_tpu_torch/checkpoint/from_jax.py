@@ -12,7 +12,8 @@ compute the same function in the parity tests. The layout rules:
     unstacked here.
   - HuBERT's separate q/k/v projections become the packed `in_proj`.
   - WavLM adds the shared `rel_attn_embed` table and, per scanned layer,
-    `gru_rel_pos_linear` and `gru_rel_pos_const`.
+    `gru_rel_pos_linear` and `gru_rel_pos_const`; data2vec has a LayerNorm
+    `ln_i` after every frontend conv and the stacked `pos_conv/conv_j`.
   - LayerNorm / GroupNorm `scale` is torch's `weight`.
   - The pos-conv kernel is the weight-norm-materialized one the JAX side
     stores (``models/hubert.py:627-680``); it is copied as is.
@@ -117,14 +118,21 @@ class _Filler:
 
 
 def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
-    fe = p["feature_extractor"]
-    for i, conv in enumerate(mod.feature_extractor.conv_layers):
+    fe, extractor = p["feature_extractor"], mod.feature_extractor
+    for i, conv in enumerate(extractor.conv_layers):
         f.conv1d(conv, fe[f"conv_{i}"])
-    f.norm(mod.feature_extractor.gn, fe["gn_0"])
+        if extractor.mode == "layer_norm":
+            f.norm(extractor.layer_norms[i], fe[f"ln_{i}"])
+    if extractor.mode == "group_norm":
+        f.norm(extractor.gn, fe["gn_0"])
     f.norm(mod.layer_norm, p["layer_norm"])
     if mod.post_extract_proj is not None:
         f.linear(mod.post_extract_proj, p["post_extract_proj"])
-    f.conv1d(mod.pos_conv.conv, p["pos_conv"]["conv"])
+    if hasattr(mod.pos_conv, "layers"):  # data2vec: pos_conv/conv_{j}
+        for j, conv in enumerate(mod.pos_conv.layers):
+            f.conv1d(conv, p["pos_conv"][f"conv_{j}"])
+    else:
+        f.conv1d(mod.pos_conv.conv, p["pos_conv"]["conv"])
     f.norm(mod.encoder_layer_norm, p["encoder_layer_norm"])
     if mod.cfg.rel_pos_bias:  # WavLM: the one shared relative-position table
         f.put(mod.rel_attn_embed, p["rel_attn_embed"])

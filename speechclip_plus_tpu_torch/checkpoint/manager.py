@@ -124,11 +124,11 @@ class CheckpointManager:
         steps = self.steps(manager)
         return steps[-1] if steps else None
 
-    def restore(self, model: torch.nn.Module, state, step: Optional[int] = None,
+    def restore(self, model: torch.nn.Module, state=None, step: Optional[int] = None,
                 monitor: Optional[str] = None) -> int:
-        """Load a checkpoint into `model` and `state` in place; returns its
-        step. `monitor` picks the best step under that metric; default the
-        latest."""
+        """Load a checkpoint into `model` and `state` in place (`state` None:
+        the model alone, for inference); returns its step. `monitor` picks the
+        best step under that metric; default the latest."""
         manager = monitor or "last"
         if step is None:
             step = self.best_step(monitor) if monitor else self.latest_step()
@@ -137,6 +137,8 @@ class CheckpointManager:
         payload = torch.load(os.path.join(self._dir(manager), str(step), STATE_FILE),
                              map_location="cpu", weights_only=True)
         model.load_state_dict(payload["model"])
+        if state is None:
+            return step
         state.optimizer.adam.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         state.grad_acc = None

@@ -1,4 +1,4 @@
-"""HuBERT-base and WavLM-base acoustic towers (the fairseq base path).
+"""HuBERT-base, WavLM-base and data2vec-audio-base acoustic towers.
 
 Port of ``speechclip_plus_tpu/models/hubert.py`` (reference
 ``avssl/module/speech_encoder_plus.py:29-107``), forward only (the tower is
@@ -7,6 +7,17 @@ frozen):
   conv frontend (GroupNorm on layer 0 only, exact-erf GELU) -> LayerNorm ->
   post_extract_proj -> zero padded frames -> + weight-normed pos_conv
   (k=128, 16 groups) -> encoder LayerNorm -> 12 post-norm layers.
+
+data2vec-audio base (`HubertConfig.data2vec_base`, JAX ``:195-206``) keeps
+the encoder and changes the two convolution stacks: a LayerNorm over
+channels after every frontend conv (`extractor_mode="layer_norm"`, no conv
+bias, JAX ``:492-575``) and five stacked positional convs (k=19, 16 groups),
+each followed by a LayerNorm without affine over channels and exact-erf GELU
+(`pos_conv_depth=5`, JAX ``:628-680``). Both stacks run channel-first for the
+convolutions and transpose once per layer for the norm. data2vec's
+per-utterance waveform normalization is the dataset's
+(`data.dataset.normalize_waveform`, `data.audio.waveform_layer_norm`): the
+tower does not apply it, as in JAX.
 
 Each layer's attention takes one of four routes, in the JAX layer's order of
 precedence (``:794-910``):
@@ -38,8 +49,8 @@ stack exists. The pos-conv weight norm is materialized to one kernel, as the
 JAX side stores it (``:627-680``): the tower is frozen.
 
 Layouts at the public surface follow JAX: waveforms (B, T), features
-(B, T', D). The large family (HuBERT-Large, `wavlm_large`) and data2vec are
-not ported yet.
+(B, T', D). The large family (HuBERT-Large, `wavlm_large`, `data2vec_large`)
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -67,12 +78,18 @@ class HubertConfig:
         (512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
         (512, 2, 2), (512, 2, 2),
     )
+    # "group_norm": GroupNorm on layer 0 (HuBERT, WavLM); "layer_norm": a
+    # LayerNorm over channels after every conv (data2vec)
+    extractor_mode: str = "group_norm"
     d_model: int = 768
     n_layers: int = 12
     n_heads: int = 12
     ffn_dim: int = 3072
     conv_pos: int = 128
     conv_pos_groups: int = 16
+    # data2vec's stacked positional conv: depth x [conv -> LayerNorm without
+    # affine -> GELU]; 1 = the single fairseq pos_conv
+    pos_conv_depth: int = 1
     # WavLM's gated relative position bias (JAX ``:78-84``)
     rel_pos_bias: bool = False
     rel_buckets: int = 320
@@ -106,17 +123,24 @@ class HubertConfig:
         return HubertConfig(rel_pos_bias=True)
 
     @staticmethod
+    def data2vec_base() -> "HubertConfig":
+        """fairseq data2vec audio base (HF `Data2VecAudioModel`)."""
+        return HubertConfig(extractor_mode="layer_norm", conv_pos=19, pos_conv_depth=5)
+
+    @staticmethod
     def from_upstream_name(name: str) -> "HubertConfig":
         n = name.lower()
-        if "large" not in n and "data2vec" not in n:
+        if "large" not in n:
             if "wavlm" in n:
                 return HubertConfig.wavlm_base()
+            if "data2vec" in n:
+                return HubertConfig.data2vec_base()
             if "hubert" in n or "wav2vec2" in n:
                 return HubertConfig()
         raise NotImplementedError(
-            f"audio_encoder.name={name!r}: the PyTorch port has the HuBERT-base and "
-            "WavLM-base (wavlm_base, wavlm_base_plus) towers (the large family, "
-            "wavlm_large, data2vec and mel upstreams are later slices)")
+            f"audio_encoder.name={name!r}: the PyTorch port has the HuBERT-base, "
+            "WavLM-base (wavlm_base, wavlm_base_plus) and data2vec-audio-base (data2vec) "
+            "towers (the large family and the mel upstreams are later slices)")
 
     @staticmethod
     def tiny(**kw) -> "HubertConfig":
@@ -158,23 +182,51 @@ def relative_position_buckets(t: int, num_buckets: int, max_distance: int) -> to
     return (rel > 0).to(torch.int64) * num + torch.where(ad < max_exact, ad, large)
 
 
+def _channel_layer_norm(x: torch.Tensor, norm: Optional[nn.Module]) -> torch.Tensor:
+    """LayerNorm over the channels of a channel-first (B, C, T) activation,
+    then exact-erf GELU, in x's dtype and layout: one transpose each way.
+    `F.layer_norm` keeps its statistics and affine in fp32 whatever x's dtype
+    and rounds once at the end, as JAX's fp32 norm does, without an fp32 copy
+    of the frontend's largest activation. `norm` None is data2vec's pos-conv
+    norm, without affine."""
+    y = x.transpose(1, 2)
+    if norm is None:
+        y = F.layer_norm(y, y.shape[-1:], eps=1e-5)
+    else:
+        y = F.layer_norm(y, norm.normalized_shape, norm.weight.to(y.dtype),
+                         norm.bias.to(y.dtype), norm.eps)
+    return F.gelu(y).transpose(1, 2)
+
+
 class ConvFeatureExtractor(nn.Module):
-    """Waveform (B, T) -> frames (B, T', C): conv (no bias) -> [GroupNorm(C, C)
-    on layer 0] -> GELU, run channel-first as torch convs want."""
+    """Waveform (B, T) -> frames (B, T', C), run channel-first as torch convs
+    want: conv -> [GroupNorm(C, C) on layer 0] -> GELU (`group_norm` mode), or
+    conv -> LayerNorm over channels -> GELU at every layer (`layer_norm`)."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
+        self.mode = cfg.extractor_mode
+        if self.mode not in ("group_norm", "layer_norm"):
+            raise NotImplementedError(f"extractor_mode {self.mode!r}")
         convs, cin = [], 1
         for ch, k, s in cfg.conv_layers:
             convs.append(nn.Conv1d(cin, ch, k, stride=s, bias=False, dtype=cfg.dtype))
             cin = ch
         self.conv_layers = nn.ModuleList(convs)
-        self.gn = nn.GroupNorm(cfg.conv_layers[0][0], cfg.conv_layers[0][0], dtype=cfg.dtype)
+        if self.mode == "group_norm":
+            ch0 = cfg.conv_layers[0][0]
+            self.gn = nn.GroupNorm(ch0, ch0, dtype=cfg.dtype)
+        else:
+            self.layer_norms = nn.ModuleList(LayerNorm(ch, dtype=cfg.dtype)
+                                             for ch, _, _ in cfg.conv_layers)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        x = wav[:, None, :].to(self.gn.weight.dtype)
+        x = wav[:, None, :].to(self.conv_layers[0].weight.dtype)
         for i, conv in enumerate(self.conv_layers):
             x = conv(x)
+            if self.mode == "layer_norm":
+                x = _channel_layer_norm(x, self.layer_norms[i])
+                continue
             if i == 0:
                 # per-(utterance, channel) statistics over time, in fp32
                 xf = x.float()
@@ -188,19 +240,30 @@ class ConvFeatureExtractor(nn.Module):
 
 
 class PositionalConvEmbedding(nn.Module):
-    """fairseq pos_conv: grouped Conv1d(k, pad k//2) + SamePad + GELU."""
+    """fairseq pos_conv: grouped Conv1d(k, pad k//2) + SamePad + GELU; with
+    `pos_conv_depth` > 1 data2vec's stack of `layers`, each grouped conv ->
+    LayerNorm without affine over channels -> GELU."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         k = cfg.conv_pos
-        self.conv = nn.Conv1d(cfg.d_model, cfg.d_model, k, padding=k // 2,
-                              groups=cfg.conv_pos_groups, dtype=cfg.dtype)
+        conv = lambda: nn.Conv1d(cfg.d_model, cfg.d_model, k, padding=k // 2,
+                                 groups=cfg.conv_pos_groups, dtype=cfg.dtype)
+        if cfg.pos_conv_depth > 1:
+            self.layers = nn.ModuleList(conv() for _ in range(cfg.pos_conv_depth))
+        else:
+            self.conv = conv()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv(x.transpose(1, 2))
-        if self.conv.kernel_size[0] % 2 == 0:
-            out = out[:, :, :-1]
-        return F.gelu(out).transpose(1, 2)
+        x = x.transpose(1, 2)
+        if not hasattr(self, "layers"):
+            out = self.conv(x)
+            if self.conv.kernel_size[0] % 2 == 0:
+                out = out[:, :, :-1]
+            return F.gelu(out).transpose(1, 2)
+        for conv in self.layers:  # k=19: odd, so no SamePad trim
+            x = _channel_layer_norm(conv(x), None)
+        return x.transpose(1, 2)
 
 
 class HubertEncoderLayer(nn.Module):
@@ -304,11 +367,14 @@ class HubertModel(nn.Module):
 
     def forward(self, wav: torch.Tensor, wav_padding_mask: torch.Tensor,
                 layer_weights: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None,
+                return_hidden_states: bool = False) -> dict:
         """wav (B, T), wav_padding_mask (B, T) bool (True = pad), layer_weights
         (L+1,) fp32 softmax weights; `generator` turns the dropouts on.
         Returns the last hidden state `x`, the fp32 `weighted_sum` (B, T', D)
-        and the frame `padding_mask` (B, T'). The hidden states take no
+        and the frame `padding_mask` (B, T'); with `return_hidden_states` also
+        `hidden_states`, the (L+1, B, T', D) stack of the encoder input and
+        every layer's output in the tower's dtype. The hidden states take no
         gradient (frozen tower): the weighted sum's only gradient is into
         `layer_weights`, which keeps each fp32 hidden state for it."""
         p, g = self.cfg.dropout, generator
@@ -322,7 +388,16 @@ class HubertModel(nn.Module):
         bias = padding_bias(pad)
         position_bias = self.position_bias(x.shape[1])
         acc = layer_weights[0] * x.float().detach()
+        hidden = None
+        if return_hidden_states:  # filled layer by layer: one copy of the stack
+            hidden = x.new_empty((len(self.layers) + 1, *x.shape))
+            hidden[0] = x.detach()
         for i, layer in enumerate(self.layers):
             x = layer(x, bias, g, position_bias)
             acc = acc + layer_weights[i + 1] * x.float().detach()
-        return {"x": x, "weighted_sum": acc, "padding_mask": pad}
+            if hidden is not None:
+                hidden[i + 1] = x.detach()
+        out = {"x": x, "weighted_sum": acc, "padding_mask": pad}
+        if hidden is not None:
+            out["hidden_states"] = hidden
+        return out

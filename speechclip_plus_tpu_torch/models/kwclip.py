@@ -311,15 +311,33 @@ class KWClip(nn.Module):
         self.clip.requires_grad_(False)
 
     def forward_audio(self, wav: torch.Tensor, wav_len: torch.Tensor,
-                      generator: Optional[torch.Generator] = None):
-        """Frozen HuBERT + weighted sum -> (feat (B, T', D) fp32, feat_len (B,))."""
+                      generator: Optional[torch.Generator] = None,
+                      return_hidden_states: bool = False):
+        """Frozen HuBERT + weighted sum -> (feat (B, T', D) fp32, feat_len
+        (B,)), and with `return_hidden_states` the tower's (L+1, B, T', D)
+        stack third (JAX ``:757-803``; only then is the stack built)."""
         pad = torch.arange(wav.shape[1], device=wav.device)[None, :] >= wav_len[:, None]
-        feat = self.audio_encoder(wav, pad, layer_weights(self.weightedsum),
-                                  generator)["weighted_sum"]
+        out = self.audio_encoder(wav, pad, layer_weights(self.weightedsum), generator,
+                                 return_hidden_states=return_hidden_states)
+        feat = out["weighted_sum"]
         rate = self.cfg.audio.downsample_rate
         feat_len = torch.clamp(torch.round(wav_len.float() / rate).to(torch.int64),
                                max=feat.shape[1])
+        if return_hidden_states:
+            return feat, feat_len, out["hidden_states"]
         return feat, feat_len
+
+    def feature_extractor(self, wav: torch.Tensor, wav_len: torch.Tensor
+                          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Reference `feature_extractor_s3prl` (`kwClip.py:965-997`, JAX
+        ``:1120-1135``): (last hidden state, every hidden state: the tower's
+        L+1, then each branch transformer layer's output over the frames)."""
+        feat, feat_len, hidden = self.forward_audio(wav, wav_len, return_hidden_states=True)
+        hidden_states = tuple(hidden.unbind(0))
+        for branch in (self.cascaded_branch, self.parallel_branch):
+            if branch is not None:
+                hidden_states += tuple(branch.extract_hidden_states(feat, feat_len)[1:])
+        return hidden_states[-1], hidden_states
 
     def encode_image_raw(self, image: torch.Tensor) -> torch.Tensor:
         """Frozen CLIP image features (B, H, W, 3) -> (B, E), before projection

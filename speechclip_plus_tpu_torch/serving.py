@@ -12,8 +12,10 @@ cascaded query `encode_speech` (everything).
 
 `submit` does not block: the padded batch is pinned, copied with
 `non_blocking=True`, the query is enqueued behind it, and
-`PendingSearch.done()` polls a CUDA event. Text queries (`search_text`) need
-a BPE vocabulary the repository does not ship; they come in a later slice.
+`PendingSearch.done()` polls a CUDA event. Text queries (`search_text`,
+JAX ``:132-168``) answer from the same index through CLIP's text tower; they
+need the model's BPE tokenizer (`SpeechCLIP(..., tokenizer=...)`, or
+`api.load_from_checkpoint` with the config's `bpe_path`).
 """
 from __future__ import annotations
 
@@ -100,6 +102,30 @@ class SpeechRetriever:
             raise ValueError(f"feat_src {feat_src!r}: this model ({cfg.branch_type or 'parallel'}"
                              f" branch) has no {feat_src} feature")
         self.sc, self.index, self.feat_src = speechclip, index, feat_src
+        self._text_processor = None
+        if speechclip.tokenizer is not None:
+            from .data.tokenizer import ClipTextProcessor
+
+            self._text_processor = ClipTextProcessor(speechclip.tokenizer, speechclip.vocab)
+
+    @torch.inference_mode()
+    def search_text(self, texts: Sequence[str], k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k image ids + cosine scores per text query, each (B, k): the
+        CLIP text tower on the token ids (reduced ids when the model carries
+        a reduced vocabulary) against the same index as speech queries."""
+        if self._text_processor is None:
+            raise ValueError(
+                "text queries need a tokenizer: load the model via "
+                "api.load_from_checkpoint with the config's bpe_path, or "
+                "construct SpeechCLIP(..., tokenizer=..., vocab=...)"
+            )
+        k = min(int(k), len(self.index))
+        ids = self._text_processor.prep_text(list(texts),
+                                             context_length=self.sc.cfg.clip.context_length)
+        ids = torch.from_numpy(np.asarray(ids, np.int64)).to(self.sc.device)
+        scores = _l2_normalize(self.sc.model.clip.encode_text(ids)) @ self.index.feats.T
+        top_scores, top_idx = torch.topk(scores, k, dim=-1)
+        return self.index.ids[top_idx.cpu().numpy()], top_scores.cpu().numpy()
 
     def search(self, wavs: Sequence[np.ndarray], k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k image ids + cosine scores per waveform (ragged float32 or

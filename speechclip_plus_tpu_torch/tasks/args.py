@@ -14,8 +14,8 @@ def add_general_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentP
     parser.add_argument("--eval", action="store_true", help="evaluate on dev split")
     parser.add_argument("--test", action="store_true", help="evaluate on test split")
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="checkpoint directory to load (a Lightning .ckpt is not "
-                             "supported by the port yet)")
+                        help="a reference PyTorch-Lightning .ckpt to load (its config "
+                             "rides inside; --config is merged over it)")
     parser.add_argument("--resume", type=str, default=None,
                         help="resume full training state from a checkpoint directory")
     parser.add_argument(

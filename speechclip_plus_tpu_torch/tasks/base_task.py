@@ -90,12 +90,25 @@ class TrainSpeechClipBaseTask(BaseTask):
             raise NotImplementedError(
                 f"--devices {args.devices}: the port trains on one GPU "
                 "(ROADMAP.md queue A item 8)")
-        if args.ckpt and args.ckpt.endswith(".ckpt"):
+        lightning_sd = None
+        if args.ckpt and not args.ckpt.endswith(".ckpt"):
             raise NotImplementedError(
-                f"--ckpt {args.ckpt}: the Lightning checkpoint import is not ported "
-                "(ROADMAP.md queue A item 3)")
+                f"--ckpt {args.ckpt}: only a reference Lightning .ckpt loads through --ckpt; "
+                "a directory the Trainer saved resumes with --resume or loads with "
+                "api.load_from_checkpoint")
+        if args.ckpt:
+            # a reference Lightning checkpoint: its config rides inside, and
+            # --config (or `config`) is merged over it
+            from ..checkpoint import load_lightning_checkpoint
+
+            lightning_sd, ckpt_cfg, _ = load_lightning_checkpoint(args.ckpt)
+            if config is None and args.config:
+                config = load_config(args.config)
+            if config is not None:
+                ckpt_cfg.deep_update(config)
+            config = ckpt_cfg
         if config is None:
-            assert args.config, "--config required"
+            assert args.config, "--config required without a Lightning --ckpt"
             config = load_config(args.config)
         cfg = config
         if args.dataset_root:
@@ -110,6 +123,11 @@ class TrainSpeechClipBaseTask(BaseTask):
             tokenizer = SimpleTokenizer(bpe_path)
 
         model, model_cfg, vocab = build_model_from_config(cfg, device=args.device, seed=args.seed)
+        if lightning_sd is not None:
+            from ..checkpoint import lightning_to_kwclip
+
+            lightning_to_kwclip(lightning_sd, model)
+            logger.info("Loaded Lightning checkpoint %s", args.ckpt)
 
         decoder = None
         text_processor = None

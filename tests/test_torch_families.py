@@ -76,8 +76,9 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 STEPS = 3
 
 
-def _downscale(mc, clip_cls, hubert_cls):
-    """Width-32 towers and branch, the YAML's wiring (either package's config)."""
+def _downscale(mc, clip_cls, hubert_cls, **tower):
+    """Width-32 towers and branch, the YAML's wiring (either package's config);
+    `tower` keys go to `HubertConfig.tiny`."""
     clip = clip_cls.tiny(text_width=D, embed_dim=D, vocab_size=mc.clip.vocab_size,
                          sot_id=mc.clip.sot_id, eot_id=mc.clip.eot_id)
     ta = lambda t: dataclasses.replace(t, d_model=D, nhead=1 if t.nhead == 1 else 4,
@@ -89,13 +90,14 @@ def _downscale(mc, clip_cls, hubert_cls):
                                   max_feat_len=min(cif.max_feat_len, clip.context_length - 2),
                                   **extra)
     return dataclasses.replace(
-        mc, audio=hubert_cls.tiny(d_model=D), clip=clip, parallel_ta=ta(mc.parallel_ta),
+        mc, audio=hubert_cls.tiny(d_model=D, **tower), clip=clip, parallel_ta=ta(mc.parallel_ta),
         cascaded_ta=ta(mc.cascaded_ta),
         head=dataclasses.replace(mc.head, d_model=D, text_dim=D), cif=cif)
 
 
-def _configs(path):
-    """(JAX yaml node, JAX model config, port yaml node, port model config), fp32."""
+def _configs(path, **tower):
+    """(JAX yaml node, (JAX model config, cut), port yaml node, (port model
+    config, cut)), fp32; `tower` keys go to the cut tower's config."""
     out = []
     for load, vocab_of, cfg_cls, clip_cls, hubert_cls in (
             (jax_load_config, jax_vocab, JKWClipConfig, JClipConfig, JHubertConfig),
@@ -106,7 +108,7 @@ def _configs(path):
         vocab = vocab_of(cfg)
         mc = cfg_cls.from_config(cfg, vocab_size=len(vocab), sot_id=int(vocab.sot_reduced),
                                  eot_id=int(vocab.eot_reduced))
-        out += [cfg, (mc, _downscale(mc, clip_cls, hubert_cls))]
+        out += [cfg, (mc, _downscale(mc, clip_cls, hubert_cls, **tower))]
     return out
 
 
@@ -188,7 +190,12 @@ def test_family_builds_and_matches_jax(path):
     assert (active.type, active.nhead, active.d_model) == (jactive.type, jactive.nhead, 768)
     assert full.audio.rel_pos_bias == ("wavlm" in family)
     assert full.retrieval_audio_feat_src == jfull.retrieval_audio_feat_src
+    check_small_family(jcfg, jsmall, cfg, small, family)
 
+
+def check_small_family(jcfg, jsmall, cfg, small, family):
+    """The cut model of one family in both packages, the same weights:
+    `encode_speech` and STEPS training steps with dropout off."""
     jmodel = JKWClip(jsmall)
     variables = _jax_variables(jmodel, jsmall)
     model = KWClip(small).eval()
@@ -320,7 +327,7 @@ def test_text_vjp_knob_needs_a_frozen_text_tower():
         KWClipConfig.from_config(cfg)
 
 
-@pytest.mark.parametrize("name", ["data2vec_base", "wavlm_large", "apc", "hubert_large_ll60k"])
+@pytest.mark.parametrize("name", ["data2vec_large", "wavlm_large", "apc", "hubert_large_ll60k"])
 def test_upstreams_left_for_later_raise(name):
     cfg = _tiny()
     cfg.audio_encoder.tiny = False

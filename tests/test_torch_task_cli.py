@@ -86,7 +86,7 @@ def test_cli_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("argv,match", [(["--devices", "2"], "queue A item 8"),
-                                        (["--ckpt", "released.ckpt"], "queue A item 3")])
+                                        (["--ckpt", "exp/run/checkpoints"], "Lightning .ckpt")])
 def test_unported_options_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         _run(["--config", os.path.join(REPO, TINY), "--device", "cpu", *argv])

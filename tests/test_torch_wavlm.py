@@ -186,7 +186,7 @@ def test_upstream_names():
     cfg = HubertConfig.wavlm_base()
     assert (cfg.rel_buckets, cfg.rel_max_distance, cfg.n_heads, cfg.d_model) == (
         jcfg.rel_buckets, jcfg.rel_max_distance, jcfg.n_heads, jcfg.d_model) == (320, 800, 12, 768)
-    for name in ("wavlm_large", "data2vec_base", "hubert_large_ll60k"):
+    for name in ("wavlm_large", "data2vec_large", "hubert_large_ll60k"):
         with pytest.raises(NotImplementedError):
             HubertConfig.from_upstream_name(name)
 
