@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase profile  # device time by kernel: serving
                                            # cells and 5 training cells
     python3 chip_smoke.py --phase fit      # phase 6 (cached), phase J and path K only
+    python3 chip_smoke.py --phase large    # phase 2 at the large shapes, then path M
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -96,12 +97,27 @@ Phases, each fatal on failure:
      with the knob off; fp32 card-vs-CPU parity with the knob on;
   L. hybrid+ with the data2vec-audio base tower (hybrid_plus_data2vec.yaml)
      through the family path (319 frames for 102400 samples), and its fp32
-     card-vs-CPU parity of serving and of one training step.
+     card-vs-CPU parity of serving and of one training step;
+  M. the large plus family (config/speechclip_plus/large/flickr/, bf16, full
+     width: HuBERT-Large, ViT-L/14 and its 768-wide text tower, the 1024-wide
+     branch with 8 heads of 128, the 768-wide codebook): M1 hybrid+ large
+     through the family path with cached and live images, its fp32
+     card-vs-CPU parity of serving and of one training step, and its cached
+     step again with `clip.text_remat: full` (ms and peak memory against
+     none); M2 cascaded+ large through the family path; M3 the
+     `wavlm_large` and `data2vec_large` towers, one bf16 forward each at
+     B=8 x 102400 samples. Every training step's peak memory must stay below
+     80 GB.
 Phase 2 also holds the pieces those paths add against their twins: K2 with
 the causal bias at the text shape (128, 77, 512, H=8) and K1 context-only
 there, K1 and K2 at (128, 328, 768) with one head (p=0.1 and 0), each against
 finite differences in fp32 (of the K1 forward, and of the same function in
-float64), and K3 / K3b at N=1024 and N=8. The family paths and every training
+float64), and K3 / K3b at N=1024 and N=8; and at path M's shapes
+(`phase_kernels_large`): K1a at K=1024, K1b and K1 fused-out at the
+HuBERT-Large tower shape, K1 fused-out at ViT-L/14's T=257, K1 context-only
+and K2 at the large branch (128, 320, 1024, H=8) with K2's finite
+differences, and K3 / K3b at N=9600 on the 768-wide codebook for V=8112 and
+19787. The family paths and every training
 phase record the shapes at which they call the branch attention and the
 cosine-VQ; after each path, K1 context-only, K2, K3 and K3b are held against
 their twins at every recorded shape that no earlier check covered (the
@@ -127,6 +143,12 @@ import time
 import numpy as np
 
 CONFIG = "config/speechclip_plus/base/hybrid_plus.yaml"
+LARGE_CONFIGS = {  # path M, the large plus family (flickr)
+    "M1 hybrid+ large": "config/speechclip_plus/large/flickr/hybrid_plus.yaml",
+    "M2 cascaded+ large": "config/speechclip_plus/large/flickr/cascaded_plus.yaml",
+}
+VOCAB_FILES = ("assets/flickr_stat/text_clip_vocab_usage_byfreq.npy",   # V=8112
+               "assets/coco_stat/text_clip_vocab_usage_byfreq.npy")     # V=19787
 WAVLM_CONFIG = "config/speechclip_plus/base/hybrid_plus_wavlm.yaml"
 DATA2VEC_CONFIG = "config/speechclip_plus/base/hybrid_plus_data2vec.yaml"  # path L
 FAMILY_CONFIGS = {  # paths E-H
@@ -220,6 +242,12 @@ KERNEL_COUNTERS = {  # kernel name -> (module under speechclip_plus_tpu_torch, c
     "fused_attention_block_dh768": ("nn.fused_attention_block", "WIDE_LAUNCHES"),
     "fused_attention_block_bwd_dh768": ("nn.fused_attention_block_vjp", "WIDE_LAUNCHES"),
     "fused_attention_block_bwd_attn_bias": ("nn.fused_attention_block_vjp", "BIAS_LAUNCHES"),
+    # the large family's new widths: K1 and K2 at 8 heads of 128 (the 1024-wide
+    # branch), K3 and K3b on the 768-wide codebook (K3b's 32-row tile)
+    "fused_attention_block_dh128": ("nn.fused_attention_block", "DH128_LAUNCHES"),
+    "fused_attention_block_bwd_dh128": ("nn.fused_attention_block_vjp", "DH128_LAUNCHES"),
+    "fused_cosine_vq_d768": ("ops.fused_keyword", "D768_LAUNCHES"),
+    "fused_cosine_vq_bwd_d768": ("ops.fused_keyword", "BWD_D768_LAUNCHES"),
 }
 
 
@@ -395,11 +423,12 @@ def check_block_parts(torch, fab, dtype, gen, b=128, t=320, d=768, heads=12):
     return gemm, attn
 
 
-def check_vq(torch, fk, vocab, n, dtype, gen):
-    """K3 at N rows (V=8112, D=512) against its twin, on the grid its plan
-    gives: targets equal where the top-2 margin is decided, ent and psum to
-    rtol 1e-3, a bit-identical rerun."""
-    d, v = 512, len(vocab)
+def check_vq(torch, fk, vocab, n, dtype, gen, d=512):
+    """K3 at N rows (D=512, or 768: the large family; V of the vocabulary)
+    against its twin, on the grid its plan gives: targets equal where the
+    top-2 margin is decided, ent and psum to rtol 1e-3, a bit-identical
+    rerun."""
+    v = len(vocab)
     x = torch.randn(n, d, generator=gen, device="cuda")
     x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
     emb = torch.randn(v, d, generator=gen, device="cuda") * 0.1
@@ -442,7 +471,7 @@ def check_vq(torch, fk, vocab, n, dtype, gen):
           f"psum max_abs_err={psum_err:.3e} (rtol 1e-3), bit-identical rerun; "
           f"{timing_text(row)}; {'faster' if row['ms'] < row['plain_ms'] else 'SLOWER'} "
           f"than the twin")
-    return checked("k3", (n,), 0.0, dtype, row)
+    return checked("k3", (n, d, v), 0.0, dtype, row)
 
 
 def compare(torch, got, want, dtype, fp32_abs=None):
@@ -710,10 +739,10 @@ def check_attention_fd(torch, vjp, gen, shape=(2, 321, 768, 8), p=0.1, causal=Fa
             f"K2 against the float64 differences ({what}): rel error {worst64} > 1e-4")
 
 
-def check_vq_bwd(torch, fk, vocab, dtype, gen, n=128 * 75):
-    """K3b at N rows (9600: the plus families; 1024: the fixed-K ones),
-    V=8112, D=512, against its twin."""
-    d, v = 512, len(vocab)
+def check_vq_bwd(torch, fk, vocab, dtype, gen, n=128 * 75, d=512):
+    """K3b at N rows (9600: the plus families; 1024: the fixed-K ones), D=512
+    (768: the large family), V of the vocabulary, against its twin."""
+    v = len(vocab)
     x = torch.randn(n, d, generator=gen, device="cuda")
     x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
     g = (torch.randn(n, d, generator=gen, device="cuda") * 1e-3).to(dtype).contiguous()
@@ -754,7 +783,7 @@ def check_vq_bwd(torch, fk, vocab, dtype, gen, n=128 * 75):
           f"than the twin")
     require(err <= tol * rms, f"K3b {dtype}: dx error {err} > {tol} x RMS {rms}")
     require(dt_err <= 1e-4 * dt_scale, f"K3b {dtype}: dt error {dt_err}")
-    return checked("k3b", (n,), 0.0, dtype, row)
+    return checked("k3b", (n, d, v), 0.0, dtype, row)
 
 
 def check_attention_bias(torch, fab, gated, p, dtype, gen):
@@ -957,7 +986,9 @@ def record_shapes(torch, model):
         seen.add((kind, (b, t, d, module.nhead), p, torch.is_grad_enabled()))
 
     def vq(module, args, kwargs):
-        seen.add(("k3", (args[0].numel() // args[0].shape[-1],), 0.0, torch.is_grad_enabled()))
+        xn, emb = args[0], args[1]
+        seen.add(("k3", (xn.numel() // xn.shape[-1], xn.shape[-1], emb.shape[0]), 0.0,
+                  torch.is_grad_enabled()))
 
     hooks = []
     for m in model.modules():
@@ -978,7 +1009,7 @@ def check_path_shapes(torch, label, seen):
     from speechclip_plus_tpu_torch.nn import fused_attention_block_vjp as vjp
     from speechclip_plus_tpu_torch.ops import fused_keyword as fk
 
-    vocab = ReducedVocab.from_npy("assets/flickr_stat/text_clip_vocab_usage_byfreq.npy")
+    vocabs = {len(v): v for v in (ReducedVocab.from_npy(path) for path in VOCAB_FILES)}
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -986,12 +1017,14 @@ def check_path_shapes(torch, label, seen):
     found = []
     for kind, shape, p, step in sorted(seen):
         require(p in (0.0, 0.1), f"{label}: dropout {p} has no check")
-        wide = kind != "k3" and shape[2] // shape[3] == 768
-        names = {"k1": "fused_attention_block" + "_dh768" * wide,
-                 "k2": "fused_attention_block_bwd" + "_dh768" * wide,
+        dh = None if kind == "k3" else shape[2] // shape[3]
+        at = {768: "_dh768", 128: "_dh128"}.get(dh, "")
+        d768 = "_d768" * (kind == "k3" and shape[1] == 768)
+        names = {"k1": "fused_attention_block" + at,
+                 "k2": "fused_attention_block_bwd" + at,
                  "k1 causal": "fused_attention_block",
                  "k2 causal": "fused_attention_block_bwd_attn_bias",
-                 "k3": "fused_cosine_vq", "k3b": "fused_cosine_vq_bwd"}
+                 "k3": "fused_cosine_vq" + d768, "k3b": "fused_cosine_vq_bwd" + d768}
         for k in [kind] + [backward[kind]] * step:
             for dtype in (torch.float32, torch.bfloat16):
                 key = (k, shape, float(p), str(dtype)[6:])
@@ -1012,9 +1045,10 @@ def check_path_shapes(torch, label, seen):
                     row = check_attention_bwd(torch, fab, vjp, dtype, p, gen, shape,
                                               causal=k == "k2 causal", what=label)
                 elif k == "k3":
-                    row = check_vq(torch, fk, vocab, shape[0], dtype, gen)
+                    row = check_vq(torch, fk, vocabs[shape[2]], shape[0], dtype, gen, d=shape[1])
                 else:
-                    row = check_vq_bwd(torch, fk, vocab, dtype, gen, n=shape[0])
+                    row = check_vq_bwd(torch, fk, vocabs[shape[2]], dtype, gen, n=shape[0],
+                                       d=shape[1])
                 PATH_ROWS.append((names[k], {
                     "shape": f"{label}: {k} at {shape}, dropout {p}, {str(dtype)[6:]}", **row}))
         torch.cuda.empty_cache()
@@ -1231,6 +1265,193 @@ def phase_kernels(torch):
     ]
 
 
+def phase_kernels_large(torch):
+    """Phase 2 at the large family's shapes: K1a at K=1024 (the tower's qkv,
+    N=3072, and out-projection) and K1b at the HuBERT-Large tower shape
+    (B=128, T=319, 16 heads of 64) through `check_block_parts`; K1 fused-out
+    at the tower's training (dropout) and serving shapes and at ViT-L/14's
+    (T=257) for the live step's batch and the index's; K1 context-only + lse
+    and K2 at the 1024-wide branch (B=128, T=320, 8 heads of 128), p=0.1 and
+    0, and K2 against finite differences in fp32; K3 and K3b at N=9600 on the
+    768-wide codebook for both reduced vocabularies. Returns (the rows of the
+    four kernels at the new widths, extra modes by kernel name)."""
+    from speechclip_plus_tpu_torch.data.tokenizer import ReducedVocab
+    from speechclip_plus_tpu_torch.nn import fused_attention_block as fab
+    from speechclip_plus_tpu_torch.nn import fused_attention_block_vjp as vjp
+    from speechclip_plus_tpu_torch.ops import fused_keyword as fk
+
+    vocabs = {name: ReducedVocab.from_npy(path)
+              for name, path in zip(("flickr", "coco"), VOCAB_FILES)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    branch = (128, 320, 1024, 8)
+    rows, gemm, parts = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gemm[dtype], parts[dtype] = check_block_parts(torch, fab, dtype, gen, b=128, t=319,
+                                                      d=1024, heads=16)
+        rows[("tower", 0.1, dtype)] = check_attention_dropout(
+            torch, fab, "K1 fused-out HuBERT-Large B=128 T=319 D=1024 H=16", 128, 319, 1024,
+            16, True, dtype, gen)
+        rows[("tower", 0.0, dtype)] = check_attention(
+            torch, fab, "K1 fused-out HuBERT-Large B=8 T=319 D=1024 H=16", 8, 319, 1024, 16,
+            True, True, dtype, gen)
+        for b in (128, 256):  # the live step's images, the image index's batch
+            rows[("vit", b, dtype)] = check_attention(
+                torch, fab, f"K1 fused-out ViT-L/14 B={b} T=257 D=1024 H=16", b, 257, 1024, 16,
+                True, False, dtype, gen)
+        torch.cuda.empty_cache()
+        name = "K1 context-only large branch B={} T={} D={} H={}".format(*branch)
+        rows[("k1", 0.1, dtype)] = check_attention_dropout(torch, fab, name, *branch, False,
+                                                           dtype, gen)
+        rows[("k1", 0.0, dtype)] = check_attention(torch, fab, name + " p=0", *branch, False,
+                                                   True, dtype, gen)
+        for p in (0.1, 0.0):
+            rows[("k2", p, dtype)] = check_attention_bwd(torch, fab, vjp, dtype, p, gen, branch,
+                                                         what="large branch")
+        torch.cuda.empty_cache()
+        for voc, vocab in vocabs.items():
+            rows[("k3", voc, dtype)] = check_vq(torch, fk, vocab, 9600, dtype, gen, d=768)
+            rows[("k3b", voc, dtype)] = check_vq_bwd(torch, fk, vocab, dtype, gen, n=9600, d=768)
+        torch.cuda.empty_cache()
+    check_attention_fd(torch, vjp, gen, (2, 320, 1024, 8), 0.1, what="large branch")
+    check_attention_fd(torch, vjp, gen, (2, 319, 1024, 8), 0.0, what="large branch")
+    bf, f32 = torch.bfloat16, torch.float32
+    csrc = "speechclip_plus_tpu_torch/csrc/"
+    jax_pkg = "speechclip_plus_tpu/"
+    mode = lambda text, key: {"shape": text, **rows[key]}
+    new = [
+        {"name": "fused_attention_block_dh128", "route": "cuda",
+         "source": csrc + "fused_attention_block_attn_dh128.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block.py:118",
+         "shape": "large branch B=128 T=320 D=1024 H=8 context-only + lse, dropout 0.1, bf16",
+         **rows[("k1", 0.1, bf)],
+         "modes": [mode("same, no dropout", ("k1", 0.0, bf)),
+                   mode("same, dropout 0.1, fp32", ("k1", 0.1, f32)),
+                   mode("same, no dropout, fp32", ("k1", 0.0, f32))]},
+        {"name": "fused_attention_block_bwd_dh128", "route": "cuda",
+         "source": csrc + "fused_attention_block_bwd_dh128.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block_vjp.py:104",
+         "shape": "large branch B=128 T=320 D=1024 H=8, dropout 0.1, bf16",
+         **rows[("k2", 0.1, bf)],
+         "modes": [mode("same, no dropout", ("k2", 0.0, bf)),
+                   mode("same, dropout 0.1, fp32", ("k2", 0.1, f32)),
+                   mode("same, no dropout, fp32", ("k2", 0.0, f32))]},
+        {"name": "fused_cosine_vq_d768", "route": "cuda", "source": csrc + "fused_keyword.cu",
+         "replaces": jax_pkg + "ops/fused_keyword.py:92",
+         "shape": "N=9600 D=768 V=8112 bf16", **rows[("k3", "flickr", bf)],
+         "modes": [mode("N=9600 D=768 V=19787 bf16", ("k3", "coco", bf)),
+                   mode("N=9600 D=768 V=8112 fp32 (FMA tile)", ("k3", "flickr", f32)),
+                   mode("N=9600 D=768 V=19787 fp32 (FMA tile)", ("k3", "coco", f32))]},
+        {"name": "fused_cosine_vq_bwd_d768", "route": "cuda", "source": csrc + "fused_keyword.cu",
+         "replaces": jax_pkg + "ops/fused_keyword.py:123",
+         "shape": "N=9600 D=768 V=8112 bf16 (32-row tile)", **rows[("k3b", "flickr", bf)],
+         "modes": [mode("N=9600 D=768 V=19787 bf16", ("k3b", "coco", bf)),
+                   mode("N=9600 D=768 V=8112 fp32 (FMA tile)", ("k3b", "flickr", f32)),
+                   mode("N=9600 D=768 V=19787 fp32 (FMA tile)", ("k3b", "coco", f32))]},
+    ]
+    extra = {
+        "projection_gemm": gemm[bf] + gemm[f32],
+        "fused_attention_block": [
+            mode("HuBERT-Large B=128 T=319 D=1024 H=16 fused-out, dropout 0.1, bf16",
+                 ("tower", 0.1, bf)),
+            mode("HuBERT-Large B=8 T=319 D=1024 H=16 fused-out, no dropout, bf16",
+                 ("tower", 0.0, bf)),
+            mode("ViT-L/14 B=128 T=257 D=1024 H=16 fused-out, bf16", ("vit", 128, bf)),
+            mode("ViT-L/14 B=256 T=257 D=1024 H=16 fused-out, bf16", ("vit", 256, bf)),
+            mode("ViT-L/14 B=128 T=257 fused-out, fp32", ("vit", 128, f32)),
+        ] + parts[bf] + parts[f32],
+    }
+    return new, extra
+
+
+# --------------------------------------------------------------- path M ----
+
+def phase_large_towers(torch):
+    """Path M3: the `wavlm_large` (K1 in its gate mode) and `data2vec_large`
+    towers, one full-width bf16 forward each at B=8 x 102400 samples: 319
+    frames, finite output, K1's launches (24 layers)."""
+    from speechclip_plus_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from speechclip_plus_tpu_torch.tasks.builder import init_params
+
+    batch = train_batch(torch, 8, TRAIN_WAV, 8, seed=4)
+    wav = batch["wav"]
+    pad = torch.arange(TRAIN_WAV, device="cuda")[None] >= batch["wav_len"][:, None]
+    counts = {}
+    for name in ("wavlm_large", "data2vec_large"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(getattr(HubertConfig, name)(), dtype=torch.bfloat16)
+        tower = HubertModel(cfg)
+        init_params(tower, torch.Generator().manual_seed(0))
+        tower = tower.to("cuda").eval()
+        weights = torch.full((cfg.num_hidden_states,), 1.0 / cfg.num_hidden_states,
+                             device="cuda")
+        built_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            tower(wav, pad, weights)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = tower(wav, pad, weights)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts[name] = read_counts(torch, f"path M3 {name} tower",
+                                       k1_plan(cfg.n_layers))
+        frames = out["x"].shape[1]
+        finite = bool(torch.isfinite(out["x"].float()).all()) and bool(
+            torch.isfinite(out["weighted_sum"]).all())
+        print(f"[path M3] {name} tower bf16 B=8 x {TRAIN_WAV} samples ({cfg.n_layers} layers, "
+              f"D={cfg.d_model}, {cfg.n_heads} heads{', gated relative position bias' if cfg.rel_pos_bias else ''}): "
+              f"built in {built_s:.1f} s, {tuple(out['x'].shape)}, finite {finite}, "
+              f"{ms:.2f} ms/forward")
+        require(frames == 319, f"path M3 {name}: {frames} frames for {TRAIN_WAV} samples")
+        require(tuple(out["weighted_sum"].shape) == (8, 319, cfg.d_model) and finite,
+                f"path M3 {name}: output {tuple(out['weighted_sum'].shape)}, finite {finite}")
+        del tower, out
+        torch.cuda.empty_cache()
+    return {f"M3_{name}": c for name, c in counts.items()}
+
+
+def phase_large(torch):
+    """Path M, the large plus family (flickr, bf16, full width, seeded random
+    weights): M1 hybrid+ large and M2 cascaded+ large through the family path
+    (an index of 256 images through ViT-L/14, cascaded `search` at B = 1, 8,
+    64, `encode_speech`, the training phase at B=128 x 102400 with cached and
+    live images), M1's fp32 card-vs-CPU parity of serving and of one training
+    step, M1's training phase with `clip.text_remat: full` against the
+    default none (ms and peak memory), and M3, the other two large towers.
+    Returns the launch counts by path."""
+    by_path, ms = {}, {}
+    # Every training phase here runs both cells, 16 steps: the large YAMLs
+    # accumulate 2 batches and warm up over 5000 steps, so 8 steps are 4
+    # Adam updates of at most 1e-4 x 3 / 5000 = 6e-8, less than half an fp32
+    # ulp of the learnable log(1 / temperature), 2.66: phase 6's check that
+    # every trainable tensor moved needs the 8 updates of 16 steps.
+    cells = ("cached", "live")
+    for label, config in LARGE_CONFIGS.items():
+        counts, ms[label] = phase_family(torch, label, config, cells=cells)
+        by_path[f"{label[:2]}_serve"], by_path[f"{label[:2]}_train"] = (
+            counts["serve"], counts["train"])
+        if label.startswith("M1"):
+            phase_parity(torch, f"path {label}", config)
+            # the keyword projection's last bias reaches the batch-statistics BN
+            # through a linear map only: no gradient in exact arithmetic
+            phase_train_parity(torch, f"path {label}", config,
+                               zero=("head.linear_proj.layers.1.bias",))
+            built = build(torch, config, clip_keys={"text_remat": "full"})
+            by_path["M1_train_text_remat_full"], ms["M1 text_remat full"] = phase_train(
+                torch, f"path {label} text_remat full", config, cells=cells, built=built)
+            none, full = ms[label], ms["M1 text_remat full"]
+            print(f"[path M1] clip.text_remat on the cached step, B={TRAIN_BATCH}: none "
+                  f"{none['cached']:.2f} ms/step, peak {none['cached_peak_gib']:.2f} GiB; full "
+                  f"{full['cached']:.2f} ms/step, peak {full['cached_peak_gib']:.2f} GiB")
+    by_path.update(phase_large_towers(torch))
+    print("[path M] ms/step, pairs/s at B=128 x 102400: " + "; ".join(
+        f"{label} {cell} {v:.2f} ms, {TRAIN_BATCH / v * 1e3:.1f} pairs/s"
+        for label, cells in ms.items() for cell, v in cells.items() if not cell.endswith("gib")))
+    return by_path
+
+
 # --------------------------------------------------------- phases 3-6 ----
 
 def ragged_wavs(rng, b, int16):
@@ -1292,34 +1513,41 @@ def speech_query_plan(tower, cascaded):
 def family_plans(mc):
     """(launches of one query by feature source, of `encode_speech`, of one
     training step with cached images) for any family, from its typed config:
-    the tower's 12 layers and the branch attention (K1; K2 in the step), at
-    one head of 768 the wide-head kernels; with a keyword head the cosine-VQ (K3;
-    K3b in the step); with `text_fused_attention_vjp` the 12 text layers (K1;
-    K2 with the bias in the step)."""
+    the tower's layers (12, or 24 large) and the branch attention (K1; K2 in
+    the step), at one head of 768 the wide-head kernels, at heads of 128 the
+    dh=128 ones; with a keyword head the cosine-VQ (K3; K3b in the step), on
+    a 768-wide codebook its D=768 instances; with `text_fused_attention_vjp`
+    the text layers (K1; K2 with the bias in the step)."""
     ta = mc.cascaded_ta if mc.has_cascaded else mc.parallel_ta
-    wide = ta.d_model // ta.nhead == 768
-    text = 12 if mc.has_cascaded and mc.clip.text_fused_attention_vjp else 0
-    branch = k1_plan(12, 1)
-    if wide:
-        branch["fused_attention_block_dh768"] = 1
+    at = {768: "_dh768", 128: "_dh128"}.get(ta.d_model // ta.nhead)
+    d768 = mc.has_cascaded and mc.clip.text_width == 768
+    text = mc.clip.text_layers if mc.has_cascaded and mc.clip.text_fused_attention_vjp else 0
+    branch = k1_plan(mc.audio.n_layers, 1)
+    if at:
+        branch["fused_attention_block" + at] = 1
     full = dict(branch)
     if mc.has_cascaded:
         full["fused_cosine_vq"] = 1
+        if d768:
+            full["fused_cosine_vq_d768"] = 1
         add_counts(full, k1_plan(0, text))
     step = dict(full, fused_attention_block_bwd=1 + text)
-    if wide:
-        step["fused_attention_block_bwd_dh768"] = 1
+    if at:
+        step["fused_attention_block_bwd" + at] = 1
     if text:
         step["fused_attention_block_bwd_attn_bias"] = text
     if mc.has_cascaded:
         step["fused_cosine_vq_bwd"] = 1
+        if d768:
+            step["fused_cosine_vq_bwd_d768"] = 1
     return {"parallel": branch, "cascaded": full}, full, step
 
 
-def phase_family(torch, label, config):
-    """Paths E-H: one family at base width, bf16: build, image index, `search`
-    with the YAML's feature source at B = 1, 8, 64, `encode_speech`; then the
-    training phase on the same model."""
+def phase_family(torch, label, config, cells=("cached",)):
+    """Paths E-H, L and M: one family, bf16: build, an image index of 256
+    images, `search` with the YAML's feature source at B = 1, 8, 64,
+    `encode_speech`; then the training phase (`cells`) on the same model.
+    Returns ({"serve", "train"} launch counts, ms/step by cell)."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
     from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
 
@@ -1344,7 +1572,7 @@ def phase_family(torch, label, config):
     images = torch.randn(n_img, 224, 224, 3, generator=gen, device="cuda")
     index_ids = np.arange(n_img) + 10000
     reset_counts()
-    expect = k1_plan(12)
+    expect = k1_plan(mc.clip.vision_layers)  # one image batch through the ViT
     index = build_image_index(sc, images, index_ids, batch_size=256)
     require(len(index) == n_img and bool(torch.isfinite(index.feats).all()), f"{label}: index")
     retriever = SpeechRetriever(sc, index)  # the YAML's feature source
@@ -1370,19 +1598,20 @@ def phase_family(torch, label, config):
         f = out[key]
         require((f is not None) == there, f"{label} encode_speech {key}: {f is not None}")
         if there:
-            require(tuple(f.shape) == (8, 512) and bool(torch.isfinite(f.float()).all()),
+            require(tuple(f.shape) == (8, mc.clip.embed_dim)
+                    and bool(torch.isfinite(f.float()).all()),
                     f"{label} encode_speech {key}: {tuple(f.shape)}")
     if mc.keyword_num is not None:
-        require(tuple(out["keywords"].shape) == (8, mc.keyword_num, 512), f"{label}: keywords")
+        require(tuple(out["keywords"].shape) == (8, mc.keyword_num, mc.clip.text_width),
+                f"{label}: keywords")
     counts = {"serve": read_counts(torch, f"path {label} serving", expect)}
     for h in hooks:
         h.remove()
     del sc, index, retriever, images, out
     torch.cuda.empty_cache()
     check_path_shapes(torch, f"path {label} serving", seen)
-    counts["train"], ms = phase_train(torch, f"path {label}", config, cells=("cached",),
-                                      built=built)
-    return counts, ms["cached"]
+    counts["train"], ms = phase_train(torch, f"path {label}", config, cells=cells, built=built)
+    return counts, ms
 
 
 def phase_text_route(torch):
@@ -1630,14 +1859,16 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
             losses.append(metrics["train_loss"])
         torch.cuda.synchronize()
         sec = (time.perf_counter() - t0) / TIMED_STEPS
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak_bytes = torch.cuda.max_memory_allocated()
+        peak = peak_bytes / 2 ** 30
         n = WARMUP_STEPS + TIMED_STEPS
         add_counts(expect, step_plan, n)
-        if cell == "live":
-            add_counts(expect, k1_plan(12), n)
+        if cell == "live":  # the ViT on the batch's images
+            add_counts(expect, k1_plan(model_cfg.clip.vision_layers), n)
         loss = torch.stack(losses).float().cpu()
         gn = float(metrics["grad_norm"])
         result[cell] = sec * 1e3
+        result[f"{cell}_peak_gib"] = peak
         print(f"[train] {label} {cell:6s} images: {sec * 1e3:.2f} ms/step, "
               f"{TRAIN_BATCH / sec:.1f} pairs/s, peak {peak:.2f} GiB allocated "
               f"(n={TIMED_STEPS} after {WARMUP_STEPS} warm-up); loss {loss[0]:.4f} -> "
@@ -1645,6 +1876,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
                   f"{k[len('train_'):]} {float(v):.4f}" for k, v in metrics.items()
                   if k.endswith("_loss")))
         require(bool(torch.isfinite(loss).all()), f"train {label} {cell}: non-finite loss")
+        require(peak_bytes < 80e9, f"train {label} {cell}: peak {peak_bytes / 1e9:.2f} GB")
         require(gn > 0 and np.isfinite(gn), f"train {label} {cell}: grad_norm {gn}")
     counts = read_counts(torch, f"{label} training", expect)
     require(len(finite) == len(trainable) and bool(torch.stack(finite).all()),
@@ -2450,10 +2682,11 @@ def profile_cell(torch, label, fn, n=3):
 
 def phase_profile(torch):
     """Device time by kernel: three serving cells of hybrid+ base, one of the
-    WavLM model and one of the cascaded family, and one training cell (B=128 x
-    102400 samples, cached image features) for each of the HuBERT tower
-    through K1, the WavLM tower, the HuBERT tower through K5, and the
-    cascaded and parallel families."""
+    WavLM model, one of the cascaded family and one of hybrid+ large, and one
+    training cell (B=128 x 102400 samples, cached image features) for each of
+    the HuBERT tower through K1, the WavLM tower, the HuBERT tower through
+    K5, the cascaded and parallel families and hybrid+ large (its YAML's
+    accumulation of 2: every other step updates)."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
     from speechclip_plus_tpu_torch.optim.optimizer import build_optimizer_from_config
     from speechclip_plus_tpu_torch.parallel.train_step import (
@@ -2469,7 +2702,9 @@ def phase_profile(torch):
             ("WavLM", WAVLM_CONFIG, {}, (("parallel", 8),)),
             ("HuBERT (K5 route)", CONFIG, k5, ()),
             ("path E cascaded", FAMILY_CONFIGS["E cascaded"], {}, (("cascaded", 8),)),
-            ("path F parallel", FAMILY_CONFIGS["F parallel"], {}, ())):
+            ("path F parallel", FAMILY_CONFIGS["F parallel"], {}, ()),
+            ("path M1 hybrid+ large", LARGE_CONFIGS["M1 hybrid+ large"], {},
+             (("cascaded", 8),))):
         cfg, model, model_cfg = build(torch, config, **keys)
         sc = SpeechCLIP(model, "cuda")
         index = build_image_index(sc, images, np.arange(1000), batch_size=256)
@@ -2483,7 +2718,8 @@ def phase_profile(torch):
         del sc, index
         optimizer = build_optimizer_from_config(model, cfg)
         state = create_train_state(optimizer)
-        step_fn = make_train_step(model, optimizer)
+        step_fn = make_train_step(model, optimizer,
+                                  int(cfg.trainer.accumulate_grad_batches or 1))
         batch = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, model_cfg.clip.image_resolution,
                             seed=0)
         with torch.no_grad():
@@ -2501,7 +2737,8 @@ def phase_families(torch):
     path."""
     by_path, ms = {}, {}
     for label, config in {**FAMILY_CONFIGS, "L data2vec hybrid+": DATA2VEC_CONFIG}.items():
-        counts, ms[label] = phase_family(torch, label, config)
+        counts, cell_ms = phase_family(torch, label, config)
+        ms[label] = cell_ms["cached"]
         by_path[f"{label[0]}_serve"], by_path[f"{label[0]}_train"] = (
             counts["serve"], counts["train"])
     phase_parity(torch, "path L data2vec hybrid+", DATA2VEC_CONFIG)
@@ -2521,9 +2758,21 @@ def phase_families(torch):
     return by_path
 
 
+def print_kernels_line(rows, by_path):
+    """The kernels JSON line: each row with the checks made at the paths' own
+    shapes as modes, and its launches in the paths' runs, each counted from 0
+    (phase 2's comparison launches are not in them)."""
+    for r in rows:
+        r["modes"] = r.get("modes", []) + [m for name, m in PATH_ROWS if name == r["name"]]
+    print(json.dumps({"kernels": [
+        {**r, "launches": sum(c[r["name"]] for c in by_path.values()),
+         "launches_by_path": {p: c[r["name"]] for p, c in by_path.items() if c[r["name"]]}}
+        for r in rows]}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit"),
+    ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit", "large"),
                     default="all")
     args = ap.parse_args()
     import torch
@@ -2536,6 +2785,7 @@ def main() -> int:
         print(f"chip_smoke: compute capability {major}.{minor}, need 9.x", file=sys.stderr)
         return 2
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    started = time.perf_counter()
     try:
         from speechclip_plus_tpu_torch.utils import cuda_build
 
@@ -2554,7 +2804,17 @@ def main() -> int:
             _, ms = phase_train(torch, "HuBERT (K1 route)", CONFIG, cells=("cached",))
             phase_fit(torch, ms["cached"])  # J, then K
             return 0
+        if args.phase == "large":
+            rows, extra = phase_kernels_large(torch)
+            by_path = phase_large(torch)
+            print(f"[time] chip_smoke --phase large: {time.perf_counter() - started:.1f} s")
+            print_kernels_line(rows, by_path)
+            return 0
         rows = phase_kernels(torch)
+        large_rows, extra = phase_kernels_large(torch)
+        rows += large_rows
+        for r in rows:
+            r["modes"] = r.get("modes", []) + extra.get(r["name"], [])
         if args.phase == "all":
             by_path, ms = {}, {}
             hubert, wavlm = "HuBERT (K1 route)", "path A WavLM"
@@ -2581,16 +2841,9 @@ def main() -> int:
             by_path["C_tower"] = phase_tower_flash(torch)
             by_path["D_conv0"] = phase_conv0(torch)
             by_path.update(phase_families(torch))
-            # the counts of the paths' runs, each counted from 0; phase 2's
-            # comparison launches are not in them
-            for r in rows:  # the checks made at the paths' own shapes
-                r["modes"] = r.get("modes", []) + [m for name, m in PATH_ROWS
-                                                   if name == r["name"]]
-            print(json.dumps({"kernels": [
-                {**r, "launches": sum(c[r["name"]] for c in by_path.values()),
-                 "launches_by_path": {p: c[r["name"]] for p, c in by_path.items()
-                                      if c[r["name"]]}}
-                for r in rows]}))
+            by_path.update(phase_large(torch))
+            print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s")
+            print_kernels_line(rows, by_path)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,7 +13,9 @@ compute the same function in the parity tests. The layout rules:
   - HuBERT's separate q/k/v projections become the packed `in_proj`.
   - WavLM adds the shared `rel_attn_embed` table and, per scanned layer,
     `gru_rel_pos_linear` and `gru_rel_pos_const`; data2vec has a LayerNorm
-    `ln_i` after every frontend conv and the stacked `pos_conv/conv_j`.
+    `ln_i` after every frontend conv and the stacked `pos_conv/conv_j`;
+    HuBERT- and WavLM-Large add a `bias` to every `conv_i` and the `ln_i`;
+    their pre-norm layers have the post-norm layers' leaves.
   - LayerNorm / GroupNorm `scale` is torch's `weight`.
   - The pos-conv kernel is the weight-norm-materialized one the JAX side
     stores (``models/hubert.py:627-680``); it is copied as is.

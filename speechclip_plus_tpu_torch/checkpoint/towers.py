@@ -4,11 +4,15 @@
 Port of ``speechclip_plus_tpu/checkpoint/towers.py``. The formats:
 
   - fairseq HuBERT (`hubert_base_ls960.pt`: `feature_extractor.conv_layers.{i}.0.*`,
-    `encoder.layers.{i}.self_attn.{q,k,v}_proj`, weight-normed `encoder.pos_conv.0`),
-    also inside Lightning checkpoints under `audio_encoder.encoder.`;
+    `encoder.layers.{i}.self_attn.{q,k,v}_proj`, weight-normed `encoder.pos_conv.0`;
+    HuBERT-Large, `hubert_large_ll60k.pt`, adds the conv biases and a LayerNorm
+    per conv, `feature_extractor.conv_layers.{i}.2.1.*`), also inside Lightning
+    checkpoints under `audio_encoder.encoder.`;
   - HuggingFace HuBERT, WavLM (the bucketed relative-position table in layer
     0's attention and each layer's gate) and data2vec-audio (a LayerNorm per
-    frontend conv, the stacked `pos_conv_embed.layers.{j}`);
+    frontend conv, the stacked `pos_conv_embed.layers.{j}`), base and large
+    (the large layers keep the base names; the frontend convs of HuBERT- and
+    WavLM-Large carry a bias);
   - OpenAI CLIP (`visual.transformer.resblocks.{i}.*`, packed `in_proj`),
     also inside Lightning checkpoints under `clip.model.`;
   - HuggingFace CLIP (separate q / k / v, packed here).
@@ -76,11 +80,11 @@ def _encoder_layers(out: Dict, sd: Mapping, cfg: HubertConfig, src: str, names: 
 
 
 def _frontend(out: Dict, sd: Mapping, cfg: HubertConfig, conv: str, norm: str) -> None:
-    """Frontend convs (without bias) and their norms: layer 0's GroupNorm, or a
-    LayerNorm after every conv."""
+    """Frontend convs (with a bias where the config has one) and their norms:
+    layer 0's GroupNorm, or a LayerNorm after every conv."""
     for i in range(len(cfg.conv_layers)):
         copy_weight_bias(out, f"feature_extractor.conv_layers.{i}.", sd, conv.format(i),
-                         bias=False)
+                         bias=cfg.conv_bias)
         if cfg.extractor_mode == "layer_norm":
             copy_weight_bias(out, f"feature_extractor.layer_norms.{i}.", sd, norm.format(i))
     if cfg.extractor_mode == "group_norm":
@@ -155,12 +159,10 @@ def hf_data2vec_audio_to_port(sd: Mapping, cfg: HubertConfig, prefix: str = "") 
 
 
 def hubert_config_from_fairseq_sd(sd: Mapping, prefix: str = "") -> HubertConfig:
-    """Base or large from the tensor shapes of a fairseq / Lightning dict; the
-    large family is not ported and raises."""
+    """Base or large from the tensor shapes of a fairseq / Lightning dict (JAX
+    ``checkpoint/towers.py:275-280``)."""
     d_model = _get(sd, f"{prefix}encoder.layers.0.fc1.weight").shape[1]
-    if d_model == 1024:
-        raise NotImplementedError("a HuBERT-Large state dict: the large family is not ported")
-    return HubertConfig()
+    return HubertConfig.large() if d_model == 1024 else HubertConfig()
 
 
 # ------------------------------------------------------------------ CLIP ----

@@ -54,6 +54,10 @@
 // a whole tile in flight at once; the bf16 cotangent is widened through
 // registers. A warp whose own rows all lie past T multiplies nothing.
 //
+// At dh = 128 (the large branches) the four (64, 132) fp32 tiles take 135 KB,
+// one block an SM, and a thread of the dk/dv pass holds 128 output
+// accumulators (dk and dv) and the 64 of the s and dp tiles.
+//
 // A head of dh = 768 (the cascaded branches) fits none of these tiles (four
 // (64, 772) fp32 tiles are 790 KB), so, as in the forward, the head dim is cut
 // across 8 warps, 96 columns each: a block owns 16 rows and walks the other
@@ -68,6 +72,17 @@
 #include <stdint.h>
 
 #include "attention_core.cuh"
+
+// the entry point's arguments but dh and the cotangent type, with and without
+// their types
+#define SC_FAB_BWD_PARAMS                                                                 \
+  const float *qkv, const float *key_bias, const float *ab, int ab_heads,                 \
+      const void *dctx, const void *ctx, const float *lse, float *dvec,                   \
+      const int64_t *seed, unsigned int keep_thresh, float inv_keep, float scale,         \
+      void *dqkv, int B, int Tn, int H, cudaStream_t stream
+#define SC_FAB_BWD_ARGS                                                                   \
+  qkv, key_bias, ab, ab_heads, dctx, ctx, lse, dvec, seed, keep_thresh, inv_keep, scale,  \
+      dqkv, B, Tn, H, stream
 
 namespace {
 
@@ -130,7 +145,7 @@ __device__ __forceinline__ ScoreGrad score_grad(float s, float dp, float bias, f
 // for one TF32 pass, to add up into dk; and w = 1 / keep is not a TF32 value,
 // so its rounding, 2.4e-4 of each term, adds up over the queries into dv.
 // Where no weight is large none of this shows: one pass leaves each output
-// 1e-3 of its own size off, inside its bf16 rounding. So at dh <= 96 the
+// 1e-3 of its own size off, inside its bf16 rounding. So at dh <= 128 the
 // precision is chosen per tile: a warp multiplies its (16 own, 64 other) tile
 // in one pass, and only where some p of the tile exceeds PRECISE_ABOVE does it
 // multiply with the compensated passes below (q k^T a second time). The choice
@@ -164,7 +179,7 @@ __device__ __forceinline__ void mma_dv(float (&c)[4], const float (&a)[4], const
     mma_split<true>(c, a, b);
 }
 
-// ---------------------------------------------------------- dh = 64 and 96 ----
+// ----------------------------------------------------- dh = 64, 96 and 128 ----
 
 constexpr int BT = 64, B_THREADS = 128;  // 64 x 64 (own, other) tiles, 4 warps
 
@@ -619,7 +634,7 @@ cudaError_t launch_bwd(BwdParams p, const void* ctx, float* dvec, int B, cudaStr
                                                          B, p.T, p.H, DH);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if constexpr (DH > 96) {
+  if constexpr (DH > 128) {
     constexpr size_t smem = bwd_wide_smem_bytes<DH>();
     err = cudaFuncSetAttribute(attention_bwd_wide_kernel<false, TG, DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -649,14 +664,10 @@ cudaError_t launch_bwd(BwdParams p, const void* ctx, float* dvec, int B, cudaStr
   return cudaGetLastError();
 }
 
-// The backward for cotangents of type TG at one of the head dims, from the
-// entry point's arguments (fused_attention_block_bwd.cu says what they are).
-template <typename TG>
-cudaError_t attention_bwd(const float* qkv, const float* key_bias, const float* ab, int ab_heads,
-                          const void* dctx, const void* ctx, const float* lse, float* dvec,
-                          const int64_t* seed, unsigned int keep_thresh, float inv_keep,
-                          float scale, void* dqkv, int B, int Tn, int H, int dh,
-                          cudaStream_t stream) {
+// The backward for cotangents of type TG at head dim DH, from the entry
+// point's arguments (fused_attention_block_bwd.cu says what they are).
+template <typename TG, int DH>
+cudaError_t attention_bwd(SC_FAB_BWD_PARAMS) {
   if (B <= 0 || Tn <= 0 || H <= 0) return cudaErrorInvalidValue;
   if (ab != nullptr && ab_heads != 1 && ab_heads != H) return cudaErrorInvalidValue;
   // the packed qkv rows are read with 16-byte loads
@@ -676,10 +687,14 @@ cudaError_t attention_bwd(const float* qkv, const float* key_bias, const float* 
   p.dqkv = dqkv;
   p.T = Tn;
   p.H = H;
-  if (dh == 64) return launch_bwd<TG, 64>(p, ctx, dvec, B, stream);
-  if (dh == 96) return launch_bwd<TG, 96>(p, ctx, dvec, B, stream);
-  if (dh == 768) return launch_bwd<TG, 768>(p, ctx, dvec, B, stream);
-  return cudaErrorInvalidValue;
+  return launch_bwd<TG, DH>(p, ctx, dvec, B, stream);
+}
+
+// a bf16 or an fp32 cotangent at head dim DH
+template <int DH>
+int attention_bwd_at(SC_FAB_BWD_PARAMS, int g_bf16) {
+  return (int)(g_bf16 ? attention_bwd<bf16, DH>(SC_FAB_BWD_ARGS)
+                      : attention_bwd<float, DH>(SC_FAB_BWD_ARGS));
 }
 
 }  // namespace

@@ -34,10 +34,12 @@
 // are conflict-free as well: v needs no transpose and no second padding.
 //
 // Two warp decompositions, one set of pieces.
-//   dh <= 96 (`attention_kernel`): a block owns 64 query rows of one (batch,
+//   dh <= 128 (`attention_kernel`): a block owns 64 query rows of one (batch,
 //   head), 128 at dh = 64, a warp 16 of them with the whole head dim; k and v
 //   tiles of 64 keys sit in shared memory whole. Row statistics span the 4
-//   lanes of a quad.
+//   lanes of a quad. At dh = 128 (the large branches: 8 heads over 1024) a
+//   thread holds 64 output and 32 score accumulators, and a block of 128
+//   threads takes (64 + 2 x 64) x 132 x 4 = 101 KB: two blocks an SM.
 //   dh = 768 (`attention_wide_kernel`; the cascaded branches run one head over
 //   the model width): a (64, 768) tile is 197 KB, so the head dim is cut
 //   across the 8 warps, 96 columns each. A warp sums the (32, 32) score tile
@@ -68,7 +70,7 @@
 // Loads. K and V tiles of fp32 sources (K1, K2) come by `cp.async`, 16 bytes
 // a request, a whole tile in flight at once, and lie in shared memory as they
 // came: a B fragment is rounded as it is loaded (two integer instructions a
-// value; a rounding pass over the tile was measured slower). At dh <= 96 the
+// value; a rounding pass over the tile was measured slower). At dh <= 128 the
 // next K tile arrives while the block multiplies p v and the V tile while it
 // multiplies q k^T, with no second buffer. bf16 sources (K4, K5, K2's
 // cotangent) are widened through registers, 8 loads a thread in flight. TMA,
@@ -355,15 +357,15 @@ struct AttnParams {
   int vec;                  // q, k and v take 16-byte loads (set by the launcher)
 };
 
-// ------------------------------------------------- forward, dh = 64 and 96 ----
+// -------------------------------------------- forward, dh = 64, 96 and 128 ----
 
 constexpr int NK = 64;
 
 // Query rows of a block, 16 a warp. At dh = 64 a block of 128 rows reads each
 // K and V tile for twice the rows of a 64-row block (the kernel moves 1.3 GB
 // through L2 at the tower's training shape with 64) and two blocks of 256
-// threads still have 128 registers a thread; at dh = 96 the accumulators want
-// more than that, so a block keeps 64 rows and 128 threads.
+// threads still have 128 registers a thread; at dh = 96 and 128 the
+// accumulators want more than that, so a block keeps 64 rows and 128 threads.
 template <int DH>
 __host__ __device__ constexpr int attention_q_rows() {
   return DH <= 64 ? 128 : 64;
@@ -773,7 +775,7 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
 
 template <typename TI, typename TO, int DH, bool HAS_AB, bool EXACT_S>
 cudaError_t launch_attention_as(const AttnParams& p, int B, cudaStream_t stream) {
-  if constexpr (DH > 96) {
+  if constexpr (DH > 128) {
     constexpr size_t smem = attention_wide_smem_bytes<DH>();
     auto kernel = attention_wide_kernel<TI, TO, DH, HAS_AB, EXACT_S>;
     cudaError_t err =

@@ -1,17 +1,15 @@
-// Fused attention block (K1): the attention kernel's entry point, and its
-// kernels for a bf16 context. The kernels are the forward templates of
-// attention_core.cuh; the projection GEMMs and the note on the whole block
-// are in fused_attention_block.cu; the kernels for an fp32 context are
-// instantiated in fused_attention_block_attn_f32.cu. Sources of their own so
-// that they compile side by side.
+// Fused attention block (K1): the attention kernel's entry point. The kernels
+// are the forward templates of attention_core.cuh, instantiated per head dim
+// in fused_attention_block_attn_dh{64,96,128,768}.cu; the projection GEMMs and
+// the note on the whole block are in fused_attention_block.cu.
 #include "fused_attention_block_attn.cuh"
 
 extern "C" {
 
-int sc_fab_attention_f32(const float* qkv, const float* key_bias, void* ctx, int B, int Tn, int H,
-                         int dh, const float* ab, int ab_heads, const float* gate,
-                         const int64_t* seed, unsigned int keep_thresh, float inv_keep,
-                         float* lse, cudaStream_t stream);
+int sc_fab_attention_dh64(SC_FAB_ATTN_PARAMS, int ctx_bf16);
+int sc_fab_attention_dh96(SC_FAB_ATTN_PARAMS, int ctx_bf16);
+int sc_fab_attention_dh128(SC_FAB_ATTN_PARAMS, int ctx_bf16);
+int sc_fab_attention_dh768(SC_FAB_ATTN_PARAMS, int ctx_bf16);
 
 // ctx (B, T, H*dh), fp32 or bf16 (ctx_bf16), = per-head
 // softmax(q k^T + key_bias [+ gate * ab]) v over the packed fp32 qkv
@@ -21,17 +19,19 @@ int sc_fab_attention_f32(const float* qkv, const float* key_bias, void* ctx, int
 // (device int64 [seed, offset]; null for none) the weights go through the
 // dropout mask of dropout_mask.cuh with `keep_thresh`, kept ones scaled by
 // `inv_keep`. `lse` (B, H, T) fp32 receives the per-row log-sum-exp when
-// not null.
+// not null. dh is 64, 96, 128 or 768.
 int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
                      int B, int Tn, int H, int dh, int ctx_bf16,
                      const float* ab, int ab_heads, const float* gate,
                      const int64_t* seed, unsigned int keep_thresh, float inv_keep,
                      float* lse, cudaStream_t stream) {
-  if (!ctx_bf16)
-    return sc_fab_attention_f32(qkv, key_bias, ctx, B, Tn, H, dh, ab, ab_heads, gate, seed,
-                                keep_thresh, inv_keep, lse, stream);
-  return (int)block_attention<bf16>(qkv, key_bias, ctx, B, Tn, H, dh, ab, ab_heads, gate, seed,
-                                    keep_thresh, inv_keep, lse, stream);
+  switch (dh) {
+    case 64: return sc_fab_attention_dh64(SC_FAB_ATTN_ARGS, ctx_bf16);
+    case 96: return sc_fab_attention_dh96(SC_FAB_ATTN_ARGS, ctx_bf16);
+    case 128: return sc_fab_attention_dh128(SC_FAB_ATTN_ARGS, ctx_bf16);
+    case 768: return sc_fab_attention_dh768(SC_FAB_ATTN_ARGS, ctx_bf16);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

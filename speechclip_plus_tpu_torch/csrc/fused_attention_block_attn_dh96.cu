@@ -1,0 +1,8 @@
+// Fused attention block (K1): the attention kernels at head dim 96, for a bf16
+// and an fp32 context, reached through sc_fab_attention. The base branches (8 heads
+// over 768).
+#include "fused_attention_block_attn.cuh"
+
+extern "C" int sc_fab_attention_dh96(SC_FAB_ATTN_PARAMS, int ctx_bf16) {
+  return block_attention_at<96>(SC_FAB_ATTN_ARGS, ctx_bf16);
+}

@@ -42,8 +42,9 @@
 //   dx = (dz / t) . en  (N, D) fp32,   dt = sum dz * (-s / t^2).
 // The TPU held the table resident and the (R, V) tiles of s, u and p in
 // VMEM. Here the work is 5 N x D x V products (s and u twice, then dx: 399
-// GFLOP at N = 9600, D = 512, V = 8112) against a few MB of traffic, so it is
-// bound by operations, and no (N, V) tensor reaches device memory. In bf16
+// GFLOP at N = 9600, D = 512, V = 8112; 598 at D = 768) against a few MB of
+// traffic, so it is bound by operations, and no (N, V) tensor reaches device
+// memory. In bf16
 // the products run on the tensor cores as K3's do; fp32 keeps an FMA tile.
 // The grid is (row tiles, V splits), the split count chosen by the wrapper
 // (`_bwd_plan`); the passes are described at K3b's code. g and dz / t are
@@ -812,26 +813,38 @@ __global__ void __launch_bounds__(V_THREADS) vq_bwd_fma_kernel(
   }
 }
 
-// ---- bf16: the tensor-core tile (64 rows, 8 warps, mma.sync m16n8k16) ----
+// ---- bf16: the tensor-core tile (64 or 32 rows, 8 warps, mma.sync m16n8k16) ----
 //
 // The block keeps its x and g rows and one 64-column tile of en in shared
 // memory (bf16 rows padded by 16 bytes, so that the 8 row addresses of an
-// `ldmatrix` fall on distinct banks; 208 KB at D = 512: one block an SM).
-// Warp (rg, ch) forms s = x . en^T and u = g . en^T for rows 16 rg.. and
-// columns 32 ch.. of the tile, reading x, g and en by `ldmatrix`; pass 2
-// rounds w = dz / t to bf16 into a (64, 64) shared tile, and warp k
-// multiplies all 64 rows of w by columns [64 k, 64 k + 64) of the same en
-// tile (`ldmatrix.trans`: en is the B operand as it lies), keeping that
-// (64, 64) part of dx in 128 registers a thread for the whole split.
+// `ldmatrix` fall on distinct banks). Up to D = 512 a block owns 64 rows
+// (208 KB at D = 512: one block an SM); beyond, 32 rows (201 KB at D = 768,
+// the large family's CLIP width), since 64 rows of x and g at 768 alone take
+// 194 KB. Warp (rg, ch) forms s = x . en^T and u = g . en^T for rows 16 rg..
+// and columns WC ch.. of the tile (64 rows: 4 x 2 warps of 32 columns; 32
+// rows: 2 x 4 warps of 16), reading x, g and en by `ldmatrix`; pass 2 rounds
+// w = dz / t to bf16 into a (rows, 64) shared tile, and warp k multiplies all
+// rows of w by columns [DC k, DC (k + 1)) of the same en tile
+// (`ldmatrix.trans`: en is the B operand as it lies), keeping that part of dx
+// in registers for the whole split: DC = 64 columns over 64 rows, or 96 over
+// 32 rows, 128 or 96 registers a thread.
 
-constexpr int TR = 64;         // rows per block
 constexpr int T_THREADS = 256;
-constexpr int T_DMAX = 512;    // the dx accumulators cover D = 8 warps x 64 columns
+constexpr int T_DMAX = 768;     // the widest D of the 32-row tile
+constexpr int T_DMAX_64 = 512;  // the widest D of the 64-row tile
 constexpr int WLD = VC + TPAD;  // row stride of the w tile
 
-size_t tc_smem_bytes(int D) {
-  return sizeof(bf16) * ((size_t)(2 * TR + VC) * (D + TPAD) + (size_t)TR * WLD) +
-         sizeof(float) * (2 * VC + 2 * TR * 3 + T_THREADS / 32);
+// the tile's shapes for ROWS rows: row groups of 16, warps a row group in
+// the s / u tile, its columns a warp, and dx columns a warp
+template <int ROWS>
+struct TcTile {
+  static constexpr int RG = ROWS / 16, CH = 8 / RG, WC = VC / CH, NJ = WC / 8;
+  static constexpr int DC = (ROWS == 64 ? T_DMAX_64 : T_DMAX) / 8;
+};
+
+size_t tc_smem_bytes(int rows, int D) {
+  return sizeof(bf16) * ((size_t)(2 * rows + VC) * (D + TPAD) + (size_t)rows * WLD) +
+         sizeof(float) * (2 * VC + 8 * 16 * 3 + T_THREADS / 32);
 }
 
 // columns [c0, c0 + 64) of en into es (zeros from cend on) in 4 commit groups,
@@ -859,14 +872,15 @@ __device__ __forceinline__ void load_en_tile(bf16* es, float* nrm, int* live,
   }
 }
 
-// s and u of the warp's 16 rows and 32 columns (4 n8 tiles): waits for the en
-// tile's groups one by one, so that the later quarters of D arrive under the
+// s and u of the warp's 16 rows and NJ x 8 columns: waits for the en tile's
+// groups one by one, so that the later quarters of D arrive under the
 // products of the earlier ones. x_at, g_at and e_at are the lane's ldmatrix
 // addresses at k = 0. Its first barrier also publishes the tile's flags.
+template <int NJ>
 __device__ __forceinline__ void su_tile(uint32_t x_at, uint32_t g_at, uint32_t e_at, int D,
-                                        int ld, float (&s)[4][4], float (&u)[4][4]) {
+                                        int ld, float (&s)[NJ][4], float (&u)[NJ][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = u[j][e] = 0.f;
   const int steps = D / 16;
@@ -881,7 +895,7 @@ __device__ __forceinline__ void su_tile(uint32_t x_at, uint32_t g_at, uint32_t e
       ldsm_x4(xa, x_at + ko);
       ldsm_x4(ga, g_at + ko);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+      for (int jj = 0; jj < NJ / 2; ++jj) {
         uint32_t b[4];
         ldsm_x4(b, e_at + jj * 16 * ld * sizeof(bf16) + ko);
         mma_bf16(s[2 * jj], xa, b[0], b[1]);
@@ -893,32 +907,34 @@ __device__ __forceinline__ void su_tile(uint32_t x_at, uint32_t g_at, uint32_t e
   }
 }
 
-template <bool DX>
+template <int ROWS, bool DX>
 __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ en,
     const float* __restrict__ norms, const int* __restrict__ mask, int N, int V, int D,
     int splits, int cols_per_split, float inv_t, float* __restrict__ stats,
     float* __restrict__ dx_out, float* __restrict__ dt_part) {
+  using Tile = TcTile<ROWS>;
+  constexpr int RG = Tile::RG, CH = Tile::CH, WC = Tile::WC, NJ = Tile::NJ, DC = Tile::DC;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = D + TPAD;
   bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = xs + TR * ld;
-  bf16* es = gs + TR * ld;
+  bf16* gs = xs + ROWS * ld;
+  bf16* es = gs + ROWS * ld;
   bf16* ws = es + VC * ld;
-  float* nrm = reinterpret_cast<float*>(ws + TR * WLD);
+  float* nrm = reinterpret_cast<float*>(ws + ROWS * WLD);
   int* live = reinterpret_cast<int*>(nrm + VC);
-  float* rowst = reinterpret_cast<float*>(live + VC);  // [2][TR][3]
-  float* red = rowst + 2 * TR * 3;                     // [T_THREADS / 32]
+  float* rowst = reinterpret_cast<float*>(live + VC);  // [CH][ROWS][3]
+  float* red = rowst + CH * ROWS * 3;                  // [T_THREADS / 32]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int rg = warp & 3, ch = warp >> 2;  // s and u: rows 16 rg.., columns 32 ch..
-  const int r0 = blockIdx.x * TR, split = blockIdx.y;
+  const int rg = warp % RG, ch = warp / RG;  // s and u: rows 16 rg.., columns WC ch..
+  const int r0 = blockIdx.x * ROWS, split = blockIdx.y;
   const int cbeg = split * cols_per_split, cend = min(V, cbeg + cols_per_split);
 
   // x and g rows, zeros past N: one commit group, which the first tile's
   // first wait covers
   const int chunks = D / 8;
-  for (int e = tid; e < TR * chunks; e += T_THREADS) {
+  for (int e = tid; e < ROWS * chunks; e += T_THREADS) {
     const int r = e / chunks, ck = e % chunks;
     const bool in = r0 + r < N;
     const size_t o = (size_t)(in ? r0 + r : 0) * D + ck * 8;
@@ -927,30 +943,30 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
   }
   cp_async_commit();
   const uint32_t x_at = smem_u32(xs + (16 * rg + (lane & 15)) * ld + (lane >> 4) * 8);
-  const uint32_t g_at = x_at + TR * ld * sizeof(bf16);
+  const uint32_t g_at = x_at + ROWS * ld * sizeof(bf16);
   const uint32_t e_at =
-      smem_u32(es + (32 * ch + (lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
+      smem_u32(es + (WC * ch + (lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
 
   if (!DX) {
     float m[2] = {INIT_MAX, INIT_MAX}, z[2] = {0.f, 0.f}, zu[2] = {0.f, 0.f};
     for (int c0 = cbeg; c0 < cend; c0 += VC) {
       load_en_tile(es, nrm, live, en, norms, mask, cend, D, ld, c0);
-      float s[4][4], u[4][4];
-      su_tile(x_at, g_at, e_at, D, ld, s, u);
+      float s[NJ][4], u[NJ][4];
+      su_tile<NJ>(x_at, g_at, e_at, D, ld, s, u);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {  // rows gq + 8 i: accumulator entries 2 i, 2 i + 1
         float tm = INIT_MAX;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (live[32 * ch + 8 * j + 2 * tq + e]) tm = fmaxf(tm, s[j][2 * i + e] * inv_t);
+            if (live[WC * ch + 8 * j + 2 * tq + e]) tm = fmaxf(tm, s[j][2 * i + e] * inv_t);
         float te = 0.f, tu = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int col = 32 * ch + 8 * j + 2 * tq + e;
+            const int col = WC * ch + 8 * j + 2 * tq + e;
             if (!live[col]) continue;
             const float ee = expf(s[j][2 * i + e] * inv_t - tm);
             te += ee;
@@ -961,7 +977,7 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
       __syncthreads();  // es, nrm and live are rewritten by the next tile
     }
     cp_async_wait(0);
-    // the quad's four column sets, then the two warps of a row group
+    // the quad's four column sets, then the CH warps of a row group in order
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -972,18 +988,21 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
         merge_ezu(m[i], z[i], zu[i], m2, z2, zu2);
       }
       if (tq == 0) {
-        float* o = rowst + (ch * TR + 16 * rg + gq + 8 * i) * 3;
+        float* o = rowst + (ch * ROWS + 16 * rg + gq + 8 * i) * 3;
         o[0] = m[i];
         o[1] = z[i];
         o[2] = zu[i];
       }
     }
     __syncthreads();
-    if (tid < TR && r0 + tid < N) {
+    if (tid < ROWS && r0 + tid < N) {
       const float* a = rowst + tid * 3;
-      const float* b = rowst + (TR + tid) * 3;
       float mm = a[0], zz = a[1], zzu = a[2];
-      merge_ezu(mm, zz, zzu, b[0], b[1], b[2]);
+#pragma unroll
+      for (int c = 1; c < CH; ++c) {
+        const float* b = rowst + (c * ROWS + tid) * 3;
+        merge_ezu(mm, zz, zzu, b[0], b[1], b[2]);
+      }
       const size_t sn = (size_t)splits * N, o = (size_t)split * N + r0 + tid;
       stats[o] = mm;
       stats[sn + o] = zz;
@@ -992,31 +1011,31 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
     return;
   }
 
-  if (tid < TR) merged_row(stats, splits, N, r0 + tid, rowst + tid * 3);  // read after a barrier
-  float acc[4][8][4];  // dx: rows 16 mi + .., columns 64 warp + 8 n + ..
+  if (tid < ROWS) merged_row(stats, splits, N, r0 + tid, rowst + tid * 3);  // read after a barrier
+  float acc[RG][DC / 8][4];  // dx: rows 16 mi + .., columns DC warp + 8 n + ..
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < RG; ++mi)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
   float dt_acc = 0.f;
-  const int d_base = 64 * warp;
+  const int d_base = DC * warp;
   const uint32_t w_at = smem_u32(ws + (lane & 15) * WLD + (lane >> 4) * 8);
   const uint32_t et_at =
       smem_u32(es + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + d_base + (lane >> 4) * 8);
   for (int c0 = cbeg; c0 < cend; c0 += VC) {
     load_en_tile(es, nrm, live, en, norms, mask, cend, D, ld, c0);
-    float s[4][4], u[4][4];
-    su_tile(x_at, g_at, e_at, D, ld, s, u);
+    float s[NJ][4], u[NJ][4];
+    su_tile<NJ>(x_at, g_at, e_at, D, ld, s, u);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = 16 * rg + gq + 8 * i;
       const float mr = rowst[row * 3], iz = rowst[row * 3 + 1], rho = rowst[row * 3 + 2];
       const bool row_ok = r0 + row < N;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = 32 * ch + 8 * j + 2 * tq;
+      for (int j = 0; j < NJ; ++j) {
+        const int col = WC * ch + 8 * j + 2 * tq;
         float w[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -1037,17 +1056,17 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
     if (d_base < D) {
 #pragma unroll
       for (int ks = 0; ks < VC / 16; ++ks) {
-        uint32_t a[4][4];
+        uint32_t a[RG][4];
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
+        for (int mi = 0; mi < RG; ++mi)
           ldsm_x4(a[mi], w_at + (mi * 16 * WLD + ks * 16) * sizeof(bf16));
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < DC / 16; ++jj) {
           if (d_base + 16 * jj >= D) continue;
           uint32_t b[4];
           ldsm_x4_trans(b, et_at + (ks * 16 * ld + 16 * jj) * sizeof(bf16));
 #pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
+          for (int mi = 0; mi < RG; ++mi) {
             mma_bf16(acc[mi][2 * jj], a[mi], b[0], b[1]);
             mma_bf16(acc[mi][2 * jj + 1], a[mi], b[2], b[3]);
           }
@@ -1061,9 +1080,9 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
   float* out = dx_out + (size_t)split * N * D;
   if (d_base < D) {
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+    for (int mi = 0; mi < RG; ++mi)
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = r0 + 16 * mi + gq + 8 * h, d = d_base + 8 * n + 2 * tq;
@@ -1081,6 +1100,27 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
     for (int i = 0; i < T_THREADS / 32; ++i) sum += red[i];
     dt_part[blockIdx.x * splits + split] = sum;
   }
+}
+
+template <int ROWS>
+cudaError_t launch_vq_bwd_tc(const bf16* x, const bf16* g, const bf16* en, const float* norms,
+                             const int* mask, int N, int V, int D, const dim3 grid, int splits,
+                             int cols_per_split, float inv_t, float* stats, float* out,
+                             float* dt_part, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(ROWS, D);
+  cudaError_t err = cudaFuncSetAttribute(vq_bwd_tc_kernel<ROWS, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(vq_bwd_tc_kernel<ROWS, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  vq_bwd_tc_kernel<ROWS, false><<<grid, T_THREADS, smem, stream>>>(
+      x, g, en, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  vq_bwd_tc_kernel<ROWS, true><<<grid, T_THREADS, smem, stream>>>(
+      x, g, en, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
+  return cudaGetLastError();
 }
 
 // ---- pass 3 ----
@@ -1109,9 +1149,8 @@ __global__ void vq_bwd_dt_kernel(const float* __restrict__ part, int n, float* _
 
 cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void* en,
                           const float* norms, const int* mask, int N, int V, int D, float t,
-                          int splits, float* stats, float* dx_part, float* dt_part, float* dx,
-                          float* dt, cudaStream_t stream) {
-  const int rows = is_bf16 ? TR : VR;
+                          int rows, int splits, float* stats, float* dx_part, float* dt_part,
+                          float* dx, float* dt, cudaStream_t stream) {
   const int col_tiles = (V + VC - 1) / VC, row_tiles = (N + rows - 1) / rows;
   const int cols_per_split = (col_tiles + splits - 1) / splits * VC;
   const dim3 grid(row_tiles, splits);
@@ -1119,21 +1158,13 @@ cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void*
   const float inv_t = 1.f / t;
   cudaError_t err;
   if (is_bf16) {
-    const size_t smem = tc_smem_bytes(D);
     const bf16 *xb = static_cast<const bf16*>(x), *gb = static_cast<const bf16*>(g),
                *eb = static_cast<const bf16*>(en);
-    err = cudaFuncSetAttribute(vq_bwd_tc_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = rows == 64 ? launch_vq_bwd_tc<64>(xb, gb, eb, norms, mask, N, V, D, grid, splits,
+                                            cols_per_split, inv_t, stats, out, dt_part, stream)
+                     : launch_vq_bwd_tc<32>(xb, gb, eb, norms, mask, N, V, D, grid, splits,
+                                            cols_per_split, inv_t, stats, out, dt_part, stream);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(vq_bwd_tc_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    vq_bwd_tc_kernel<false><<<grid, T_THREADS, smem, stream>>>(
-        xb, gb, eb, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    vq_bwd_tc_kernel<true><<<grid, T_THREADS, smem, stream>>>(
-        xb, gb, eb, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
   } else {
     const size_t smem = sizeof(float) * VR * D;
     const float *xf = static_cast<const float*>(x), *gf = static_cast<const float*>(g),
@@ -1223,10 +1254,10 @@ cudaError_t launch_vq(int is_bf16, const void* x, const void* en, const int* mas
 extern "C" {
 
 // Straight-through backward. x, g (N, D) and en (V, D) in the compute dtype
-// (is_bf16), row-major, 16-byte aligned, D a multiple of 16 (at most 512 in
+// (is_bf16), row-major, 16-byte aligned, D a multiple of 16 (at most 768 in
 // bf16, 1024 in fp32); norms (V,) fp32 = ||emb||, mask (V,) int32, t the
-// temperature. rows (64 in bf16, 32 in fp32) and splits come from the
-// wrapper's plan. Scratch: stats 3 * splits * N fp32, dx_part splits * N * D
+// temperature. rows (bf16: 64 up to D = 512, else 32; fp32: 32) and splits
+// come from the wrapper's plan. Scratch: stats 3 * splits * N fp32, dx_part splits * N * D
 // fp32 (unused, may be null, when splits == 1), dt_part ceil(N / rows) *
 // splits fp32. Outputs: dx (N, D) fp32, dt (1,) fp32. Returns a cudaError_t.
 int sc_vq_bwd(const void* x, const void* g, const void* en, const float* norms,
@@ -1234,12 +1265,13 @@ int sc_vq_bwd(const void* x, const void* g, const void* en, const float* norms,
               float* stats, float* dx_part, float* dt_part, float* dx, float* dt,
               cudaStream_t stream) {
   const int col_tiles = V > 0 ? (V + VC - 1) / VC : 0;
+  const int want_rows = !is_bf16 ? VR : D <= T_DMAX_64 ? 64 : 32;
   if (N <= 0 || V <= 0 || D <= 0 || D % 16 || D > (is_bf16 ? T_DMAX : 1024) || !(t > 0.f) ||
-      rows != (is_bf16 ? TR : VR) || splits < 1 || splits > col_tiles ||
+      rows != want_rows || splits < 1 || splits > col_tiles ||
       (splits > 1 && dx_part == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_vq_bwd(is_bf16, x, g, en, norms, mask, N, V, D, t, splits, stats, dx_part,
-                            dt_part, dx, dt, stream);
+  return (int)launch_vq_bwd(is_bf16, x, g, en, norms, mask, N, V, D, t, rows, splits, stats,
+                            dx_part, dt_part, dx, dt, stream);
 }
 
 // Forward. x (N, D) and en (V, D) in the compute dtype (is_bf16), row-major,

@@ -65,6 +65,13 @@ class ClipConfig:
         return ClipConfig()
 
     @staticmethod
+    def vit_l14() -> "ClipConfig":
+        """ViT-L/14 (JAX ``models/clip.py:89-99``): 257 tokens at 224, 16 heads
+        of 64; a 768-wide text tower with 12 heads."""
+        return ClipConfig(embed_dim=768, vision_width=1024, vision_layers=24, vision_heads=16,
+                          vision_patch_size=14, text_width=768, text_heads=12, text_layers=12)
+
+    @staticmethod
     def tiny(**kw) -> "ClipConfig":
         """`speechclip_plus_tpu.models.clip.ClipConfig.tiny`."""
         defaults = dict(embed_dim=16, image_resolution=32, vision_width=24, vision_layers=2,

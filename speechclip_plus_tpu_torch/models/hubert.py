@@ -1,4 +1,4 @@
-"""HuBERT-base, WavLM-base and data2vec-audio-base acoustic towers.
+"""HuBERT, WavLM and data2vec-audio acoustic towers, base and large.
 
 Port of ``speechclip_plus_tpu/models/hubert.py`` (reference
 ``avssl/module/speech_encoder_plus.py:29-107``), forward only (the tower is
@@ -44,13 +44,22 @@ at the JAX sites, all p=0.1 for HuBERT-base: features after the projection
 (``:920``, ``:928-929``) and the attention weights inside K1;
 `activation_dropout` is 0 (``:917``). The reference trains with dropout on
 in the frozen tower (`audio_encoder.frozen_dropout`, default true). The
-softmax-weighted sum over the 13 hidden states is accumulated inside the layer loop (JAX ``:1016-1044``), so no (13, B, T, D)
+softmax-weighted sum over the L+1 hidden states (13, or 25 large) is accumulated inside the layer loop (JAX ``:1016-1044``), so no (L+1, B, T, D)
 stack exists. The pos-conv weight norm is materialized to one kernel, as the
 JAX side stores it (``:627-680``): the tower is frozen.
 
+The large towers (`HubertConfig.large`, `wavlm_large`, `data2vec_large`, JAX
+``:174-212``) are 24 layers of D=1024 with 16 heads (K1 at dh=64). HuBERT-Large
+and WavLM-Large add a bias to every frontend conv (`conv_bias`, JAX ``:66``,
+``:501``) and run their layers pre-norm (`layer_norm_first`, JAX ``:924-930``):
+`x + drop(attn(ln(x)))`, then `x + drop(ffn(ln(x)))`, K1 taking the normed
+input and the residual staying outside it. The encoder LayerNorm of a
+pre-norm tower keeps its parameters (the checkpoints carry them) but is not
+applied to the hidden states (JAX ``:973-980``). data2vec-large is the base
+data2vec structure at large width (post-norm, no conv bias).
+
 Layouts at the public surface follow JAX: waveforms (B, T), features
-(B, T', D). The large family (HuBERT-Large, `wavlm_large`, `data2vec_large`)
-is not ported yet.
+(B, T', D).
 """
 from __future__ import annotations
 
@@ -81,10 +90,13 @@ class HubertConfig:
     # "group_norm": GroupNorm on layer 0 (HuBERT, WavLM); "layer_norm": a
     # LayerNorm over channels after every conv (data2vec)
     extractor_mode: str = "group_norm"
+    conv_bias: bool = False  # a bias on every frontend conv (HuBERT-Large, WavLM-Large)
     d_model: int = 768
     n_layers: int = 12
     n_heads: int = 12
     ffn_dim: int = 3072
+    # pre-norm layers, and no encoder LayerNorm on the hidden states (large)
+    layer_norm_first: bool = False
     conv_pos: int = 128
     conv_pos_groups: int = 16
     # data2vec's stacked positional conv: depth x [conv -> LayerNorm without
@@ -119,8 +131,19 @@ class HubertConfig:
         return self.n_layers + 1
 
     @staticmethod
+    def large() -> "HubertConfig":
+        """fairseq HuBERT-Large (`hubert_large_ll60k`): the layer-norm frontend
+        with conv bias, 24 pre-norm layers of D=1024, 16 heads, FFN 4096."""
+        return HubertConfig(extractor_mode="layer_norm", conv_bias=True, d_model=1024,
+                            n_layers=24, n_heads=16, ffn_dim=4096, layer_norm_first=True)
+
+    @staticmethod
     def wavlm_base() -> "HubertConfig":
         return HubertConfig(rel_pos_bias=True)
+
+    @staticmethod
+    def wavlm_large() -> "HubertConfig":
+        return dataclasses.replace(HubertConfig.large(), rel_pos_bias=True)
 
     @staticmethod
     def data2vec_base() -> "HubertConfig":
@@ -128,19 +151,24 @@ class HubertConfig:
         return HubertConfig(extractor_mode="layer_norm", conv_pos=19, pos_conv_depth=5)
 
     @staticmethod
+    def data2vec_large() -> "HubertConfig":
+        return dataclasses.replace(HubertConfig.data2vec_base(), d_model=1024, n_layers=24,
+                                   n_heads=16, ffn_dim=4096)
+
+    @staticmethod
     def from_upstream_name(name: str) -> "HubertConfig":
+        """An s3prl / reference `audio_encoder.name` to its tower (JAX ``:215``)."""
         n = name.lower()
-        if "large" not in n:
-            if "wavlm" in n:
-                return HubertConfig.wavlm_base()
-            if "data2vec" in n:
-                return HubertConfig.data2vec_base()
-            if "hubert" in n or "wav2vec2" in n:
-                return HubertConfig()
+        large = "large" in n
+        if "wavlm" in n:
+            return HubertConfig.wavlm_large() if large else HubertConfig.wavlm_base()
+        if "data2vec" in n:
+            return HubertConfig.data2vec_large() if large else HubertConfig.data2vec_base()
+        if "hubert" in n or "wav2vec2" in n:
+            return HubertConfig.large() if large else HubertConfig()
         raise NotImplementedError(
-            f"audio_encoder.name={name!r}: the PyTorch port has the HuBERT-base, "
-            "WavLM-base (wavlm_base, wavlm_base_plus) and data2vec-audio-base (data2vec) "
-            "towers (the large family and the mel upstreams are later slices)")
+            f"audio_encoder.name={name!r}: the PyTorch port has the HuBERT, WavLM and "
+            "data2vec-audio towers, base and large (the mel upstreams are a later slice)")
 
     @staticmethod
     def tiny(**kw) -> "HubertConfig":
@@ -210,7 +238,7 @@ class ConvFeatureExtractor(nn.Module):
             raise NotImplementedError(f"extractor_mode {self.mode!r}")
         convs, cin = [], 1
         for ch, k, s in cfg.conv_layers:
-            convs.append(nn.Conv1d(cin, ch, k, stride=s, bias=False, dtype=cfg.dtype))
+            convs.append(nn.Conv1d(cin, ch, k, stride=s, bias=cfg.conv_bias, dtype=cfg.dtype))
             cin = ch
         self.conv_layers = nn.ModuleList(convs)
         if self.mode == "group_norm":
@@ -267,7 +295,8 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class HubertEncoderLayer(nn.Module):
-    """Post-norm fairseq TransformerSentenceEncoderLayer."""
+    """fairseq TransformerSentenceEncoderLayer, post-norm or (`layer_norm_first`)
+    pre-norm."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
@@ -326,10 +355,15 @@ class HubertEncoderLayer(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         c, g = self.cfg, generator
+        ffn = lambda h: self.fc2(F.gelu(self.fc1(h)))  # activation_dropout is 0 (JAX :917)
+        if c.layer_norm_first:
+            attn = self.attention(self.self_attn_layer_norm(x), key_padding_bias, g,
+                                  position_bias)
+            x = x + dropout(attn, c.dropout, g)
+            return x + dropout(ffn(self.final_layer_norm(x)), c.dropout, g)
         attn = self.attention(x, key_padding_bias, g, position_bias)
         x = self.self_attn_layer_norm(x + dropout(attn, c.dropout, g))
-        h = F.gelu(self.fc1(x))  # activation_dropout is 0 (JAX :917)
-        return self.final_layer_norm(x + dropout(self.fc2(h), c.dropout, g))
+        return self.final_layer_norm(x + dropout(ffn(x), c.dropout, g))
 
 
 class HubertModel(nn.Module):
@@ -384,7 +418,10 @@ class HubertModel(nn.Module):
         if self.post_extract_proj is not None:
             feats = self.post_extract_proj(feats)
         x = dropout(feats, p, g).masked_fill(pad[:, :, None], 0.0)
-        x = dropout(self.encoder_layer_norm(x + self.pos_conv(x)), p, g)
+        x = x + self.pos_conv(x)
+        if not self.cfg.layer_norm_first:  # a pre-norm tower keeps the norm unapplied
+            x = self.encoder_layer_norm(x)
+        x = dropout(x, p, g)
         bias = padding_bias(pad)
         position_bias = self.position_bias(x.shape[1])
         acc = layer_weights[0] * x.float().detach()

@@ -1,8 +1,9 @@
 """KWClip: the SpeechCLIP and SpeechCLIP+ models.
 
 Port of ``speechclip_plus_tpu/models/kwclip.py`` for the five branch families
-at base width (parallel, cascaded, cascaded+, hybrid, hybrid+): frozen HuBERT
-or WavLM tower -> softmax-weighted sum of its hidden states -> the branch; the
+(parallel, cascaded, cascaded+, hybrid, hybrid+) with the base or large towers
+(ViT-B/32 or ViT-L/14; HuBERT, WavLM or data2vec, base or large): frozen acoustic
+tower -> softmax-weighted sum of its hidden states -> the branch; the
 keywords of a cascaded or hybrid branch go through the frozen CLIP text tower
 (`encode_keywords`); images through the frozen ViT, or come as cached image
 features. A model with one objective has one feature: the other is None in
@@ -117,7 +118,7 @@ class KWClipConfig:
     def from_config(cfg, *, vocab_size: Optional[int] = None, sot_id: Optional[int] = None,
                     eot_id: Optional[int] = None) -> "KWClipConfig":
         """From a reference-format ConfigNode: the parallel, cascaded,
-        cascaded+, hybrid and hybrid+ families at base width (JAX
+        cascaded+, hybrid and hybrid+ families, base or large (JAX
         ``:150-627``). Keys the port does not implement raise by name."""
         ms = cfg.model_settings
         c_w = float(getattr(ms, "cascaded_objective_weight", 0.0))
@@ -155,7 +156,7 @@ class KWClipConfig:
             width = int(getattr(cfg.clip, "tiny_width", 32))
             clip_cfg = ClipConfig.tiny(text_width=width, embed_dim=width)
         elif "L/14" in cfg.clip.name:
-            raise NotImplementedError("ViT-L/14 (the large family) is a later slice")
+            clip_cfg = ClipConfig.vit_l14()
         else:
             clip_cfg = ClipConfig.vit_b32()
         if vocab_size is not None:

@@ -29,7 +29,7 @@ __all__ = ["tf32_round", "split_tf32", "rounded_matmul", "emulated_attention",
            "emulated_attention_backward", "MODES", "PRECISE_ABOVE"]
 
 MODES = ("fp32", "tf32", "tf32x3")
-# K2 with a bf16 cotangent at dh <= 96: a (16 own, 64 other) tile that holds a
+# K2 with a bf16 cotangent at dh <= 128: a (16 own, 64 other) tile that holds a
 # weight above this takes the compensated passes (csrc/attention_bwd.cuh)
 PRECISE_ABOVE = 0.25
 
@@ -118,7 +118,7 @@ def emulated_attention_backward(qkv, key_padding_bias, dctx, ctx, lse, n_heads: 
     fp32, every one of the five products with its operands rounded.
 
     Under "tf32" (a bf16 cotangent, whose values `dctx` must hold; head dim
-    up to 96) the precision is the kernel's, chosen per tile: a warp forms q kᵀ
+    up to 128) the precision is the kernel's, chosen per tile: a warp forms q kᵀ
     and dctx vᵀ of its (16 own, 64 other) rows in one pass, and where a weight
     of the tile exceeds `precise_above` it forms them again at fp32 accuracy
     and keeps the dropped weights unrounded in wᵀ dctx; ds k and dsᵀ q take one
@@ -129,7 +129,7 @@ def emulated_attention_backward(qkv, key_padding_bias, dctx, ctx, lse, n_heads: 
     b, t, d3 = qkv.shape
     d = d3 // 3
     dh = d // n_heads
-    if dh > 96:
+    if dh > 128:
         precise_above = -1.0
     q, k, v = (_heads(a, b, t, n_heads) for a in qkv.split(d, dim=-1))
     g, o = _heads(dctx, b, t, n_heads), _heads(ctx, b, t, n_heads)

@@ -33,12 +33,13 @@ from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 from .fused_attention_block import _HEAD_DIMS, attention_forward, check_attn_bias
 
 __all__ = ["fused_attention_block_vjp", "attention_backward", "plain_attention_backward",
-           "LAUNCHES", "WIDE_LAUNCHES", "BIAS_LAUNCHES"]
+           "LAUNCHES", "WIDE_LAUNCHES", "DH128_LAUNCHES", "BIAS_LAUNCHES"]
 
 # wrapper calls that ran K2 on the card; those of them at a head of 768 (the
 # wide-head kernels) and those with a per-head bias
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
+DH128_LAUNCHES = 0  # of them at a head of 128 (the large branches)
 BIAS_LAUNCHES = 0
 
 
@@ -77,7 +78,7 @@ def plain_attention_backward(qkv, key_padding_bias, dctx, ctx, lse, n_heads: int
 
 def _launch_bwd(qkv, key_padding_bias, dctx, ctx, lse, n_heads, seeds, keep_prob,
                 attn_bias=None):
-    global LAUNCHES, WIDE_LAUNCHES, BIAS_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, BIAS_LAUNCHES
     from ..utils.cuda_build import check, kernels
 
     b, t, d3 = qkv.shape
@@ -120,6 +121,7 @@ def _launch_bwd(qkv, key_padding_bias, dctx, ctx, lse, n_heads, seeds, keep_prob
             torch.cuda.current_stream().cuda_stream), "fused_attention_block backward")
     LAUNCHES += 1
     WIDE_LAUNCHES += dh == 768
+    DH128_LAUNCHES += dh == 128
     BIAS_LAUNCHES += ab is not None
     return dqkv
 

@@ -29,11 +29,15 @@ from typing import Dict, Sequence
 import torch
 
 __all__ = ["cosine_vq_stats", "plain_cosine_vq_stats", "st_backward", "plain_st_backward",
-           "fused_cosine_vq", "LAUNCHES", "BWD_LAUNCHES"]
+           "fused_cosine_vq", "LAUNCHES", "BWD_LAUNCHES", "D768_LAUNCHES",
+           "BWD_D768_LAUNCHES"]
 
-# wrapper calls that ran the kernels on the card: K3 (forward), K3b (backward)
+# wrapper calls that ran the kernels on the card: K3 (forward), K3b (backward),
+# and those of them at the large family's codebook width, D=768
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+D768_LAUNCHES = 0
+BWD_D768_LAUNCHES = 0
 
 _MASK_VALUE = -1e30
 
@@ -62,7 +66,7 @@ def plain_cosine_vq_stats(xn: torch.Tensor, en: torch.Tensor, mask: torch.Tensor
 
 
 def _launch(xn, en, mask):
-    global LAUNCHES
+    global LAUNCHES, D768_LAUNCHES
     from ..utils.cuda_build import check, kernels
 
     n, d = xn.shape
@@ -92,6 +96,7 @@ def _launch(xn, en, mask):
                             torch.cuda.current_stream().cuda_stream),
               "cosine_vq_stats")
     LAUNCHES += 1
+    D768_LAUNCHES += d == 768
     return k, ent, psum
 
 
@@ -202,9 +207,15 @@ def _fwd_scratch(n: int, v: int, rows: int, splits: int, device) -> Dict[str, to
 # K3b's grid (csrc/fused_keyword.cu): blocks of `rows` keyword rows x one of
 # `splits` ranges of whole 64-column codebook tiles
 _BWD_COLS = 64
-_BWD_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # the tensor-core tile, the FMA tile
-_BWD_MAX_D = {torch.bfloat16: 512, torch.float32: 1024}
+_BWD_MAX_D = {torch.bfloat16: 768, torch.float32: 1024}
 BWD_SCRATCH_CAP = 64 << 20  # bytes of partial dx (splits x N x D fp32) a plan may use
+
+
+def _bwd_rows(d: int, dtype) -> int:
+    """Rows a K3b block: the tensor-core tile keeps its x and g rows and one
+    64-column codebook tile in shared memory, 64 rows up to D=512 (208 KB)
+    and 32 beyond (201 KB at D=768); the FMA tile: 32."""
+    return 32 if dtype == torch.float32 or d > 512 else 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,14 +224,14 @@ def _bwd_plan(n: int, v: int, d: int, dtype=torch.bfloat16, sms: int = H100_SMS)
     D (`_best_splits`: whole waves x tiles per split, at most
     BWD_SCRATCH_CAP bytes of partial dx). Raises on a width the kernels do
     not take: D a multiple of 16 (16-byte rows for `cp.async` and
-    `ldmatrix`), at most 512 in bf16 (the dx accumulators of 8 warps x 64
-    columns) or 1024 in fp32."""
+    `ldmatrix`), at most 768 in bf16 (the dx accumulators of 8 warps x 96
+    columns over 32 rows) or 1024 in fp32."""
     _check_width("st_backward", d, dtype, _BWD_MAX_D)
     if n <= 0 or v <= 0:
         raise ValueError(f"st_backward: N={n}, V={v}")
-    rows = _BWD_ROWS[dtype]
-    # one tensor-core block an SM (208 KB of shared memory at D=512); two FMA
-    # blocks up to D=512
+    rows = _bwd_rows(d, dtype)
+    # one tensor-core block an SM (208 KB of shared memory at D=512, 201 KB
+    # at D=768); two FMA blocks up to D=512
     slots = sms * (2 if dtype == torch.float32 and d <= 512 else 1)
     return rows, _best_splits(-(-n // rows), -(-v // _BWD_COLS), slots, n * d * 4,
                               BWD_SCRATCH_CAP)
@@ -242,7 +253,7 @@ def _sm_count(device) -> int:
 
 
 def _launch_bwd(xn, g, en, norms, mask, temp):
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_D768_LAUNCHES
     from ..utils.cuda_build import check, kernels
 
     n, d = xn.shape
@@ -275,6 +286,7 @@ def _launch_bwd(xn, g, en, norms, mask, temp):
                             torch.cuda.current_stream().cuda_stream),
               "st_backward")
     BWD_LAUNCHES += 1
+    BWD_D768_LAUNCHES += d == 768
     return dx, dt[0]
 
 

@@ -112,7 +112,9 @@ def _check_vq(x, en, mask, dtype):
 @pytest.mark.parametrize("n,d,v", [(600, 512, 8112), (4800, 512, 8112), (9600, 512, 8112),
                                    (37, 64, 300), (8, 512, 8112), (64, 512, 8112),
                                    (75, 512, 8112), (512, 512, 8112), (1024, 512, 8112),
-                                   (600, 768, 8112)])
+                                   (600, 768, 8112), (8, 768, 8112), (1024, 768, 8112),
+                                   (9600, 768, 8112), (8, 768, 19787), (1024, 768, 19787),
+                                   (9600, 768, 19787)])
 def test_cosine_vq_kernel_matches_plain(cuda_device, dtype, n, d, v):
     """K3 on its (row tiles, V splits) grid at every N the paths record (one
     query's 8 or 75 keywords up to the plus families' 9600 training rows), a
@@ -255,11 +257,15 @@ def _st_inputs(dev, dtype, n, d, v):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,v", [(9600, 512, 8112), (1024, 512, 8112), (4800, 512, 8112),
-                                   (37, 64, 300), (8, 512, 8112)])
+                                   (37, 64, 300), (8, 512, 8112), (8, 768, 8112),
+                                   (1024, 768, 8112), (9600, 768, 8112), (8, 768, 19787),
+                                   (1024, 768, 19787), (9600, 768, 19787), (37, 528, 300)])
 def test_st_backward_kernel_matches_plain(cuda_device, dtype, n, d, v):
     """K3b on its (row tiles, V splits) grid at the paths' N (9600: the plus
     families; 1024: the fixed-K ones), a half batch, a ragged small case and
-    one query's 8 keywords (one row tile, 127 splits)."""
+    one query's 8 keywords (one row tile, 127 splits); at the large family's
+    width, D=768 with both reduced vocabularies (the 32-row tile), and the
+    narrowest width of that tile."""
     x, cot, en, norms = _st_inputs(cuda_device, dtype, n, d, v)
     mask = fk.column_mask(v, SPECIAL, cuda_device)
     before = fk.BWD_LAUNCHES
@@ -309,8 +315,8 @@ def test_st_backward_rejects_bad_inputs(cuda_device):
     before = fk.BWD_LAUNCHES
     with pytest.raises(ValueError, match="multiple of 16"):  # D % 16 != 0
         fk.st_backward(x, cot, en, norms, mask, 0.1)
-    x, cot, en, norms = _st_inputs(cuda_device, torch.bfloat16, n, 528, v)
-    with pytest.raises(ValueError, match="at most 512"):  # wider than the dx accumulators
+    x, cot, en, norms = _st_inputs(cuda_device, torch.bfloat16, n, 784, v)
+    with pytest.raises(ValueError, match="at most 768"):  # wider than the dx accumulators
         fk.st_backward(x, cot, en, norms, mask, 0.1)
     x, cot, en, norms = _st_inputs(cuda_device, torch.bfloat16, n, 64, v)
     shifted = torch.empty(n * 64 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(n, 64)
@@ -690,7 +696,7 @@ def test_text_route_gradients_on_the_card(cuda_device):
 
 # ---- the tensor-core attention family: every mode x head dim x dtype, ragged T ----
 
-RAGGED_T = (50, 77, 319, 320, 327, 328, 1499)
+RAGGED_T = (50, 77, 319, 320, 327, 328, 329, 1499)
 
 
 def _family_case(dev, dtype, t, dh):
@@ -710,7 +716,7 @@ def _lse_close(lse, lse0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 96, 768])
+@pytest.mark.parametrize("dh", [64, 96, 128, 768])
 @pytest.mark.parametrize("t", RAGGED_T)
 def test_attention_family_forward_modes(cuda_device, dtype, dh, t):
     """K1's attention kernel in every mode a wrapper reaches (fused-out,
@@ -746,7 +752,7 @@ def test_attention_family_forward_modes(cuda_device, dtype, dh, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 96, 768])
+@pytest.mark.parametrize("dh", [64, 96, 128, 768])
 @pytest.mark.parametrize("t", RAGGED_T)
 def test_attention_family_backward_modes(cuda_device, dtype, dh, t):
     """K2 with and without the per-head bias and dropout, from K1's own
@@ -847,7 +853,8 @@ def _excess(got, want):
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("b,t,d,heads,causal", [
     (4, 320, 768, 8, False), (4, 327, 768, 1, False), (4, 77, 512, 8, True),
-    (4, 320, 768, 12, False), (4, 1499, 128, 2, False)])
+    (4, 320, 768, 12, False), (4, 1499, 128, 2, False), (4, 320, 1024, 8, False),
+    (4, 329, 1024, 8, False)])
 def test_attention_kernels_match_their_numerical_model(cuda_device, b, t, d, heads, causal, p):
     """The bf16 kernels round what `attention_numerics` says they round: K1's
     attention kernel (context and lse) and K2 agree with the emulation of their
@@ -990,6 +997,56 @@ def test_wide_head_backward_at_the_cascaded_shapes(cuda_device, dtype, p, b, t):
         return
     u = qkv.double().clone()
     u[..., :d] *= d ** 0.5  # K2's dq is the cotangent of the unscaled projection
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    for _ in range(3):
+        v = torch.randn(u.shape, generator=g, device=cuda_device, dtype=torch.float64)
+        v = v / v.norm() * u.norm()
+        loss = lambda e: (_ctx64(u + e * v, kb, heads, seeds, keep) * dctx.double()).sum().item()
+        fd = (loss(1e-4) - loss(-1e-4)) / 2e-4
+        an = (got.double() * v).sum().item()
+        typical = got.double().norm().item() * v.norm().item() / v.numel() ** 0.5
+        assert abs(fd - an) <= 1e-4 * max(abs(fd), typical), (fd, an, typical)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,t", [(8, 319), (8, 320), (8, 327), (8, 328), (8, 329), (5, 45),
+                                 (3, 130), (2, 16)])
+def test_dh128_kernels_at_the_large_branch_shapes(cuda_device, dtype, p, b, t):
+    """K1 context-only + lse and K2 at 8 heads of 128 (the large branches,
+    D=1024) against their twins at the large families' T (the tower's 319
+    frames and their CLS rows) and at short ragged T, bit-identical reruns,
+    counted as dh=128 launches; in fp32 K2 also against a float64 central
+    difference of the forward in three random directions (1e-4 of the larger
+    of the derivative and a random direction's size)."""
+    d, heads = 1024, 8
+    f1, f2 = fab.DH128_LAUNCHES, vjp.DH128_LAUNCHES
+    x, w_in, b_in, kb, seeds, _, ctx, qkv, lse, dctx = _bwd_case(
+        cuda_device, dtype, b, t, d, heads, p, None)
+    assert fab.DH128_LAUNCHES == f1 + 1
+    keep = 1.0 - p
+    ctx0, _, lse0 = fab.plain_fused_attention_block(
+        x.float(), w_in.float(), b_in.float(), None, None, kb, heads, False, seeds=seeds,
+        keep_prob=keep, return_aux=True)
+    _close(ctx, ctx0, dtype)
+    _lse_close(lse, lse0)
+    again, _, lse2 = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads, seeds=seeds,
+                                           keep_prob=keep)
+    assert torch.equal(ctx, again) and torch.equal(lse, lse2)
+    got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                 keep_prob=keep)
+    assert vjp.DH128_LAUNCHES == f2 + 1
+    want = vjp.plain_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads, seeds,
+                                        keep)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+    assert torch.equal(got, vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads,
+                                                   seeds=seeds, keep_prob=keep))
+    if dtype != torch.float32:
+        return
+    u = qkv.double().clone()
+    u[..., :d] *= (d // heads) ** 0.5  # K2's dq is the cotangent of the unscaled projection
     g = torch.Generator(device=cuda_device).manual_seed(t)
     for _ in range(3):
         v = torch.randn(u.shape, generator=g, device=cuda_device, dtype=torch.float64)

@@ -74,8 +74,11 @@ def test_data2vec_layout():
     assert not any(n.startswith(("feature_extractor.gn", "pos_conv.conv.")) for n in names)
     assert not any(n.startswith("feature_extractor.conv_layers") and n.endswith("bias")
                    for n in names)
-    with pytest.raises(NotImplementedError):
-        HubertConfig.from_upstream_name("data2vec_large")
+    # data2vec-large: the same structure at large width (ported with the large family)
+    large = HubertConfig.from_upstream_name("data2vec_large")
+    assert large == HubertConfig.data2vec_large()
+    assert (large.extractor_mode, large.pos_conv_depth, large.conv_bias, large.layer_norm_first,
+            large.d_model, large.n_layers) == ("layer_norm", 5, False, False, 1024, 24)
 
 
 def test_hybrid_plus_data2vec_yaml_matches_jax():

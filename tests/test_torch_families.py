@@ -229,7 +229,9 @@ def check_small_family(jcfg, jsmall, cfg, small, family):
     jlosses, jgrads, jfinal = _jax_steps(jcfg, jmodel, variables, batch, STEPS)
     optimizer = build_optimizer_from_config(model, cfg)
     state = create_train_state(optimizer)
-    step_fn = make_train_step(model, optimizer)
+    # the YAML's accumulation (2 in the large family), as JAX's optax.MultiSteps
+    step_fn = make_train_step(model, optimizer,
+                              int(getattr(cfg.trainer, "accumulate_grad_batches", 1) or 1))
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     names = [n for n, _ in trainable_parameters(model)]
     grads = {}
@@ -290,7 +292,7 @@ def _set(cfg, dotted, value):
     ("model_settings.cascaded_branch.vq.args.temp", "(2, 0.5, 0.999995)", NotImplementedError,
      "VQ"),
     ("model_settings.cascaded_branch.vq.args.fused_st", False, NotImplementedError, "VQ"),
-    ("clip.name", "ViT-L/14", NotImplementedError, "L/14"),
+    ("clip.name", "ViT-L/14", None, "L/14"),  # builds since the large family was ported
     ("clip.text_encoder_trainable", True, NotImplementedError, "trainable towers"),
     ("clip.image_encoder_trainable", True, NotImplementedError, "trainable towers"),
     ("audio_encoder.trainable", True, NotImplementedError, "trainable towers"),
@@ -314,6 +316,14 @@ def test_unsupported_keys_raise_by_name(key, value, error, match):
     _set(cfg, key, value)
     if key == "clip.name":
         cfg.clip.tiny = False
+    if error is None:  # a key that is ported now: its typed config, not a full-width build
+        clip = KWClipConfig.from_config(cfg).clip
+        want = ClipConfig.vit_l14()
+        assert match in value and all(
+            getattr(clip, f) == getattr(want, f) for f in (
+                "embed_dim", "vision_width", "vision_layers", "vision_heads",
+                "vision_patch_size", "text_width", "text_heads", "text_layers"))
+        return
     with pytest.raises(error, match=match):
         KWClip(KWClipConfig.from_config(cfg))
 
@@ -329,8 +339,20 @@ def test_text_vjp_knob_needs_a_frozen_text_tower():
 
 @pytest.mark.parametrize("name", ["data2vec_large", "wavlm_large", "apc", "hubert_large_ll60k"])
 def test_upstreams_left_for_later_raise(name):
+    """The mel upstreams (apc) still raise; the large towers build since they
+    were ported, each as its preset and as JAX resolves the name."""
     cfg = _tiny()
     cfg.audio_encoder.tiny = False
     cfg.audio_encoder.name = name
-    with pytest.raises(NotImplementedError):
-        KWClipConfig.from_config(cfg)
+    preset = {"data2vec_large": HubertConfig.data2vec_large, "wavlm_large":
+              HubertConfig.wavlm_large, "hubert_large_ll60k": HubertConfig.large}.get(name)
+    if preset is None:
+        with pytest.raises(NotImplementedError):
+            KWClipConfig.from_config(cfg)
+        return
+    audio = KWClipConfig.from_config(cfg).audio
+    assert audio == preset()
+    want = JHubertConfig.from_upstream_name(name)
+    for field in ("extractor_mode", "conv_bias", "d_model", "n_layers", "n_heads", "ffn_dim",
+                  "layer_norm_first", "pos_conv_depth", "rel_pos_bias"):
+        assert getattr(audio, field) == getattr(want, field), field

@@ -231,15 +231,18 @@ def test_config_inference_matches_jax():
     base = HubertConfig()
     sd = {"encoder.layers.0.fc1.weight": np.zeros((base.ffn_dim, base.d_model), np.float32)}
     got, want = towers.hubert_config_from_fairseq_sd(sd), jtowers.hubert_config_from_fairseq_sd(sd)
-    for name in ("conv_layers", "extractor_mode", "d_model", "n_layers", "n_heads",
-                 "ffn_dim", "conv_pos", "conv_pos_groups", "pos_conv_depth",
-                 "rel_pos_bias"):  # the architecture
+    for name in ("conv_layers", "extractor_mode", "conv_bias", "d_model", "n_layers",
+                 "n_heads", "ffn_dim", "layer_norm_first", "conv_pos", "conv_pos_groups",
+                 "pos_conv_depth", "rel_pos_bias"):  # the architecture
         assert getattr(got, name) == getattr(want, name), name
-    assert not want.conv_bias  # the port's frontend convs have no bias
+    assert not got.conv_bias and not want.conv_bias  # the base frontend convs have no bias
     large = {"p.encoder.layers.0.fc1.weight": np.zeros((4096, 1024), np.float32)}
-    assert jtowers.hubert_config_from_fairseq_sd(large, "p.").d_model == 1024
-    with pytest.raises(NotImplementedError, match="large"):
-        towers.hubert_config_from_fairseq_sd(large, "p.")
+    got, want = (towers.hubert_config_from_fairseq_sd(large, "p."),
+                 jtowers.hubert_config_from_fairseq_sd(large, "p."))
+    assert want.d_model == 1024 and got == HubertConfig.large()  # the large family is ported
+    for name in ("conv_layers", "extractor_mode", "conv_bias", "d_model", "n_layers", "n_heads",
+                 "ffn_dim", "layer_norm_first", "conv_pos", "pos_conv_depth"):
+        assert getattr(got, name) == getattr(want, name), name
 
     cfg = ClipConfig.tiny()
     for prefix in ("", "clip.model."):

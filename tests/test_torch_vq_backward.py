@@ -164,7 +164,7 @@ def test_plan_keeps_the_scratch_under_its_cap_and_no_split_empty():
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 8), (torch.bfloat16, 72),
-                                     (torch.bfloat16, 528), (torch.bfloat16, 1024),
+                                     (torch.bfloat16, 784), (torch.bfloat16, 1024),
                                      (torch.float32, 0), (torch.float32, 100),
                                      (torch.float32, 1040)])
 def test_plan_rejects_widths_the_kernels_do_not_take(dtype, d):
@@ -174,6 +174,9 @@ def test_plan_rejects_widths_the_kernels_do_not_take(dtype, d):
 
 def test_plan_takes_the_widths_the_kernels_do():
     assert fk._bwd_plan(64, 8112, 512, torch.bfloat16)[0] == 64
+    # past D=512 the tensor-core tile keeps 32 rows (the large family's CLIP width)
+    assert fk._bwd_plan(64, 8112, 528, torch.bfloat16)[0] == 32
+    assert fk._bwd_plan(9600, 19787, 768, torch.bfloat16)[0] == 32
     assert fk._bwd_plan(64, 8112, 1024, torch.float32)[0] == 32
     assert fk._bwd_plan(9600, 8112, 16, torch.bfloat16)[0] == 64
 

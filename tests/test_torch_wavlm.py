@@ -186,9 +186,11 @@ def test_upstream_names():
     cfg = HubertConfig.wavlm_base()
     assert (cfg.rel_buckets, cfg.rel_max_distance, cfg.n_heads, cfg.d_model) == (
         jcfg.rel_buckets, jcfg.rel_max_distance, jcfg.n_heads, jcfg.d_model) == (320, 800, 12, 768)
-    for name in ("wavlm_large", "data2vec_large", "hubert_large_ll60k"):
-        with pytest.raises(NotImplementedError):
-            HubertConfig.from_upstream_name(name)
+    for name in ("wavlm_large", "data2vec_large", "hubert_large_ll60k"):  # the large family
+        got, want = HubertConfig.from_upstream_name(name), JHubertConfig.from_upstream_name(name)
+        assert (got.d_model, got.n_layers, got.rel_pos_bias, got.layer_norm_first) == (
+            want.d_model, want.n_layers, want.rel_pos_bias, want.layer_norm_first)
+    assert HubertConfig.from_upstream_name("wavlm_large") == HubertConfig.wavlm_large()
 
 
 # ------------------------------------------- K1's twin: bias and gate ----
