@@ -7,7 +7,8 @@
     python3 chip_smoke.py --phase profile  # device time by kernel: serving
                                            # cells and 5 training cells
     python3 chip_smoke.py --phase fit      # phase 6 (cached), phase J and path K only
-    python3 chip_smoke.py --phase large    # phase 2 at the large shapes, then path M
+    python3 chip_smoke.py --phase large    # phase 2 at the large shapes, then paths M and N
+    python3 chip_smoke.py --phase large_fixed  # phase 2 at path N's shapes, then path N
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -108,6 +109,16 @@ Phases, each fatal on failure:
      `wavlm_large` and `data2vec_large` towers, one bf16 forward each at
      B=8 x 102400 samples. Every training step's peak memory must stay below
      80 GB.
+  N. the fixed-K large family (config/speechclip/large/flickr/{cascaded,
+     parallel}.yaml, config/speechclip_plus/large/flickr/hybrid.yaml; bf16,
+     full width, `normalize_hiddenstates: true`: the s3prl layer norm of every
+     hidden state in the weighted sum): N1 cascaded large and N3 hybrid large
+     run K1 and K2 at one head of 1024 and K3 / K3b on the 768-wide codebook
+     at N = 8 B rows, N2 parallel large K1 and K2 at 8 heads of 128; each
+     through the family path with cached and live images (N3 with 11 warm-up
+     steps a cell: it accumulates 4 batches), N3's fp32 card-vs-CPU parity of
+     serving and of one training step, and one cached N1 cell at the YAML's
+     own batch of 256 for its peak memory.
 Phase 2 also holds the pieces those paths add against their twins: K2 with
 the causal bias at the text shape (128, 77, 512, H=8) and K1 context-only
 there, K1 and K2 at (128, 328, 768) with one head (p=0.1 and 0), each against
@@ -117,7 +128,10 @@ float64), and K3 / K3b at N=1024 and N=8; and at path M's shapes
 HuBERT-Large tower shape, K1 fused-out at ViT-L/14's T=257, K1 context-only
 and K2 at the large branch (128, 320, 1024, H=8) with K2's finite
 differences, and K3 / K3b at N=9600 on the 768-wide codebook for V=8112 and
-19787. The family paths and every training
+19787; and at path N's (`phase_kernels_large_fixed`): K1 context-only + lse and
+K2 at one head of 1024 (B=128, T=327 and 328, p=0.1 and 0, K2 against finite
+differences in fp32), K1 at the cascaded serving shapes (T=327, B=1, 8, 64),
+and K3 / K3b at N=1024 on the 768-wide codebook. The family paths and every training
 phase record the shapes at which they call the branch attention and the
 cosine-VQ; after each path, K1 context-only, K2, K3 and K3b are held against
 their twins at every recorded shape that no earlier check covered (the
@@ -248,7 +262,14 @@ KERNEL_COUNTERS = {  # kernel name -> (module under speechclip_plus_tpu_torch, c
     "fused_attention_block_bwd_dh128": ("nn.fused_attention_block_vjp", "DH128_LAUNCHES"),
     "fused_cosine_vq_d768": ("ops.fused_keyword", "D768_LAUNCHES"),
     "fused_cosine_vq_bwd_d768": ("ops.fused_keyword", "BWD_D768_LAUNCHES"),
+    # the fixed-K large branches: K1 and K2 at one head of 1024
+    "fused_attention_block_dh1024": ("nn.fused_attention_block", "DH1024_LAUNCHES"),
+    "fused_attention_block_bwd_dh1024": ("nn.fused_attention_block_vjp", "DH1024_LAUNCHES"),
 }
+
+
+# the head dims whose K1 and K2 launches are counted again on their own
+HEAD_COUNTERS = {768: "_dh768", 128: "_dh128", 1024: "_dh1024"}
 
 
 def _counter(name):
@@ -1018,7 +1039,7 @@ def check_path_shapes(torch, label, seen):
     for kind, shape, p, step in sorted(seen):
         require(p in (0.0, 0.1), f"{label}: dropout {p} has no check")
         dh = None if kind == "k3" else shape[2] // shape[3]
-        at = {768: "_dh768", 128: "_dh128"}.get(dh, "")
+        at = HEAD_COUNTERS.get(dh, "")
         d768 = "_d768" * (kind == "k3" and shape[1] == 768)
         names = {"k1": "fused_attention_block" + at,
                  "k2": "fused_attention_block_bwd" + at,
@@ -1452,6 +1473,128 @@ def phase_large(torch):
     return by_path
 
 
+# --------------------------------------------------------------- path N ----
+
+FIXED_LARGE_CONFIGS = {  # path N, the fixed-K large family (flickr)
+    "N1 cascaded large": "config/speechclip/large/flickr/cascaded.yaml",
+    "N2 parallel large": "config/speechclip/large/flickr/parallel.yaml",
+    "N3 hybrid large": "config/speechclip_plus/large/flickr/hybrid.yaml",
+}
+
+
+def phase_kernels_large_fixed(torch):
+    """Phase 2 at path N's shapes: K1 context-only + lse and K2 at one head of
+    1024 (B=128; T=327, the cascaded branch's 8 keyword CLS + 319 frames, and
+    T=328, the hybrid's 1 + 8 + 319), p=0.1 and 0; K1 at the cascaded serving
+    shapes (T=327, p=0, B=1, 8, 64); K2 against finite differences in fp32 at
+    both T; K3 and K3b at the fixed-K step's N = 128 x 8 = 1024 rows on the
+    768-wide codebook (V=8112). Returns (the rows of K1 and K2 at dh=1024,
+    extra modes by kernel name)."""
+    from speechclip_plus_tpu_torch.data.tokenizer import ReducedVocab
+    from speechclip_plus_tpu_torch.nn import fused_attention_block as fab
+    from speechclip_plus_tpu_torch.nn import fused_attention_block_vjp as vjp
+    from speechclip_plus_tpu_torch.ops import fused_keyword as fk
+
+    vocab = ReducedVocab.from_npy(VOCAB_FILES[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in (327, 328):
+            shape = (128, t, 1024, 1)
+            name = "K1 context-only fixed-K large branch B={} T={} D={} H={}".format(*shape)
+            rows[("k1", t, 0.1, dtype)] = check_attention_dropout(torch, fab, name, *shape,
+                                                                  False, dtype, gen)
+            rows[("k1", t, 0.0, dtype)] = check_attention(torch, fab, name + " p=0", *shape,
+                                                          False, True, dtype, gen)
+            for p in (0.1, 0.0):
+                rows[("k2", t, p, dtype)] = check_attention_bwd(
+                    torch, fab, vjp, dtype, p, gen, shape, what="fixed-K large branch")
+            torch.cuda.empty_cache()
+        for b in (1, 8, 64):  # cascaded serving: the query batches of `search`
+            rows[("serve", b, dtype)] = check_attention(
+                torch, fab, f"K1 context-only fixed-K large serving B={b} T=327 D=1024 H=1 p=0",
+                b, 327, 1024, 1, False, True, dtype, gen)
+        rows[("k3", dtype)] = check_vq(torch, fk, vocab, 1024, dtype, gen, d=768)
+        rows[("k3b", dtype)] = check_vq_bwd(torch, fk, vocab, dtype, gen, n=1024, d=768)
+        torch.cuda.empty_cache()
+    check_attention_fd(torch, vjp, gen, (2, 327, 1024, 1), 0.1, what="fixed-K large branch")
+    check_attention_fd(torch, vjp, gen, (2, 328, 1024, 1), 0.0, what="fixed-K large branch")
+    bf, f32 = torch.bfloat16, torch.float32
+    csrc = "speechclip_plus_tpu_torch/csrc/"
+    jax_pkg = "speechclip_plus_tpu/"
+    mode = lambda text, key: {"shape": text, **rows[key]}
+    k1_modes = [mode(f"B=128 T={t} D=1024 H=1 context-only + lse, dropout {p}, "
+                     f"{str(dt)[6:]}", ("k1", t, p, dt))
+                for dt in (bf, f32) for t in (327, 328) for p in (0.1, 0.0)
+                if (t, p, dt) != (327, 0.1, bf)]
+    k1_modes += [mode(f"cascaded serving B={b} T=327 D=1024 H=1 context-only, no dropout, "
+                      f"{str(dt)[6:]}", ("serve", b, dt)) for dt in (bf, f32) for b in (1, 8, 64)]
+    k2_modes = [mode(f"B=128 T={t} D=1024 H=1, dropout {p}, {str(dt)[6:]}", ("k2", t, p, dt))
+                for dt in (bf, f32) for t in (327, 328) for p in (0.1, 0.0)
+                if (t, p, dt) != (327, 0.1, bf)]
+    new = [
+        {"name": "fused_attention_block_dh1024", "route": "cuda",
+         "source": csrc + "fused_attention_block_attn_dh1024.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block.py:118",
+         "shape": "fixed-K large branch B=128 T=327 D=1024 H=1 context-only + lse, dropout 0.1, "
+                  "bf16", **rows[("k1", 327, 0.1, bf)], "modes": k1_modes},
+        {"name": "fused_attention_block_bwd_dh1024", "route": "cuda",
+         "source": csrc + "fused_attention_block_bwd_dh1024.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block_vjp.py:104",
+         "shape": "fixed-K large branch B=128 T=327 D=1024 H=1, dropout 0.1, bf16",
+         **rows[("k2", 327, 0.1, bf)], "modes": k2_modes},
+    ]
+    extra = {
+        "fused_cosine_vq_d768": [mode("N=1024 D=768 V=8112 bf16 (fixed-K large step)",
+                                      ("k3", bf)),
+                                 mode("N=1024 D=768 V=8112 fp32", ("k3", f32))],
+        "fused_cosine_vq_bwd_d768": [mode("N=1024 D=768 V=8112 bf16 (fixed-K large step)",
+                                          ("k3b", bf)),
+                                     mode("N=1024 D=768 V=8112 fp32", ("k3b", f32))],
+    }
+    return new, extra
+
+
+def phase_large_fixed(torch):
+    """Path N, the fixed-K large family (flickr, bf16, full width, seeded
+    random weights): N1 cascaded large, N2 parallel large and N3 hybrid large
+    through the family path (an index of 256 images through ViT-L/14,
+    `search` with the YAML's feature source at B = 1, 8, 64, `encode_speech`,
+    the training phase at B=128 x 102400 with cached and live images), N3's
+    fp32 card-vs-CPU parity of serving and of one training step, and one
+    cached N1 cell at the YAML's own batch of 256 for its peak memory.
+    Returns the launch counts by path."""
+    by_path, ms = {}, {}
+    for label, config in FIXED_LARGE_CONFIGS.items():
+        # Adam must move every trainable tensor through the 5000-step warm-up
+        # (path M): 8 updates. N1 and N2 update every step; N3 accumulates 4
+        # batches, so its cells take 11 warm-up steps each: 2 x 16 steps
+        accumulate = 4 if label.startswith("N3") else 1
+        counts, ms[label] = phase_family(torch, label, config, cells=("cached", "live"),
+                                         warmup=WARMUP_STEPS + 8 * (accumulate > 1))
+        by_path[f"{label[:2]}_serve"], by_path[f"{label[:2]}_train"] = (
+            counts["serve"], counts["train"])
+        if label.startswith("N3"):
+            phase_parity(torch, f"path {label}", config)
+            # the keyword projection's last bias reaches the batch-statistics BN
+            # through a linear map only: no gradient in exact arithmetic
+            phase_train_parity(torch, f"path {label}", config, batch_size=4,
+                               zero=("head.linear_proj.layers.1.bias",))
+    label, config = "N1 cascaded large", FIXED_LARGE_CONFIGS["N1 cascaded large"]
+    built = build(torch, config)
+    require(built[0].data.batch_size == 256, "N1: the YAML's batch is not 256")
+    by_path["N1_train_b256"], ms["N1 B=256"] = phase_train(
+        torch, f"path {label} B=256", config, cells=("cached",), built=built, batch_size=256)
+    print("[path N] ms/step, pairs/s, peak at B=128 x 102400 (N1 also at B=256): " + "; ".join(
+        f"{label} {cell} {v:.2f} ms, "
+        f"{(256 if label.endswith('256') else TRAIN_BATCH) / v * 1e3:.1f} pairs/s, "
+        f"peak {cells[cell + '_peak_gib']:.2f} GiB"
+        for label, cells in ms.items() for cell, v in cells.items() if not cell.endswith("gib")))
+    return by_path
+
+
 # --------------------------------------------------------- phases 3-6 ----
 
 def ragged_wavs(rng, b, int16):
@@ -1519,7 +1662,7 @@ def family_plans(mc):
     a 768-wide codebook its D=768 instances; with `text_fused_attention_vjp`
     the text layers (K1; K2 with the bias in the step)."""
     ta = mc.cascaded_ta if mc.has_cascaded else mc.parallel_ta
-    at = {768: "_dh768", 128: "_dh128"}.get(ta.d_model // ta.nhead)
+    at = HEAD_COUNTERS.get(ta.d_model // ta.nhead)
     d768 = mc.has_cascaded and mc.clip.text_width == 768
     text = mc.clip.text_layers if mc.has_cascaded and mc.clip.text_fused_attention_vjp else 0
     branch = k1_plan(mc.audio.n_layers, 1)
@@ -1543,11 +1686,12 @@ def family_plans(mc):
     return {"parallel": branch, "cascaded": full}, full, step
 
 
-def phase_family(torch, label, config, cells=("cached",)):
-    """Paths E-H, L and M: one family, bf16: build, an image index of 256
+def phase_family(torch, label, config, cells=("cached",), warmup=WARMUP_STEPS):
+    """Paths E-H, L, M and N: one family, bf16: build, an image index of 256
     images, `search` with the YAML's feature source at B = 1, 8, 64,
-    `encode_speech`; then the training phase (`cells`) on the same model.
-    Returns ({"serve", "train"} launch counts, ms/step by cell)."""
+    `encode_speech`; then the training phase (`cells`, `warmup` untimed steps
+    a cell) on the same model. Returns ({"serve", "train"} launch counts,
+    ms/step by cell)."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
     from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
 
@@ -1610,7 +1754,8 @@ def phase_family(torch, label, config, cells=("cached",)):
     del sc, index, retriever, images, out
     torch.cuda.empty_cache()
     check_path_shapes(torch, f"path {label} serving", seen)
-    counts["train"], ms = phase_train(torch, f"path {label}", config, cells=cells, built=built)
+    counts["train"], ms = phase_train(torch, f"path {label}", config, cells=cells, built=built,
+                                      warmup=warmup)
     return counts, ms
 
 
@@ -1793,9 +1938,12 @@ def train_batch(torch, b, t, image_size, seed):
 
 
 def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
-                built=None, first_loss=False, **audio_keys):
-    """Phase 6 for one configuration: B=128 x 102400 training steps, on a
-    model built here or handed in (`built`, with the plan of its family)."""
+                built=None, first_loss=False, warmup=WARMUP_STEPS, batch_size=TRAIN_BATCH,
+                **audio_keys):
+    """Phase 6 for one configuration: B=128 x 102400 training steps (`warmup`
+    untimed and TIMED_STEPS timed steps a cell; `batch_size` for another B),
+    on a model built here or handed in (`built`, with the plan of its
+    family)."""
     from speechclip_plus_tpu_torch.optim.optimizer import (
         build_optimizer_from_config, trainable_parameters)
     from speechclip_plus_tpu_torch.parallel.train_step import (
@@ -1811,7 +1959,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
     before = {n: p.detach().clone() for n, p in trainable}
     bn = getattr(getattr(model.cascaded_branch, "head", None), "bn_layer", None)
     bn_before = None if bn is None else (bn.running_mean.clone(), bn.running_var.clone())
-    batch = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, model_cfg.clip.image_resolution, seed=0)
+    batch = train_batch(torch, batch_size, TRAIN_WAV, model_cfg.clip.image_resolution, seed=0)
     cached = {k: v for k, v in batch.items() if k != "image"}
     with torch.no_grad():  # the product default: frozen image features cached once
         cached["image_feat"] = model.encode_image_raw(batch["image"])
@@ -1822,7 +1970,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
           f"{sum(p.numel() for _, p in trainable) / 1e6:.2f} M trainable (fp32: "
           f"{all(p.dtype == torch.float32 for _, p in trainable)}), "
           f"{sum(p.numel() for p in frozen.values()) / 1e6:.1f} M frozen; "
-          f"B={TRAIN_BATCH} x {TRAIN_WAV} samples")
+          f"B={batch_size} x {TRAIN_WAV} samples")
     require(all(p.dtype == torch.float32 for _, p in trainable), "trainable weights not fp32")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1842,7 +1990,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
     reset_counts()
     for cell in cells:
         b = batches[cell]
-        for i in range(WARMUP_STEPS):
+        for i in range(warmup):
             metrics = step_fn(state, b, gen)
             if i == 0:
                 for h in hooks:
@@ -1861,7 +2009,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
         sec = (time.perf_counter() - t0) / TIMED_STEPS
         peak_bytes = torch.cuda.max_memory_allocated()
         peak = peak_bytes / 2 ** 30
-        n = WARMUP_STEPS + TIMED_STEPS
+        n = warmup + TIMED_STEPS
         add_counts(expect, step_plan, n)
         if cell == "live":  # the ViT on the batch's images
             add_counts(expect, k1_plan(model_cfg.clip.vision_layers), n)
@@ -1870,8 +2018,8 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
         result[cell] = sec * 1e3
         result[f"{cell}_peak_gib"] = peak
         print(f"[train] {label} {cell:6s} images: {sec * 1e3:.2f} ms/step, "
-              f"{TRAIN_BATCH / sec:.1f} pairs/s, peak {peak:.2f} GiB allocated "
-              f"(n={TIMED_STEPS} after {WARMUP_STEPS} warm-up); loss {loss[0]:.4f} -> "
+              f"{batch_size / sec:.1f} pairs/s, peak {peak:.2f} GiB allocated "
+              f"(n={TIMED_STEPS} after {warmup} warm-up); loss {loss[0]:.4f} -> "
               f"{loss[-1]:.4f}, grad_norm {gn:.4f}, " + ", ".join(
                   f"{k[len('train_'):]} {float(v):.4f}" for k, v in metrics.items()
                   if k.endswith("_loss")))
@@ -2758,6 +2906,13 @@ def phase_families(torch):
     return by_path
 
 
+def add_modes(rows, *extras):
+    """Each row gains the extra modes that phase 2 measured under its name."""
+    for r in rows:
+        for extra in extras:
+            r["modes"] = r.get("modes", []) + extra.get(r["name"], [])
+
+
 def print_kernels_line(rows, by_path):
     """The kernels JSON line: each row with the checks made at the paths' own
     shapes as modes, and its launches in the paths' runs, each counted from 0
@@ -2772,8 +2927,8 @@ def print_kernels_line(rows, by_path):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit", "large"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit", "large",
+                                        "large_fixed"), default="all")
     args = ap.parse_args()
     import torch
 
@@ -2804,17 +2959,24 @@ def main() -> int:
             _, ms = phase_train(torch, "HuBERT (K1 route)", CONFIG, cells=("cached",))
             phase_fit(torch, ms["cached"])  # J, then K
             return 0
-        if args.phase == "large":
-            rows, extra = phase_kernels_large(torch)
-            by_path = phase_large(torch)
-            print(f"[time] chip_smoke --phase large: {time.perf_counter() - started:.1f} s")
+        if args.phase in ("large", "large_fixed"):
+            rows, extra, by_path = [], {}, {}
+            if args.phase == "large":
+                rows, extra = phase_kernels_large(torch)
+            fixed_rows, fixed_extra = phase_kernels_large_fixed(torch)
+            rows += fixed_rows
+            add_modes(rows, extra, fixed_extra)
+            if args.phase == "large":
+                by_path = phase_large(torch)
+            by_path.update(phase_large_fixed(torch))
+            print(f"[time] chip_smoke --phase {args.phase}: {time.perf_counter() - started:.1f} s")
             print_kernels_line(rows, by_path)
             return 0
         rows = phase_kernels(torch)
         large_rows, extra = phase_kernels_large(torch)
-        rows += large_rows
-        for r in rows:
-            r["modes"] = r.get("modes", []) + extra.get(r["name"], [])
+        fixed_rows, fixed_extra = phase_kernels_large_fixed(torch)
+        rows += large_rows + fixed_rows
+        add_modes(rows, extra, fixed_extra)
         if args.phase == "all":
             by_path, ms = {}, {}
             hubert, wavlm = "HuBERT (K1 route)", "path A WavLM"
@@ -2842,6 +3004,7 @@ def main() -> int:
             by_path["D_conv0"] = phase_conv0(torch)
             by_path.update(phase_families(torch))
             by_path.update(phase_large(torch))
+            by_path.update(phase_large_fixed(torch))
             print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s")
             print_kernels_line(rows, by_path)
     except SmokeFailure as e:

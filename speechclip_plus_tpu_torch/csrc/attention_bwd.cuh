@@ -65,6 +65,13 @@
 // own columns, the 8 partial tiles are added in a fixed order through shared
 // memory, one thread per element forms w and ds, and each warp updates its
 // own 96 columns of dq, or of dk and dv, both in registers (2 x 48 a thread).
+// At dh = 1024 (the fixed-K large branches, one head over 1024) four (16,
+// 1028) fp32 tiles are 263 KB, past the 227 KB of an SM. The block keeps its
+// 16 own rows whole (2 x 65.8 KB) and walks the other rows 8 at a time (the n
+// of the TF32 m16n8k8 product; 2 x 32.9 KB), 207 KB in all; half the threads
+// form the (16, 8) elements of w and ds, and each warp holds its 128 columns
+// of dk and dv in 2 x 64 registers a thread. The other rows are read from L2
+// twice as often per own row as at 768 tiles: fitting first, speed later.
 // Keys past T weigh 0; masked keys carry the caller's -1e30, never -inf.
 #pragma once
 #include <cuda_runtime.h>
@@ -435,29 +442,46 @@ attention_bwd_kernel(const BwdParams p) {
   }
 }
 
-// ---------------------------------------------------------------- dh = 768 ----
+// -------------------------------------------------------- dh = 768 and 1024 ----
 
 constexpr int XT = 16, X_THREADS = 256, X_WARPS = 8;
-constexpr int X_LP = 24;  // row stride of the (16, 16) tiles: 8-byte accesses spread over the banks
+
+// other rows a step: 16 at dh = 768, 8 at dh = 1024 (the note above)
+template <int DH>
+__host__ __device__ constexpr int bwd_wide_other() {
+  return DH > 768 ? 8 : 16;
+}
+
+// row stride of the (16, other) tiles, so that the 8-byte accesses of a half
+// warp (rows g < 4, columns 2t) and the element role's loads spread over the
+// banks: 24 for 16 columns, 8 for 8
+template <int DH>
+__host__ __device__ constexpr int bwd_wide_lp() {
+  return bwd_wide_other<DH>() == 16 ? 24 : 8;
+}
 
 template <int DH>
 constexpr size_t bwd_wide_smem_bytes() {
-  return sizeof(float) * (4 * XT * (DH + 4) + (2 * X_WARPS + 2) * XT * X_LP);
+  return sizeof(float) * (2 * (XT + bwd_wide_other<DH>()) * (DH + 4) +
+                          (2 * X_WARPS + 2) * XT * bwd_wide_lp<DH>());
 }
+static_assert(bwd_wide_smem_bytes<768>() <= 232448, "dh = 768 fits an SM");
+static_assert(bwd_wide_smem_bytes<1024>() <= 232448, "dh = 1024 fits an SM");
 
 // Warp w owns head columns [w DH / 8, (w + 1) DH / 8) of every operand and of
-// the outputs, for all 16 own rows. Thread tid forms the element (own row
-// tid / 16, other row tid % 16) of w and ds.
+// the outputs, for all 16 own rows. Thread tid < 16 XO forms the element (own
+// row tid / XO, other row tid % XO) of w and ds.
 template <bool OWN_Q, typename TG, int DH>
 __global__ void __launch_bounds__(X_THREADS, 1) attention_bwd_wide_kernel(const BwdParams p) {
   constexpr bool P3 = std::is_same<TG, float>::value;
-  constexpr int LD = DH + 4, CW = DH / X_WARPS, KS = CW / 8, NJ = XT / 8, TILE = XT * X_LP;
+  constexpr int XO = bwd_wide_other<DH>(), LP = bwd_wide_lp<DH>();
+  constexpr int LD = DH + 4, CW = DH / X_WARPS, KS = CW / 8, NJ = XO / 8, TILE = XT * LP;
   extern __shared__ __align__(16) float smem[];
   float* A1 = smem;
   float* A2 = A1 + XT * LD;
   float* B1 = A2 + XT * LD;
-  float* B2 = B1 + XT * LD;
-  float* Part = B2 + XT * LD;             // per warp: its s tile, then its dp tile
+  float* B2 = B1 + XO * LD;
+  float* Part = B2 + XO * LD;             // per warp: its s tile, then its dp tile
   float* Ds = Part + 2 * X_WARPS * TILE;  // ds as [own][other]
   float* Ws = Ds + TILE;                  // w  as [own][other] (dk/dv pass)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -487,7 +511,8 @@ __global__ void __launch_bounds__(X_THREADS, 1) attention_bwd_wide_kernel(const 
   }
 
   // the element role: own row ei, other row ej of every tile
-  const int ei = tid >> 4, ej = tid & 15;
+  const bool elem = tid < XT * XO;
+  const int ei = min(tid / XO, XT - 1), ej = tid % XO;
   const int own = o0 + ei, own_c = min(own, Tn - 1);
   const float own_lse = OWN_Q ? p.lse[bh + own_c] : 0.f;
   const float own_d = OWN_Q ? p.dvec[bh + own_c] : 0.f;
@@ -504,18 +529,18 @@ __global__ void __launch_bounds__(X_THREADS, 1) attention_bwd_wide_kernel(const 
       if constexpr (!OWN_Q) acc2[n][c] = 0.f;
     }
 
-  for (int t0 = 0; t0 < Tn; t0 += XT) {
+  for (int t0 = 0; t0 < Tn; t0 += XO) {
     __syncthreads();  // the previous tile's other rows, w and ds are consumed
     if (OWN_Q) {
-      tile_start<XT, DH, LD, X_THREADS>(B1, kbase, rs3, t0, Tn, true);
-      tile_start<XT, DH, LD, X_THREADS>(B2, vbase, rs3, t0, Tn, true);
-      tile_finish<XT, DH, LD, X_THREADS>(B1, kbase, rs3, t0, Tn, true);
-      tile_finish<XT, DH, LD, X_THREADS>(B2, vbase, rs3, t0, Tn, true);
+      tile_start<XO, DH, LD, X_THREADS>(B1, kbase, rs3, t0, Tn, true);
+      tile_start<XO, DH, LD, X_THREADS>(B2, vbase, rs3, t0, Tn, true);
+      tile_finish<XO, DH, LD, X_THREADS>(B1, kbase, rs3, t0, Tn, true);
+      tile_finish<XO, DH, LD, X_THREADS>(B2, vbase, rs3, t0, Tn, true);
     } else {
-      tile_start<XT, DH, LD, X_THREADS>(B1, qb, rs3, t0, Tn, true);
-      tile_start<XT, DH, LD, X_THREADS>(B2, gbase, (int64_t)D, t0, Tn, p.vec);
-      tile_finish<XT, DH, LD, X_THREADS>(B2, gbase, (int64_t)D, t0, Tn, p.vec);
-      tile_finish<XT, DH, LD, X_THREADS>(B1, qb, rs3, t0, Tn, true);
+      tile_start<XO, DH, LD, X_THREADS>(B1, qb, rs3, t0, Tn, true);
+      tile_start<XO, DH, LD, X_THREADS>(B2, gbase, (int64_t)D, t0, Tn, p.vec);
+      tile_finish<XO, DH, LD, X_THREADS>(B2, gbase, (int64_t)D, t0, Tn, p.vec);
+      tile_finish<XO, DH, LD, X_THREADS>(B1, qb, rs3, t0, Tn, true);
     }
     __syncthreads();
 
@@ -544,21 +569,21 @@ __global__ void __launch_bounds__(X_THREADS, 1) attention_bwd_wide_kernel(const 
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(ps + g * X_LP + c) = make_float2(s[j][0], s[j][1]);
-        *reinterpret_cast<float2*>(ps + (g + 8) * X_LP + c) = make_float2(s[j][2], s[j][3]);
-        *reinterpret_cast<float2*>(ps + TILE + g * X_LP + c) = make_float2(dp[j][0], dp[j][1]);
-        *reinterpret_cast<float2*>(ps + TILE + (g + 8) * X_LP + c) =
+        *reinterpret_cast<float2*>(ps + g * LP + c) = make_float2(s[j][0], s[j][1]);
+        *reinterpret_cast<float2*>(ps + (g + 8) * LP + c) = make_float2(s[j][2], s[j][3]);
+        *reinterpret_cast<float2*>(ps + TILE + g * LP + c) = make_float2(dp[j][0], dp[j][1]);
+        *reinterpret_cast<float2*>(ps + TILE + (g + 8) * LP + c) =
             make_float2(dp[j][2], dp[j][3]);
       }
     }
     __syncthreads();
 
-    {  // the 8 partial tiles in a fixed order, then w and ds of one element
+    if (elem) {  // the 8 partial tiles in a fixed order, then w and ds of one element
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int w = 0; w < X_WARPS; ++w) {
-        s += Part[2 * w * TILE + ei * X_LP + ej];
-        dp += Part[(2 * w + 1) * TILE + ei * X_LP + ej];
+        s += Part[2 * w * TILE + ei * LP + ej];
+        dp += Part[(2 * w + 1) * TILE + ei * LP + ej];
       }
       const int oth = t0 + ej, oth_c = min(oth, Tn - 1);
       const bool in = own < Tn && oth < Tn;
@@ -573,8 +598,8 @@ __global__ void __launch_bounds__(X_THREADS, 1) attention_bwd_wide_kernel(const 
       const ScoreGrad r = score_grad(s, dp, bias, OWN_Q ? own_lse : p.lse[bh + oth_c],
                                      OWN_Q ? own_d : p.dvec[bh + oth_c], in, drop, keep,
                                      p.inv_keep);
-      Ds[ei * X_LP + ej] = op_round<P3>(r.ds);
-      if constexpr (!OWN_Q) Ws[ei * X_LP + ej] = r.w;  // as it is: `mma_dv` splits it
+      Ds[ei * LP + ej] = op_round<P3>(r.ds);
+      if constexpr (!OWN_Q) Ws[ei * LP + ej] = r.w;  // as it is: `mma_dv` splits it
     }
     __syncthreads();
 
@@ -584,13 +609,13 @@ __global__ void __launch_bounds__(X_THREADS, 1) attention_bwd_wide_kernel(const 
       const int c = kk * 8 + 2 * t;
       float a1[4], a2[4];
       {
-        const float2 lo = *reinterpret_cast<const float2*>(Ds + g * X_LP + c);
-        const float2 hi = *reinterpret_cast<const float2*>(Ds + (g + 8) * X_LP + c);
+        const float2 lo = *reinterpret_cast<const float2*>(Ds + g * LP + c);
+        const float2 hi = *reinterpret_cast<const float2*>(Ds + (g + 8) * LP + c);
         a1[0] = lo.x; a1[1] = hi.x; a1[2] = lo.y; a1[3] = hi.y;
       }
       if constexpr (!OWN_Q) {
-        const float2 lo = *reinterpret_cast<const float2*>(Ws + g * X_LP + c);
-        const float2 hi = *reinterpret_cast<const float2*>(Ws + (g + 8) * X_LP + c);
+        const float2 lo = *reinterpret_cast<const float2*>(Ws + g * LP + c);
+        const float2 hi = *reinterpret_cast<const float2*>(Ws + (g + 8) * LP + c);
         a2[0] = lo.x; a2[1] = hi.x; a2[2] = lo.y; a2[3] = hi.y;
       }
 #pragma unroll

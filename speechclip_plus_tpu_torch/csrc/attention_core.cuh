@@ -53,6 +53,14 @@
 //   partial tiles, 32 KB), and a read-modify-write of the accumulator per key
 //   tile would double the shared-memory traffic of the p v product. 64 rows
 //   fit neither registers nor shared memory.
+//   dh = 1024 (the same kernel; the fixed-K large branches run one head over
+//   1024): 32 query rows would take 131.6 KB of shared memory, and with the
+//   32-key tile (131.6 KB) the block would need 296 KB of the 227 KB an SM
+//   has. So the block owns 16 query rows (65.8 KB), keeps the 32-key tile and
+//   the 8 partial (16, 32) tiles (16 KB): 214 KB, and each warp's 128 columns
+//   of the output are 16 x 128 fp32 = 64 registers a thread. Each key tile
+//   then serves half the rows it serves at 768, so the kernel moves twice the
+//   L2 traffic per query row: the price of fitting.
 //
 // What the kernels compute is what the fp32 FMA kernels before them computed:
 // online softmax over key tiles; key_bias[b, j] and, when `ab` is given,
@@ -559,16 +567,25 @@ attention_kernel(const AttnParams p) {
   }
 }
 
-// ------------------------------------------------------ forward, dh = 768 ----
+// ---------------------------------------------- forward, dh = 768 and 1024 ----
 
-constexpr int WQ = 32, WK = 32, W_THREADS = 256, W_WARPS = 8;
+constexpr int WK = 32, W_THREADS = 256, W_WARPS = 8;
+
+// Query rows of a block: 32 at dh = 768, 16 at dh = 1024 (the note above)
+template <int DH>
+__host__ __device__ constexpr int wide_q_rows() {
+  return DH > 768 ? 16 : 32;
+}
 
 template <int DH>
 constexpr size_t attention_wide_smem_bytes() {
+  constexpr int WQ = wide_q_rows<DH>();
   return sizeof(float) * ((WQ + WK) * (DH + 4) + W_WARPS * WQ * WK + 2 * WQ);
 }
+static_assert(attention_wide_smem_bytes<768>() <= 232448, "dh = 768 fits an SM");
+static_assert(attention_wide_smem_bytes<1024>() <= 232448, "dh = 1024 fits an SM");
 
-// Column of a (32, 32) tile without padding, swizzled by the row so that the
+// Column of a (rows, 32) tile without padding, swizzled by the row so that the
 // accumulators' 8-byte stores (half a warp: rows g < 4, columns 2t), the
 // softmax's 16-byte loads and the A operand's 8-byte loads (columns 2t,
 // 2t + 1 of rows g) all spread over the 32 banks. Keeps groups of 4 columns
@@ -578,11 +595,13 @@ __device__ __forceinline__ int wide_swz(int row, int col) {
 }
 
 // Warp w owns head columns [w DH / 8, (w + 1) DH / 8) of q, k, v and of the
-// output, for all 32 query rows (two 16-row operand tiles). For the softmax
-// step thread tid owns row tid / 8 and keys 4 (tid % 8) .. + 3 of the tile.
+// output, for all WQ query rows (WQ / 16 operand tiles of 16 rows). For the
+// softmax step thread tid < 8 WQ owns row tid / 8 and keys 4 (tid % 8) .. + 3
+// of the tile (at WQ = 16 warps 4-7 sit that step out).
 template <typename TI, typename TO, int DH, bool HAS_AB, bool EXACT_S>
 __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const AttnParams p) {
   constexpr bool P3 = std::is_same<TO, float>::value, S3 = P3 || EXACT_S;
+  constexpr int WQ = wide_q_rows<DH>(), MT = WQ / 16;
   constexpr int LD = DH + 4, CW = DH / W_WARPS, KS = CW / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -602,8 +621,9 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
   fill_tile<WQ, DH, LD, S3, W_THREADS>(Qs, qb, p.sq.t, q0, Tn, p.vec);
 
   // the softmax role: one row, four keys; the 8 threads of a row are
-  // neighbouring lanes and keep the same running max and sum
-  const int srow = tid >> 3, sc4 = (tid & 7) * 4;
+  // neighbouring lanes and keep the same running max and sum (warp-uniform)
+  const bool soft = tid < 8 * WQ;
+  const int srow = min(tid >> 3, WQ - 1), sc4 = (tid & 7) * 4;
   const int spos = srow * WK + wide_swz(srow, sc4);
   const int srow_t = min(q0 + srow, Tn - 1);  // rows past T are computed and dropped
   const bool drop = p.seed != nullptr;
@@ -616,9 +636,9 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
   const float gate = HAS_AB && p.gate != nullptr ? p.gate[bh + srow_t] : 1.f;
   float m_run = INIT_MAX, l_run = 0.f;
 
-  float o[2][KS][4];
+  float o[MT][KS][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int n = 0; n < KS; ++n)
 #pragma unroll
@@ -631,9 +651,9 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
     __syncthreads();
 
     {  // this warp's share of s = q k^T: its own columns of q and k
-      float s[2][WK / 8][4];
+      float s[MT][WK / 8][4];
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int j = 0; j < WK / 8; ++j)
 #pragma unroll
@@ -641,20 +661,20 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const int col = warp * CW + ks * 8 + t;
-        float a0[4], a1[4];
-        load_a(a0, Qs + g * LD + col, LD);
-        load_a(a1, Qs + (16 + g) * LD + col, LD);
+        float a[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) load_a(a[m], Qs + (m * 16 + g) * LD + col, LD);
 #pragma unroll
         for (int j = 0; j < WK / 8; ++j) {
           float bb[2];
           load_bt<S3>(bb, Xs + (j * 8 + g) * LD + col);
-          mma_f<S3, P3>(s[0][j], a0, bb);
-          mma_f<S3, P3>(s[1][j], a1, bb);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_f<S3, P3>(s[m][j], a[m], bb);
         }
       }
       float* pw = Part + warp * WQ * WK;
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int j = 0; j < WK / 8; ++j) {
           const int r = m * 16 + g;
@@ -668,7 +688,7 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
 
     tile_start<WK, DH, LD, W_THREADS>(Xs, vbase, p.sv.t, k0, Tn, p.vec);  // in flight below
 
-    {  // the 8 partial tiles in a fixed order, then the online softmax step
+    if (soft) {  // the 8 partial tiles in a fixed order, then the online softmax step
       float4 acc = *reinterpret_cast<const float4*>(Part + spos);
 #pragma unroll
       for (int w = 1; w < W_WARPS; ++w) {
@@ -716,7 +736,7 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
 
     // o = o alpha + p v on this warp's columns of v
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < MT; ++m) {
       const float al0 = alpha_s[m * 16 + g], al1 = alpha_s[m * 16 + g + 8];
 #pragma unroll
       for (int n = 0; n < KS; ++n) {
@@ -728,9 +748,9 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
     }
 #pragma unroll
     for (int kk = 0; kk < WK / 8; ++kk) {
-      float a[2][4];
+      float a[MT][4];
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+      for (int m = 0; m < MT; ++m) {
         const int r = m * 16 + g;
         const float2 lo = *reinterpret_cast<const float2*>(Part + r * WK +
                                                            wide_swz(r, kk * 8 + 2 * t));
@@ -742,13 +762,13 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
       for (int n = 0; n < KS; ++n) {
         float bb[2];
         load_bp<P3>(bb, Xs + (kk * 8 + 2 * t) * LD + warp * CW + n * 8 + g, LD);
-        mma_f<P3, P3>(o[0][n], a[0], bb);
-        mma_f<P3, P3>(o[1][n], a[1], bb);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_f<P3, P3>(o[m][n], a[m], bb);
       }
     }
   }
 
-  if ((tid & 7) == 0) {
+  if (soft && (tid & 7) == 0) {
     const float l = fmaxf(l_run, 1e-30f);
     invl_s[srow] = 1.f / l;
     if (p.lse != nullptr && q0 + srow < Tn) p.lse[bh + q0 + srow] = m_run + logf(l);
@@ -756,7 +776,7 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
   __syncthreads();
   TO* ob = static_cast<TO*>(p.o) + b * p.so.b + h * p.so.h;
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = m * 16 + g + 8 * i, tq = q0 + r;
@@ -781,7 +801,8 @@ cudaError_t launch_attention_as(const AttnParams& p, int B, cudaStream_t stream)
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((p.T + WQ - 1) / WQ, p.H, B);
+    constexpr int rows = wide_q_rows<DH>();
+    dim3 grid((p.T + rows - 1) / rows, p.H, B);
     kernel<<<grid, W_THREADS, smem, stream>>>(p);
   } else {
     constexpr size_t smem = attention_smem_bytes<DH>();

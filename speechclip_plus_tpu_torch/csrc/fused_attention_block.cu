@@ -48,8 +48,9 @@
 //      is masked, masked keys carry -1e30 (ragged keys -2e30), never -inf. The
 //      per-head bias is added per score tile from an fp32 (H | 1, T, T) tensor
 //      scaled by gate[b, h, i]: the (B, H, T, T) gated bias never exists. A
-//      head of dh = 768 (the cascaded branches) cuts the head dim across the
-//      warps of a block (`attention_wide_kernel` there).
+//      head of dh = 768 or 1024 (the cascaded branches, base and large) cuts
+//      the head dim across the warps of a block (`attention_wide_kernel`
+//      there).
 //
 // Dropout. The keep mask of weight (b, h, i, j) is the counter hash of
 // dropout_mask.cuh, seeded from a device (seed, offset) pair, so the

@@ -1,6 +1,6 @@
 // Fused attention block (K1): the attention kernel's entry point. The kernels
 // are the forward templates of attention_core.cuh, instantiated per head dim
-// in fused_attention_block_attn_dh{64,96,128,768}.cu; the projection GEMMs and
+// in fused_attention_block_attn_dh{64,96,128,768,1024}.cu; the projection GEMMs and
 // the note on the whole block are in fused_attention_block.cu.
 #include "fused_attention_block_attn.cuh"
 
@@ -10,6 +10,7 @@ int sc_fab_attention_dh64(SC_FAB_ATTN_PARAMS, int ctx_bf16);
 int sc_fab_attention_dh96(SC_FAB_ATTN_PARAMS, int ctx_bf16);
 int sc_fab_attention_dh128(SC_FAB_ATTN_PARAMS, int ctx_bf16);
 int sc_fab_attention_dh768(SC_FAB_ATTN_PARAMS, int ctx_bf16);
+int sc_fab_attention_dh1024(SC_FAB_ATTN_PARAMS, int ctx_bf16);
 
 // ctx (B, T, H*dh), fp32 or bf16 (ctx_bf16), = per-head
 // softmax(q k^T + key_bias [+ gate * ab]) v over the packed fp32 qkv
@@ -19,7 +20,7 @@ int sc_fab_attention_dh768(SC_FAB_ATTN_PARAMS, int ctx_bf16);
 // (device int64 [seed, offset]; null for none) the weights go through the
 // dropout mask of dropout_mask.cuh with `keep_thresh`, kept ones scaled by
 // `inv_keep`. `lse` (B, H, T) fp32 receives the per-row log-sum-exp when
-// not null. dh is 64, 96, 128 or 768.
+// not null. dh is 64, 96, 128, 768 or 1024.
 int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
                      int B, int Tn, int H, int dh, int ctx_bf16,
                      const float* ab, int ab_heads, const float* gate,
@@ -30,6 +31,7 @@ int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
     case 96: return sc_fab_attention_dh96(SC_FAB_ATTN_ARGS, ctx_bf16);
     case 128: return sc_fab_attention_dh128(SC_FAB_ATTN_ARGS, ctx_bf16);
     case 768: return sc_fab_attention_dh768(SC_FAB_ATTN_ARGS, ctx_bf16);
+    case 1024: return sc_fab_attention_dh1024(SC_FAB_ATTN_ARGS, ctx_bf16);
   }
   return (int)cudaErrorInvalidValue;
 }

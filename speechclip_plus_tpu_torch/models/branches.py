@@ -16,9 +16,9 @@ Port of ``speechclip_plus_tpu/models/branches.py`` (reference
 
 The branch transformer is `MultiheadAttentionAndNorm` or `TransformerEncoder`
 (`make_self_att`); its self-attention is K1 forward and K2 backward at every
-head width the configs use (8 heads of 96, or one head of 768). The keyword
-head's cosine score + VQ is K3, with the straight-through backward K3b in
-training.
+head width the configs use (8 heads of 96 or 128, or one head of 768 or
+1024). The keyword head's cosine score + VQ is K3, with the straight-through
+backward K3b in training.
 
 Every parameter is stored in fp32 and cast to the compute dtype at use, as
 flax's `dtype=` does (`TransformerArgs.compute_dtype` /

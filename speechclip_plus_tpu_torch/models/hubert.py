@@ -76,6 +76,7 @@ from ..nn.dropout import dropout
 from ..nn.flash import flash_attention
 from ..nn.fused_attention import fused_attention_dropout
 from ..nn.transformer import LayerNorm
+from ..ops.weighted_sum import layer_norm
 
 __all__ = ["HubertConfig", "HubertModel", "downsample_padding_mask",
            "relative_position_buckets"]
@@ -400,17 +401,21 @@ class HubertModel(nn.Module):
         return self.rel_attn_embed[self._buckets[(t, dev)]].t().reshape(c.n_heads, t, t)
 
     def forward(self, wav: torch.Tensor, wav_padding_mask: torch.Tensor,
-                layer_weights: torch.Tensor,
+                layer_weights: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
-                return_hidden_states: bool = False) -> dict:
+                return_hidden_states: bool = False,
+                normalize_contrib: bool = False) -> dict:
         """wav (B, T), wav_padding_mask (B, T) bool (True = pad), layer_weights
-        (L+1,) fp32 softmax weights; `generator` turns the dropouts on.
-        Returns the last hidden state `x`, the fp32 `weighted_sum` (B, T', D)
-        and the frame `padding_mask` (B, T'); with `return_hidden_states` also
-        `hidden_states`, the (L+1, B, T', D) stack of the encoder input and
-        every layer's output in the tower's dtype. The hidden states take no
-        gradient (frozen tower): the weighted sum's only gradient is into
-        `layer_weights`, which keeps each fp32 hidden state for it."""
+        (L+1,) fp32 softmax weights, or None for no weighted sum; `generator`
+        turns the dropouts on. Returns the last hidden state `x`, the fp32
+        `weighted_sum` (B, T', D) and the frame `padding_mask` (B, T'); with
+        `return_hidden_states` also `hidden_states`, the (L+1, B, T', D) stack
+        of the encoder input and every layer's output in the tower's dtype.
+        `normalize_contrib` layer-norms each hidden state in fp32 (no
+        parameters, eps 1e-5) before its weight (s3prl's normalized sum, JAX
+        ``:748-751``, ``:1020-1023``). The hidden states take no gradient
+        (frozen tower): the weighted sum's only gradient is into
+        `layer_weights`, which keeps each fp32 contribution for it."""
         p, g = self.cfg.dropout, generator
         feats = self.feature_extractor(wav)
         pad = downsample_padding_mask(wav_padding_mask, feats.shape[1])
@@ -424,14 +429,20 @@ class HubertModel(nn.Module):
         x = dropout(x, p, g)
         bias = padding_bias(pad)
         position_bias = self.position_bias(x.shape[1])
-        acc = layer_weights[0] * x.float().detach()
+
+        def contrib(h):
+            h = h.float().detach()
+            return layer_norm(h) if normalize_contrib else h
+
+        acc = None if layer_weights is None else layer_weights[0] * contrib(x)
         hidden = None
         if return_hidden_states:  # filled layer by layer: one copy of the stack
             hidden = x.new_empty((len(self.layers) + 1, *x.shape))
             hidden[0] = x.detach()
         for i, layer in enumerate(self.layers):
             x = layer(x, bias, g, position_bias)
-            acc = acc + layer_weights[i + 1] * x.float().detach()
+            if acc is not None:
+                acc = acc + layer_weights[i + 1] * contrib(x)
             if hidden is not None:
                 hidden[i + 1] = x.detach()
         out = {"x": x, "weighted_sum": acc, "padding_mask": pad}

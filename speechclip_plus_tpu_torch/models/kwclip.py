@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.losses import masked_contrastive_loss, quantity_l1_loss
-from ..ops.weighted_sum import layer_weights
+from ..ops.weighted_sum import layer_weights, weighted_sum
 from ..nn.mlp import MLPLayers
 from .branches import (CascadedBranch, CascadedBranchPlus, HybridBranch, HybridBranchPlus,
                        KeywordHeadConfig, KwBnConfig, ParallelBranch, TransformerArgs,
@@ -98,6 +98,14 @@ class KWClipConfig:
     c_proj_dims: Optional[Tuple[int, ...]] = None
     c_proj_dropout: float = 0.1
     retrieval_audio_feat_src: str = "parallel"
+    # `audio_encoder.feat_select_idx`: "weighted_sum", "last_hidden_state" or
+    # a tuple of hidden-state indices; `normalize_hiddenstates` with
+    # `normalize_type` s3prl (layer norm of each hidden state in the sum),
+    # method1 (each frame to unit norm) or method2 (each layer over its mean
+    # frame norm), JAX ``:725-803``
+    feat_select_idx: Any = "weighted_sum"
+    normalize_hiddenstates: bool = False
+    normalize_type: str = "s3prl"
 
     @property
     def keyword_num(self) -> Optional[int]:
@@ -124,9 +132,14 @@ class KWClipConfig:
         c_w = float(getattr(ms, "cascaded_objective_weight", 0.0))
         p_w = float(getattr(ms, "parallel_objective_weight", 0.0))
         ae = cfg.audio_encoder
-        if getattr(ae, "feat_select_idx", "weighted_sum") != "weighted_sum" \
-                or getattr(ae, "normalize_hiddenstates", False):
-            raise NotImplementedError("audio features other than the plain weighted sum")
+        feat_select_idx = getattr(ae, "feat_select_idx", "weighted_sum")
+        if isinstance(feat_select_idx, (list, tuple)):
+            feat_select_idx = tuple(int(i) for i in feat_select_idx)
+        elif feat_select_idx not in ("weighted_sum", "last_hidden_state"):
+            raise NotImplementedError(f"audio_encoder.feat_select_idx {feat_select_idx!r}")
+        normalize_type = getattr(ae, "normalize_type", "s3prl")
+        if normalize_type not in ("s3prl", "method1", "method2"):
+            raise NotImplementedError(f"audio_encoder.normalize_type {normalize_type!r}")
         audio_is_trainable = bool(getattr(ae, "trainable", False)
                                   or getattr(ae, "reinit_layers", None)
                                   or getattr(ae, "unfreeze_layers", None))
@@ -262,7 +275,10 @@ class KWClipConfig:
             pbranch_proj_dims=tuple(pb_proj.dimensions) if pb_proj is not None else None,
             pbranch_proj_dropout=float(pb_proj.dropout) if pb_proj is not None else 0.1,
             c_proj_dims=cb_dims, c_proj_dropout=cb_drop,
-            retrieval_audio_feat_src=getattr(cfg.retrieval, "audio_feat_src", "parallel"))
+            retrieval_audio_feat_src=getattr(cfg.retrieval, "audio_feat_src", "parallel"),
+            feat_select_idx=feat_select_idx,
+            normalize_hiddenstates=bool(getattr(ae, "normalize_hiddenstates", False)),
+            normalize_type=normalize_type)
 
 
 def _l2norm(x: torch.Tensor) -> torch.Tensor:
@@ -314,18 +330,41 @@ class KWClip(nn.Module):
     def forward_audio(self, wav: torch.Tensor, wav_len: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       return_hidden_states: bool = False):
-        """Frozen HuBERT + weighted sum -> (feat (B, T', D) fp32, feat_len
-        (B,)), and with `return_hidden_states` the tower's (L+1, B, T', D)
-        stack third (JAX ``:757-803``; only then is the stack built)."""
+        """Frozen HuBERT + the feature `feat_select_idx` names -> (feat
+        (B, T', D) fp32, or (n, B, T', D) for n > 1 indices, feat_len (B,)),
+        and with `return_hidden_states` the tower's (L+1, B, T', D) stack
+        third (JAX ``:725-803``). The weighted sum, plain or s3prl-normalized,
+        is accumulated in the tower's layer loop; the other features read the
+        stack, normalized first by method1 / method2 (the stack returned is
+        then the normalized one, as JAX returns it)."""
+        c = self.cfg
         pad = torch.arange(wav.shape[1], device=wav.device)[None, :] >= wav_len[:, None]
-        out = self.audio_encoder(wav, pad, layer_weights(self.weightedsum), generator,
-                                 return_hidden_states=return_hidden_states)
-        feat = out["weighted_sum"]
-        rate = self.cfg.audio.downsample_rate
+        s3prl = c.normalize_hiddenstates and c.normalize_type == "s3prl"
+        fused = c.feat_select_idx == "weighted_sum" and (s3prl or not c.normalize_hiddenstates)
+        out = self.audio_encoder(wav, pad, layer_weights(self.weightedsum) if fused else None,
+                                 generator, return_hidden_states=return_hidden_states or not fused,
+                                 normalize_contrib=s3prl)
+        hidden = out.get("hidden_states")
+        if fused:
+            feat = out["weighted_sum"]
+        else:
+            h = hidden.float()
+            if c.normalize_hiddenstates and c.normalize_type == "method1":
+                hidden = h = h / (h.norm(dim=-1, keepdim=True) + 1e-8)
+            elif c.normalize_hiddenstates and c.normalize_type == "method2":
+                hidden = h = h / h.norm(dim=-1).mean(dim=-1)[:, :, None, None]
+            if isinstance(c.feat_select_idx, tuple):
+                sel = h[list(c.feat_select_idx)]
+                feat = sel[0] if len(c.feat_select_idx) == 1 else sel
+            elif c.feat_select_idx == "weighted_sum":
+                feat = weighted_sum(h, self.weightedsum)
+            else:
+                feat = h[-1]
+        rate = c.audio.downsample_rate
         feat_len = torch.clamp(torch.round(wav_len.float() / rate).to(torch.int64),
-                               max=feat.shape[1])
+                               max=feat.shape[-2])
         if return_hidden_states:
-            return feat, feat_len, out["hidden_states"]
+            return feat, feat_len, hidden
         return feat, feat_len
 
     def feature_extractor(self, wav: torch.Tensor, wav_len: torch.Tensor
@@ -402,6 +441,11 @@ class KWClip(nn.Module):
         Dropout draws from `generator`; None runs without dropout (flax's
         `deterministic=True`). `global_step` is the optimizer step (CIF
         scaling)."""
+        idx = self.cfg.feat_select_idx
+        if isinstance(idx, tuple) and len(idx) > 1:
+            raise NotImplementedError(
+                "a multi-layer feat_select_idx is a feature-extraction surface (forward_audio, "
+                "feature_extractor): the branches take one (B, T, D) feature, as in JAX")
         feat, feat_len = self.forward_audio(batch["wav"], batch["wav_len"], generator)
         return self.forward_from_audio(feat, feat_len, batch, training=training,
                                        global_step=global_step, generator=generator)

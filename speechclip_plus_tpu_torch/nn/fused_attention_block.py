@@ -49,23 +49,26 @@ from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 
 __all__ = ["fused_attention_block", "attention_forward", "plain_fused_attention_block",
            "projection", "plain_projection", "check_attn_bias", "LAUNCHES", "WIDE_LAUNCHES",
-           "DH128_LAUNCHES", "PROJECTION_LAUNCHES"]
+           "DH128_LAUNCHES", "DH1024_LAUNCHES", "PROJECTION_LAUNCHES"]
 
 # wrapper calls that ran the kernels on the card (one per call, whatever the
 # number of CUDA launches it makes)
 LAUNCHES = 0
-# those of them at a head of 768 (the kernel that cuts the head dim across warps)
+# those of them at a head of 768 (the base cascaded branches)
 WIDE_LAUNCHES = 0
 # those of them at a head of 128 (the large branches)
 DH128_LAUNCHES = 0
+# those of them at a head of 1024 (the fixed-K large branches; the wide kernel
+# with 16 query rows a block)
+DH1024_LAUNCHES = 0
 # launches of the projection GEMM (K1a): two per fused-out block, one per context-only block
 PROJECTION_LAUNCHES = 0
 
 # 64, 96 and 128: the towers' and the 8-head branches' heads (base and large),
-# whole (64, dh) tiles in shared memory; 768: the cascaded branches' single
-# head, whose head dim is cut across the warps (csrc/attention_core.cuh).
-# Anything else raises.
-_HEAD_DIMS = (64, 96, 128, 768)
+# whole (64, dh) tiles in shared memory; 768 and 1024: the cascaded branches'
+# single head (base and large), whose head dim is cut across the warps
+# (csrc/attention_core.cuh). Anything else raises.
+_HEAD_DIMS = (64, 96, 128, 768, 1024)
 
 
 def plain_projection(x, w, b, *, scale_cols: int = 0, scale: float = 1.0,
@@ -162,7 +165,7 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
 
 def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
             seeds=None, keep_prob=1.0, return_aux=False, attn_bias=None, attn_gate=None):
-    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, DH1024_LAUNCHES
 
     b, t, d = x.shape
     dh = d // n_heads
@@ -202,6 +205,7 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
     LAUNCHES += 1
     WIDE_LAUNCHES += dh == 768
     DH128_LAUNCHES += dh == 128
+    DH1024_LAUNCHES += dh == 1024
     if return_aux:
         return ctx, qkv, lse
     return projection(ctx, w_out, b_out, out_dtype=x.dtype) if fuse_out else ctx

@@ -20,7 +20,7 @@ On a CUDA tensor K2 is the hand-written kernel of
 (1, T, T) or (H, T, T) in fp32 (the text tower's causal mask; JAX `has_ab`,
 :113, :153-154): K1 adds it to the scores (it is part of the lse), K2 adds it
 again when it recomputes p; it takes no gradient (JAX returns zeros, :392).
-Any other shape raises. Head dims 64, 96 and 768 run on the card.
+Any other shape raises. Head dims 64, 96, 128, 768 and 1024 run on the card.
 """
 from __future__ import annotations
 
@@ -33,13 +33,14 @@ from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 from .fused_attention_block import _HEAD_DIMS, attention_forward, check_attn_bias
 
 __all__ = ["fused_attention_block_vjp", "attention_backward", "plain_attention_backward",
-           "LAUNCHES", "WIDE_LAUNCHES", "DH128_LAUNCHES", "BIAS_LAUNCHES"]
+           "LAUNCHES", "WIDE_LAUNCHES", "DH128_LAUNCHES", "DH1024_LAUNCHES", "BIAS_LAUNCHES"]
 
 # wrapper calls that ran K2 on the card; those of them at a head of 768 (the
-# wide-head kernels) and those with a per-head bias
+# base cascaded branches) and those with a per-head bias
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
 DH128_LAUNCHES = 0  # of them at a head of 128 (the large branches)
+DH1024_LAUNCHES = 0  # of them at a head of 1024 (the fixed-K large branches)
 BIAS_LAUNCHES = 0
 
 
@@ -78,7 +79,7 @@ def plain_attention_backward(qkv, key_padding_bias, dctx, ctx, lse, n_heads: int
 
 def _launch_bwd(qkv, key_padding_bias, dctx, ctx, lse, n_heads, seeds, keep_prob,
                 attn_bias=None):
-    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, BIAS_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, DH1024_LAUNCHES, BIAS_LAUNCHES
     from ..utils.cuda_build import check, kernels
 
     b, t, d3 = qkv.shape
@@ -122,6 +123,7 @@ def _launch_bwd(qkv, key_padding_bias, dctx, ctx, lse, n_heads, seeds, keep_prob
     LAUNCHES += 1
     WIDE_LAUNCHES += dh == 768
     DH128_LAUNCHES += dh == 128
+    DH1024_LAUNCHES += dh == 1024
     BIAS_LAUNCHES += ab is not None
     return dqkv
 

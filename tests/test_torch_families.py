@@ -297,8 +297,11 @@ def _set(cfg, dotted, value):
     ("clip.image_encoder_trainable", True, NotImplementedError, "trainable towers"),
     ("audio_encoder.trainable", True, NotImplementedError, "trainable towers"),
     ("audio_encoder.layer_drop", 0.05, NotImplementedError, "layer_drop"),
-    ("audio_encoder.feat_select_idx", "last_hidden_state", NotImplementedError, "weighted sum"),
-    ("audio_encoder.normalize_hiddenstates", True, NotImplementedError, "weighted sum"),
+    # the audio feature's keys build since the fixed-K large family was ported
+    ("audio_encoder.feat_select_idx", "last_hidden_state", None, "feat_select_idx"),
+    ("audio_encoder.feat_select_idx", "mean_pool", NotImplementedError, "feat_select_idx"),
+    ("audio_encoder.normalize_hiddenstates", True, None, "normalize_hiddenstates"),
+    ("audio_encoder.normalize_type", "method3", NotImplementedError, "normalize_type"),
     ("cl_loss.type", "SupConLoss", NotImplementedError, "cl_loss.type"),
     ("model_settings.cascaded_branch.downsampling.cif.using_gt_len", True, NotImplementedError,
      "using_gt_len"),
@@ -316,6 +319,11 @@ def test_unsupported_keys_raise_by_name(key, value, error, match):
     _set(cfg, key, value)
     if key == "clip.name":
         cfg.clip.tiny = False
+    if error is None and key.startswith("audio_encoder."):  # ported: the typed config, a build
+        mc = KWClipConfig.from_config(cfg)
+        assert getattr(mc, match) == value
+        KWClip(mc)
+        return
     if error is None:  # a key that is ported now: its typed config, not a full-width build
         clip = KWClipConfig.from_config(cfg).clip
         want = ClipConfig.vit_l14()
