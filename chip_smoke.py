@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase fit      # phase 6 (cached), phase J and path K only
     python3 chip_smoke.py --phase large    # phase 2 at the large shapes, then paths M and N
     python3 chip_smoke.py --phase large_fixed  # phase 2 at path N's shapes, then path N
+    python3 chip_smoke.py --phase mel      # phase 2 at the base and path O shapes, then path O
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -119,6 +120,19 @@ Phases, each fatal on failure:
      steps a cell: it accumulates 4 batches), N3's fp32 card-vs-CPU parity of
      serving and of one training step, and one cached N1 cell at the YAML's
      own batch of 256 for its peak memory.
+  O. the mel upstreams (bf16, full width, nothing cut; base YAMLs with
+     `audio_encoder.name` and, for APC, the parallel branch's width
+     overridden in memory): the log-mel frontend gives 638 frames for 102400
+     samples, so the branch runs at T = 639 (hybrid+, parallel) and 638
+     (cascaded+). O1 Mockingjay hybrid+ (12 post-norm layers through K1
+     fused-out, 12 heads of 64 over 638 frames): phase 5's serving cells
+     over 256 images with its branch and VQ shapes held, the training phase
+     with cached and live images, and the fp32 card-vs-CPU parity of serving
+     and of one training step; O2 APC parallel (3 cuDNN LSTM layers of 512, a
+     512-wide branch of 8 heads of 64) and O3 TERA cascaded+ (3 layers, one
+     head of 768 in the branch) through the family path with cached images;
+     O2's LSTM tower alone in fp32 against the CPU, and its time with and
+     without cuDNN's TF32.
 Phase 2 also holds the pieces those paths add against their twins: K2 with
 the causal bias at the text shape (128, 77, 512, H=8) and K1 context-only
 there, K1 and K2 at (128, 328, 768) with one head (p=0.1 and 0), each against
@@ -131,7 +145,9 @@ differences, and K3 / K3b at N=9600 on the 768-wide codebook for V=8112 and
 19787; and at path N's (`phase_kernels_large_fixed`): K1 context-only + lse and
 K2 at one head of 1024 (B=128, T=327 and 328, p=0.1 and 0, K2 against finite
 differences in fp32), K1 at the cascaded serving shapes (T=327, B=1, 8, 64),
-and K3 / K3b at N=1024 on the 768-wide codebook. The family paths and every training
+and K3 / K3b at N=1024 on the 768-wide codebook; and at path O's tower shape
+(`phase_kernels_mel`): K1 fused-out at (128, 638, 768, H=12), p=0.1 and 0. The
+family paths and every training
 phase record the shapes at which they call the branch attention and the
 cosine-VQ; after each path, K1 context-only, K2, K3 and K3b are held against
 their twins at every recorded shape that no earlier check covered (the
@@ -1595,6 +1611,128 @@ def phase_large_fixed(torch):
     return by_path
 
 
+# --------------------------------------------------------------- path O ----
+
+MEL_CONFIGS = {  # path O, the mel upstreams: base YAMLs with keys overridden in memory
+    "O1 mockingjay hybrid+": (CONFIG, {"audio_encoder.name": "mockingjay"}),
+    # APC is 512 wide: the parallel branch follows it (8 heads of 64)
+    "O2 apc parallel": ("config/speechclip_plus/base/parallel.yaml", {
+        "audio_encoder.name": "apc",
+        "model_settings.parallel_branch.transformer_args.d_model": 512}),
+    "O3 tera cascaded+": ("config/speechclip_plus/base/cascaded_plus.yaml",
+                          {"audio_encoder.name": "tera"}),
+}
+
+
+def phase_kernels_mel(torch):
+    """Phase 2 at path O's tower shape: K1 fused-out with 12 heads of 64 over
+    the mel transformers' 638 frames (B=128), with dropout 0.1 as in training
+    and without, in bf16 and fp32. The branch's shapes (T = 638, 639) are held
+    after each cell by `check_path_shapes`. Returns extra modes by kernel
+    name."""
+    from speechclip_plus_tpu_torch.nn import fused_attention_block as fab
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    name = "K1 fused-out mel transformer B=128 T=638 D=768 H=12"
+    modes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        row = check_attention_dropout(torch, fab, name, 128, 638, 768, 12, True, dtype, gen)
+        modes.append({"shape": f"mel tower B=128 T=638 D=768 H=12 fused-out, dropout 0.1, {dt}",
+                      **row})
+        row = check_attention(torch, fab, name + " p=0", 128, 638, 768, 12, True, True, dtype,
+                              gen)
+        modes.append({"shape": f"mel tower B=128 T=638 D=768 H=12 fused-out, no dropout, {dt}",
+                      **row})
+        torch.cuda.empty_cache()
+    return {"fused_attention_block": modes}
+
+
+def phase_lstm_parity(torch):
+    """O2's tower alone, fp32: the log-mel frontend and APC's 3 LSTM layers
+    of 512 (cuDNN, TF32 off inside each layer) on the card against the same
+    weights on the CPU, B=8 ragged up to 102400 samples: every hidden state
+    and the weighted sum to 1e-4 x max(1, RMS). For the record, the same
+    layers with cuDNN's TF32 left on (its default): their error against the
+    CPU, and both forms' time at B=128."""
+    from speechclip_plus_tpu_torch.models.mel_upstreams import MelUpstream, MelUpstreamConfig
+    from speechclip_plus_tpu_torch.ops.mel import log_mel_spectrogram
+    from speechclip_plus_tpu_torch.tasks.builder import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MelUpstreamConfig.from_upstream_name("apc")
+    cpu = MelUpstream(cfg).eval()
+    init_params(cpu, torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = train_batch(torch, 8, TRAIN_WAV, 8, seed=4)
+    wav = batch["wav"]
+    pad = torch.arange(TRAIN_WAV, device="cuda")[None] >= batch["wav_len"][:, None]
+    weights = torch.softmax(torch.linspace(-1.0, 1.0, cfg.num_hidden_states), dim=0)
+    with torch.no_grad():
+        want = cpu(wav.cpu(), pad.cpu(), weights, return_hidden_states=True)
+        got = card(wav, pad, weights.cuda(), return_hidden_states=True)
+    worst = 0.0
+    for key in ("hidden_states", "weighted_sum"):
+        a, w = got[key].cpu().float(), want[key].float()
+        worst = max(worst, (a - w).abs().max().item() / max(1.0, w.pow(2).mean().sqrt().item()))
+    require(torch.equal(got["padding_mask"].cpu(), want["padding_mask"]), "O2 tower: masks")
+
+    def lstm(x, tf32):
+        torch.backends.cudnn.allow_tf32 = tf32
+        for i in range(cfg.n_layers):
+            layer = getattr(card.lstm, f"layer_{i}")
+            x = (layer(x) if not tf32 else torch.nn.LSTM.forward(layer, x)[0])
+        torch.backends.cudnn.allow_tf32 = False
+        return x
+
+    with torch.no_grad():
+        mel = log_mel_spectrogram(wav).masked_fill(got["padding_mask"][:, :, None], 0.0)
+        tf32_err = (lstm(mel, True).cpu() - want["hidden_states"][-1]).abs().max().item()
+        big = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, 8, seed=5)["wav"]
+        mel = log_mel_spectrogram(big)
+        off_ms = median_ms(torch, lambda: lstm(mel, False), runs=5, warmup=1)
+        on_ms = median_ms(torch, lambda: lstm(mel, True), runs=5, warmup=1)
+    print(f"[path O2] APC tower fp32, card vs CPU, B=8 x {TRAIN_WAV} ragged: hidden states and "
+          f"weighted sum max_abs_err / max(1, RMS) {worst:.3e} (<= 1e-4), cuDNN LSTM with TF32 "
+          f"off; with TF32 on the last layer would be {tf32_err:.3e} off. 3 LSTM layers at "
+          f"B={TRAIN_BATCH} x 638 frames: TF32 off {off_ms:.3f} ms, on {on_ms:.3f} ms (median "
+          f"of 5)")
+    require(worst <= 1e-4, f"O2 tower: card vs CPU {worst} > 1e-4 x max(1, RMS)")
+
+
+def phase_mel(torch):
+    """Path O, the mel upstreams (bf16, full width, seeded random weights; the
+    base YAMLs of MEL_CONFIGS with `audio_encoder.name` overridden in memory):
+    O1 Mockingjay hybrid+ serves (phase 5's cells at B = 1, 8, 64, both
+    feature sources and wire dtypes, `search_stream`, over 256 images) and
+    trains (B=128 x 102400, cached and live images), with its fp32
+    card-vs-CPU parity of serving and of one training step; O2 APC parallel
+    and O3 TERA cascaded+ through the family path (cached images), and O2's
+    LSTM tower alone against the CPU. Returns the launch counts by path."""
+    by_path, ms = {}, {}
+    label = "O1 mockingjay hybrid+"
+    config = MEL_CONFIGS[label]
+    by_path["O1_serve"] = phase_model(torch, f"path {label}", config, n_img=256, shapes=True)
+    by_path["O1_train"], ms[label] = phase_train(torch, f"path {label}", config,
+                                                 built=build(torch, config))
+    phase_parity(torch, f"path {label}", config)
+    phase_train_parity(torch, f"path {label}", config)
+    for label in ("O2 apc parallel", "O3 tera cascaded+"):
+        counts, ms[label] = phase_family(torch, label, MEL_CONFIGS[label])
+        by_path[f"{label[:2]}_serve"], by_path[f"{label[:2]}_train"] = (
+            counts["serve"], counts["train"])
+        if label.startswith("O2"):
+            phase_lstm_parity(torch)
+    print(f"[path O] ms/step, pairs/s, peak at B={TRAIN_BATCH} x {TRAIN_WAV}: " + "; ".join(
+        f"{label} {cell} {v:.2f} ms, {TRAIN_BATCH / v * 1e3:.1f} pairs/s, "
+        f"peak {cells[cell + '_peak_gib']:.2f} GiB"
+        for label, cells in ms.items() for cell, v in cells.items() if not cell.endswith("gib")))
+    return by_path
+
+
 # --------------------------------------------------------- phases 3-6 ----
 
 def ragged_wavs(rng, b, int16):
@@ -1615,11 +1753,19 @@ def check_search(ids, scores, b, k, index_ids, what):
 def build(torch, config, device="cuda", precision=None, clip_keys=None, **audio_keys):
     """(cfg, model, model_cfg) from a YAML config with seeded random weights;
     `audio_keys` are set under `audio_encoder` and `clip_keys` under `clip`,
-    as a YAML would."""
+    as a YAML would. `config` is a path, or (path, {dotted key: value}) for a
+    cell that overrides keys of a base YAML in memory (path O)."""
     from speechclip_plus_tpu_torch.config import load_config
     from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
 
-    cfg = load_config(config)
+    path, overrides = (config, {}) if isinstance(config, str) else config
+    cfg = load_config(path)
+    for dotted, value in overrides.items():
+        node = cfg
+        *parents, leaf = dotted.split(".")
+        for key in parents:
+            node = getattr(node, key)
+        setattr(node, leaf, value)
     for key, value in audio_keys.items():
         setattr(cfg.audio_encoder, key, value)
     for key, value in (clip_keys or {}).items():
@@ -1653,10 +1799,29 @@ def speech_query_plan(tower, cascaded):
     return plan
 
 
+def tower_k1_layers(audio):
+    """The tower's K1 (fused-out) launches a forward: one a layer, none for
+    an LSTM upstream (cuDNN)."""
+    return 0 if getattr(audio, "arch", None) == "lstm" else audio.n_layers
+
+
+def tower_frames(torch, model, n_samples=TRAIN_WAV):
+    """(frames the tower gives for `n_samples`, the count the path expects:
+    319 through a HuBERT-family frontend, 638 through the mel one), from the
+    frontend alone, which runs no kernel of the port."""
+    enc = model.audio_encoder
+    with torch.no_grad():
+        if hasattr(enc, "feature_extractor"):
+            return enc.feature_extractor(torch.zeros(1, n_samples, device="cuda")).shape[1], 319
+        from speechclip_plus_tpu_torch.ops.mel import log_mel_spectrogram
+        return log_mel_spectrogram(torch.zeros(1, n_samples, device="cuda")).shape[1], 638
+
+
 def family_plans(mc):
     """(launches of one query by feature source, of `encode_speech`, of one
     training step with cached images) for any family, from its typed config:
-    the tower's layers (12, or 24 large) and the branch attention (K1; K2 in
+    the tower's layers (12, or 24 large; a mel transformer's 3 or 12, an
+    LSTM upstream none) and the branch attention (K1; K2 in
     the step), at one head of 768 the wide-head kernels, at heads of 128 the
     dh=128 ones; with a keyword head the cosine-VQ (K3; K3b in the step), on
     a 768-wide codebook its D=768 instances; with `text_fused_attention_vjp`
@@ -1665,7 +1830,7 @@ def family_plans(mc):
     at = HEAD_COUNTERS.get(ta.d_model // ta.nhead)
     d768 = mc.has_cascaded and mc.clip.text_width == 768
     text = mc.clip.text_layers if mc.has_cascaded and mc.clip.text_fused_attention_vjp else 0
-    branch = k1_plan(mc.audio.n_layers, 1)
+    branch = k1_plan(tower_k1_layers(mc.audio), 1)
     if at:
         branch["fused_attention_block" + at] = 1
     full = dict(branch)
@@ -1700,14 +1865,13 @@ def phase_family(torch, label, config, cells=("cached",), warmup=WARMUP_STEPS):
     _, model, mc = built
     torch.cuda.synchronize()
     src = mc.retrieval_audio_feat_src
-    with torch.no_grad():  # the frontend alone: no kernel of the port
-        frames = model.audio_encoder.feature_extractor(
-            torch.zeros(1, TRAIN_WAV, device="cuda")).shape[1]
+    frames, want_frames = tower_frames(torch, model)
     print(f"[build] path {label}: {mc.branch_type or 'ParallelBranch'} bf16 on cuda:0 in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters); "
           f"retrieval.audio_feat_src {src}; {frames} frames for {TRAIN_WAV} samples")
-    require(frames == 319, f"{label}: {frames} frames for {TRAIN_WAV} samples, not 319")
+    require(frames == want_frames,
+            f"{label}: {frames} frames for {TRAIN_WAV} samples, not {want_frames}")
     sc = SpeechCLIP(model, "cuda")
     seen, hooks = record_shapes(torch, model)
     query, full, _ = family_plans(mc)
@@ -1844,17 +2008,22 @@ def phase_text_route(torch):
 
 
 def phase_model(torch, label, config, *, tower="k1", batches=(1, 8, 64), wires=(False, True),
-                n_img=1000, stream=True, **audio_keys):
-    """Phases 3-5 for one configuration: build, image index, serving cells."""
+                n_img=1000, stream=True, shapes=False, **audio_keys):
+    """Phases 3-5 for one configuration of the hybrid+ family: build, image
+    index, serving cells; with `shapes`, the branch and cosine-VQ shapes of
+    the serving cells held against their twins after them (path O)."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
     from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
 
     t0 = time.perf_counter()
-    _, model, _ = build(torch, config, **audio_keys)
+    _, model, mc = build(torch, config, **audio_keys)
     torch.cuda.synchronize()
     print(f"[build] {label}: hybrid+ bf16 on cuda:0 in {time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
     sc = SpeechCLIP(model, "cuda")
+    query = (family_plans(mc)[0] if tower == "k1" else
+             {src: speech_query_plan(tower, src == "cascaded") for src in ("parallel", "cascaded")})
+    seen, shape_hooks = record_shapes(torch, model) if shapes else (set(), [])
 
     batch = 256
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1867,7 +2036,7 @@ def phase_model(torch, label, config, *, tower="k1", batches=(1, 8, 64), wires=(
     t0 = time.perf_counter()
     index = build_image_index(sc, images, index_ids, batch_size=batch)
     torch.cuda.synchronize()
-    add_counts(expect, k1_plan(12), -(-n_img // batch))
+    add_counts(expect, k1_plan(mc.clip.vision_layers), -(-n_img // batch))
     require(len(index) == n_img and bool(torch.isfinite(index.feats).all()), "index")
     print(f"[index] {label}: {n_img} images in {time.perf_counter() - t0:.2f} s")
 
@@ -1884,11 +2053,11 @@ def phase_model(torch, label, config, *, tower="k1", batches=(1, 8, 64), wires=(
                     t0 = time.perf_counter()
                     ids, scores = r.search(wavs, k=10)
                     times.append(time.perf_counter() - t0)
-                    add_counts(expect, speech_query_plan(tower, src == "cascaded"))
+                    add_counts(expect, query[src])
                     check_search(ids, scores, b, 10, index_ids, f"{label} {src} B={b}")
                 lat[(src, b, int16)] = (times[1:], max(len(w) for w in wavs))
             out = sc.encode_speech(wavs)
-            add_counts(expect, speech_query_plan(tower, True))
+            add_counts(expect, query["cascaded"])
             for key, width in (("parallel_audio_feat", 512), ("cascaded_audio_feat", 512)):
                 f = out[key]
                 require(tuple(f.shape) == (b, width) and bool(torch.isfinite(f.float()).all()),
@@ -1910,14 +2079,18 @@ def phase_model(torch, label, config, *, tower="k1", batches=(1, 8, 64), wires=(
         for (ids, scores), wavs in zip(streamed, batches_):
             check_search(ids, scores, len(wavs), 10, index_ids, "search_stream")
         ids0, _ = retrievers["cascaded"].search(batches_[-1], k=10)
-        add_counts(expect, speech_query_plan(tower, True), len(batches_) + 1)
+        add_counts(expect, query["cascaded"], len(batches_) + 1)
         require((ids0 == streamed[-1][0]).all(), "search_stream differs from search")
         print(f"[serve] {label} search_stream depth=2, 6 x B=8 cascaded: "
               f"{48 / sec:.1f} utterances/s")
 
     counts = read_counts(torch, f"{label} serving", expect)
+    for h in shape_hooks:
+        h.remove()
     del model, sc, index, retrievers, images
     torch.cuda.empty_cache()
+    if shapes:
+        check_path_shapes(torch, f"{label} serving", seen)
     return counts
 
 
@@ -2821,10 +2994,11 @@ def profile_cell(torch, label, fn, n=3):
           f"{annotated / n / 1e3:.2f} ms/call (n={n})")
     for name, us in sorted(hidden.items(), key=lambda kv: -kv[1])[:4]:
         print(f"[profile]   overlaps an earlier kernel for {us / n / 1e3:8.3f} ms: {name[:90]}")
-    # the 16 largest, and every kernel of csrc/ (names "(anonymous namespace)::...",
-    # after "void " where the kernel is a template)
+    # the 16 largest, every kernel of csrc/ (names "(anonymous namespace)::...",
+    # after "void " where the kernel is a template) and cuFFT's (the mel frontend)
     for i, e in enumerate(sorted(events, key=dev, reverse=True)):
-        if i < 16 or e.key.startswith(("void (anonymous namespace)::", "(anonymous namespace)::")):
+        if i < 16 or e.key.startswith(("void (anonymous namespace)::", "(anonymous namespace)::")) \
+                or "fft" in e.key.lower():
             print(f"[profile]   {dev(e) / n / 1e3:8.3f} ms {e.count // n:5d}x  {e.key[:90]}")
 
 
@@ -2833,8 +3007,9 @@ def phase_profile(torch):
     WavLM model, one of the cascaded family and one of hybrid+ large, and one
     training cell (B=128 x 102400 samples, cached image features) for each of
     the HuBERT tower through K1, the WavLM tower, the HuBERT tower through
-    K5, the cascaded and parallel families and hybrid+ large (its YAML's
-    accumulation of 2: every other step updates)."""
+    K5, the cascaded and parallel families, hybrid+ large (its YAML's
+    accumulation of 2: every other step updates) and Mockingjay hybrid+
+    (path O1)."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
     from speechclip_plus_tpu_torch.optim.optimizer import build_optimizer_from_config
     from speechclip_plus_tpu_torch.parallel.train_step import (
@@ -2852,7 +3027,8 @@ def phase_profile(torch):
             ("path E cascaded", FAMILY_CONFIGS["E cascaded"], {}, (("cascaded", 8),)),
             ("path F parallel", FAMILY_CONFIGS["F parallel"], {}, ()),
             ("path M1 hybrid+ large", LARGE_CONFIGS["M1 hybrid+ large"], {},
-             (("cascaded", 8),))):
+             (("cascaded", 8),)),
+            ("path O1 mockingjay hybrid+", MEL_CONFIGS["O1 mockingjay hybrid+"], {}, ())):
         cfg, model, model_cfg = build(torch, config, **keys)
         sc = SpeechCLIP(model, "cuda")
         index = build_image_index(sc, images, np.arange(1000), batch_size=256)
@@ -2928,7 +3104,7 @@ def print_kernels_line(rows, by_path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit", "large",
-                                        "large_fixed"), default="all")
+                                        "large_fixed", "mel"), default="all")
     args = ap.parse_args()
     import torch
 
@@ -2973,10 +3149,16 @@ def main() -> int:
             print_kernels_line(rows, by_path)
             return 0
         rows = phase_kernels(torch)
+        if args.phase == "mel":
+            add_modes(rows, phase_kernels_mel(torch))
+            by_path = phase_mel(torch)
+            print(f"[time] chip_smoke --phase mel: {time.perf_counter() - started:.1f} s")
+            print_kernels_line(rows, by_path)
+            return 0
         large_rows, extra = phase_kernels_large(torch)
         fixed_rows, fixed_extra = phase_kernels_large_fixed(torch)
         rows += large_rows + fixed_rows
-        add_modes(rows, extra, fixed_extra)
+        add_modes(rows, extra, fixed_extra, phase_kernels_mel(torch))
         if args.phase == "all":
             by_path, ms = {}, {}
             hubert, wavlm = "HuBERT (K1 route)", "path A WavLM"
@@ -3005,6 +3187,7 @@ def main() -> int:
             by_path.update(phase_families(torch))
             by_path.update(phase_large(torch))
             by_path.update(phase_large_fixed(torch))
+            by_path.update(phase_mel(torch))
             print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s")
             print_kernels_line(rows, by_path)
     except SmokeFailure as e:

@@ -21,6 +21,10 @@ compute the same function in the parity tests. The layout rules:
     stores (``models/hubert.py:627-680``); it is copied as is.
   - Keyword-BN `batch_stats` become the running-statistic buffers, in the
     variant's layout ((D,), (D*K,) or (K, D)).
+  - A mel upstream's `audio_encoder` subtree is `lstm/layer_i/{w_ih, w_hh,
+    b_ih, b_hh}` (torch's layout already: copied as is onto each layer's
+    `weight_ih_l0` ...), or `input_proj`, `input_norm` and `layer_i/{self_attn,
+    norm1, norm2, linear1, linear2}`.
   - The branch transformer is `multihead_attn_layer` + `attentionBlock_Norm`,
     or `layer_i/{self_attn, norm1, norm2, linear1, linear2}` + `norm`; an MLP
     projection is `dense_i` where a single projection is a Dense.
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_variables", "load_hubert", "load_clip"]
+__all__ = ["load_jax_variables", "load_hubert", "load_mel_upstream", "load_clip"]
 
 
 class _Tree:
@@ -154,6 +158,34 @@ def _fill_hubert(f: _Filler, mod, p: Dict) -> None:
             f.put(layer.gru_rel_pos_const, t["gru_rel_pos_const"])
 
 
+def _fill_encoder_layer(f: _Filler, layer, t: Dict) -> None:
+    """torch's `TransformerEncoderLayer`: `self_attn`, `norm1/2`, `linear1/2`."""
+    f.packed_mha(layer.self_attn, t["self_attn"])
+    f.norm(layer.norm1, t["norm1"])
+    f.norm(layer.norm2, t["norm2"])
+    f.linear(layer.linear1, t["linear1"])
+    f.linear(layer.linear2, t["linear2"])
+
+
+def _fill_mel(f: _Filler, mod, p: Dict) -> None:
+    if mod.cfg.arch == "lstm":
+        for i in range(mod.cfg.n_layers):
+            layer, t = getattr(mod.lstm, f"layer_{i}"), p["lstm"][f"layer_{i}"]
+            for name in ("ih", "hh"):
+                f.put(getattr(layer, f"weight_{name}_l0"), t[f"w_{name}"])
+                f.put(getattr(layer, f"bias_{name}_l0"), t[f"b_{name}"])
+        return
+    f.linear(mod.input_proj, p["input_proj"])
+    f.norm(mod.input_norm, p["input_norm"])
+    for i, layer in enumerate(mod.layers):
+        _fill_encoder_layer(f, layer, p[f"layer_{i}"])
+
+
+def _fill_audio(f: _Filler, mod, p: Dict) -> None:
+    """Either acoustic tower: a mel upstream has `cfg.arch`."""
+    (_fill_mel if hasattr(mod.cfg, "arch") else _fill_hubert)(f, mod, p)
+
+
 def _fill_blocks(f: _Filler, transformer, p: Dict) -> None:
     for i, block in enumerate(transformer.blocks):
         t = p["blocks"]["block"].layer(i)
@@ -196,12 +228,7 @@ def _fill_self_att(f: _Filler, mod, t: Dict) -> None:
         f.packed_mha(mod.multihead_attn_layer, t["multihead_attn_layer"])
         return f.norm(mod.attentionBlock_Norm, t["attentionBlock_Norm"])
     for i, layer in enumerate(mod.layers):
-        tl = t[f"layer_{i}"]
-        f.packed_mha(layer.self_attn, tl["self_attn"])
-        f.norm(layer.norm1, tl["norm1"])
-        f.norm(layer.norm2, tl["norm2"])
-        f.linear(layer.linear1, tl["linear1"])
-        f.linear(layer.linear2, tl["linear2"])
+        _fill_encoder_layer(f, layer, t[f"layer_{i}"])
     f.norm(mod.norm, t["norm"])
 
 
@@ -243,6 +270,14 @@ def load_hubert(module: nn.Module, params: Dict) -> None:
     _finish(f, p)
 
 
+def load_mel_upstream(module: nn.Module, params: Dict) -> None:
+    """Fill a `MelUpstream` from the JAX `MelUpstream` params (or a KWClip's
+    `audio_encoder` subtree)."""
+    f, p = _Filler(module), _Tree(params)
+    _fill_mel(f, module, p)
+    _finish(f, p)
+
+
 def load_clip(module: nn.Module, params: Dict) -> None:
     """Fill a `ClipModel` from the JAX `clip` params subtree."""
     f, p = _Filler(module), _Tree(params)
@@ -258,7 +293,7 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> None:
     f.put(model.weightedsum, p["weightedsum"])
     if hasattr(model, "criterion_log_inv_temp"):
         f.put(model.criterion_log_inv_temp, p["criterion_log_inv_temp"])
-    _fill_hubert(f, model.audio_encoder, p["audio_encoder"])
+    _fill_audio(f, model.audio_encoder, p["audio_encoder"])
     _fill_clip(f, model.clip, p["clip"])
     for name in ("cascaded_branch", "parallel_branch"):
         if getattr(model, name) is not None:

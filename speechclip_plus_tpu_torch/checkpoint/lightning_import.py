@@ -123,6 +123,9 @@ def lightning_to_kwclip(sd: Dict[str, np.ndarray], model) -> None:
     """Fill a port `KWClip` (any of the five branch types) from a flat
     Lightning state dict, in place."""
     c, out = model.cfg, {}
+    if hasattr(c.audio, "arch"):
+        raise NotImplementedError(f"a Lightning checkpoint with the {c.audio.kind} mel upstream: "
+                                  "the importer maps the fairseq HuBERT-family tower only")
     for key, value in fairseq_hubert_to_port(sd, c.audio, prefix="audio_encoder.encoder.").items():
         out[f"audio_encoder.{key}"] = value
     ws = "audio_encoder.weightedsum_layer.weights"

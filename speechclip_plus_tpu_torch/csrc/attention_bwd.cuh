@@ -164,6 +164,17 @@ __device__ __forceinline__ ScoreGrad score_grad(float s, float dp, float bias, f
 // is a third slower, at a quarter 0.2 %). At dh = 768 every tile takes the
 // compensated passes: that kernel waits on L2, not on its products.
 constexpr float LOG_PRECISE_ABOVE = -1.3862944f;  // PRECISE_ABOVE = 0.25
+// Past PRECISE_BEYOND_T keys every tile takes the compensated passes. Where
+// the weights are flat, the one-pass error of dq, dk and dv grows with the
+// number of keys summed: at B=128 and dh=64 it is 1.97e-2 x RMS beyond half a
+// bf16 ulp at T=639 (1.69e-2 at dh=96, T=329), against a tolerance of 2e-2;
+// compensated everywhere 5.5e-3, for an eighth to a quarter more time on an
+// H100 (scripts/torch_k2_precision_variants.py, precise_only). T up to 6 key
+// tiles (the HuBERT-family branches, T <= 329) keeps the choice per tile. The
+// launcher picks the kernel instance by T (ALL_PRECISE): the same choice made
+// at run time inside the kernel keeps both code paths live, and took a third
+// more time than the instance without the one-pass path.
+constexpr int PRECISE_BEYOND_T = 384;
 
 // The compensated dp += dctx v^T (the dq pass: a is dctx, b is v) or
 // dp^T += v dctx^T (the dk/dv pass). The bf16 cotangent is exact in TF32, so
@@ -260,7 +271,8 @@ __device__ __forceinline__ void second_products(float (&acc1)[DH / 8][4],
 // are keys). Warp w owns rows 16 w + g and 16 w + g + 8 of the block's 64; the
 // product accumulators hold other rows 8 j + 2t, 2t + 1 (j < 8), the output
 // accumulators head columns 8 n + 2t, 2t + 1.
-template <bool OWN_Q, typename TG, int DH>
+// ALL_PRECISE: every tile takes the compensated passes (T > PRECISE_BEYOND_T).
+template <bool OWN_Q, typename TG, int DH, bool ALL_PRECISE>
 __global__ void __launch_bounds__(B_THREADS, blocks_per_sm<bwd_smem_bytes<DH>()>())
 attention_bwd_kernel(const BwdParams p) {
   constexpr bool P3 = std::is_same<TG, float>::value;
@@ -355,7 +367,7 @@ attention_bwd_kernel(const BwdParams p) {
     // multiplied, so that the work on the elements below still overlaps the
     // second products.
     float s[NJ][4], dp[NJ][4];
-    bool precise = P3;
+    bool precise = P3 || ALL_PRECISE;
     for (;;) {
       if constexpr (P3)
         first_product<OWN_Q, true, true, false, DH>(s, A1 + r0 * LD, B1, g, t);
@@ -648,6 +660,24 @@ __global__ void __launch_bounds__(X_THREADS, 1) attention_bwd_wide_kernel(const 
   }
 }
 
+// The dk/dv pass and the dq pass of the kernel at DH <= 128.
+template <typename TG, int DH, bool ALL_PRECISE>
+cudaError_t launch_tiles(const BwdParams& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<false, TG, DH, ALL_PRECISE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_kernel<true, TG, DH, ALL_PRECISE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.T + BT - 1) / BT, p.H, B);
+  attention_bwd_kernel<false, TG, DH, ALL_PRECISE><<<grid, B_THREADS, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_kernel<true, TG, DH, ALL_PRECISE><<<grid, B_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // D, then the dk/dv pass and the dq pass
 template <typename TG, int DH>
 cudaError_t launch_bwd(BwdParams p, const void* ctx, float* dvec, int B, cudaStream_t stream) {
@@ -673,18 +703,10 @@ cudaError_t launch_bwd(BwdParams p, const void* ctx, float* dvec, int B, cudaStr
     if (err != cudaSuccess) return err;
     attention_bwd_wide_kernel<true, TG, DH><<<grid, X_THREADS, smem, stream>>>(p);
   } else {
-    constexpr size_t smem = bwd_smem_bytes<DH>();
-    err = cudaFuncSetAttribute(attention_bwd_kernel<false, TG, DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attention_bwd_kernel<true, TG, DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.T + BT - 1) / BT, p.H, B);
-    attention_bwd_kernel<false, TG, DH><<<grid, B_THREADS, smem, stream>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    attention_bwd_kernel<true, TG, DH><<<grid, B_THREADS, smem, stream>>>(p);
+    if constexpr (!std::is_same<TG, float>::value) {  // fp32 cotangents: precise always
+      if (p.T > PRECISE_BEYOND_T) return launch_tiles<TG, DH, true>(p, B, stream);
+    }
+    return launch_tiles<TG, DH, false>(p, B, stream);
   }
   return cudaGetLastError();
 }

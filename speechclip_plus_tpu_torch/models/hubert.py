@@ -168,8 +168,9 @@ class HubertConfig:
         if "hubert" in n or "wav2vec2" in n:
             return HubertConfig.large() if large else HubertConfig()
         raise NotImplementedError(
-            f"audio_encoder.name={name!r}: the PyTorch port has the HuBERT, WavLM and "
-            "data2vec-audio towers, base and large (the mel upstreams are a later slice)")
+            f"audio_encoder.name={name!r} is not a wav2vec2/HuBERT-family tower (HuBERT, "
+            "WavLM, data2vec-audio); `KWClipConfig.from_config` then tries the mel "
+            "upstreams (models/mel_upstreams.py)")
 
     @staticmethod
     def tiny(**kw) -> "HubertConfig":

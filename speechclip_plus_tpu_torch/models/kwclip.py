@@ -2,7 +2,8 @@
 
 Port of ``speechclip_plus_tpu/models/kwclip.py`` for the five branch families
 (parallel, cascaded, cascaded+, hybrid, hybrid+) with the base or large towers
-(ViT-B/32 or ViT-L/14; HuBERT, WavLM or data2vec, base or large): frozen acoustic
+(ViT-B/32 or ViT-L/14; HuBERT, WavLM or data2vec, base or large, or a mel
+upstream: APC / VQ-APC, TERA / Mockingjay / DeCoAR 2.0): frozen acoustic
 tower -> softmax-weighted sum of its hidden states -> the branch; the
 keywords of a cascaded or hybrid branch go through the frozen CLIP text tower
 (`encode_keywords`); images through the frozen ViT, or come as cached image
@@ -43,6 +44,7 @@ from .branches import (CascadedBranch, CascadedBranchPlus, HybridBranch, HybridB
 from .cif import CifConfig
 from .clip import ClipConfig, ClipModel
 from .hubert import HubertConfig, HubertModel
+from .mel_upstreams import MelUpstream, MelUpstreamConfig
 
 __all__ = ["ClLossConfig", "KWClipConfig", "KWClip", "init_kw_bn_from_token_embedding"]
 
@@ -74,9 +76,15 @@ class ClLossConfig:
             a2b=bool(a.get("a2b", True)), b2a=bool(a.get("b2a", True)))
 
 
+# tower keys that only the wav2vec2/HuBERT family has: they raise for a mel
+# upstream, which JAX cannot apply them to either (JAX ``:339-350``)
+_HUBERT_ONLY_KEYS = ("fused_attention", "fused_attention_block", "reinit_layers",
+                     "unfreeze_layers")
+
+
 @dataclasses.dataclass(frozen=True)
 class KWClipConfig:
-    audio: HubertConfig = HubertConfig()
+    audio: Any = HubertConfig()  # HubertConfig or MelUpstreamConfig
     clip: ClipConfig = ClipConfig()
     branch_type: str = "HybridBranch_plus"  # normalized alias; "" = parallel only
     parallel_ta: TransformerArgs = TransformerArgs(type="TransformerEncoder")
@@ -126,8 +134,9 @@ class KWClipConfig:
     def from_config(cfg, *, vocab_size: Optional[int] = None, sot_id: Optional[int] = None,
                     eot_id: Optional[int] = None) -> "KWClipConfig":
         """From a reference-format ConfigNode: the parallel, cascaded,
-        cascaded+, hybrid and hybrid+ families, base or large (JAX
-        ``:150-627``). Keys the port does not implement raise by name."""
+        cascaded+, hybrid and hybrid+ families, base or large, with any tower
+        whose name JAX resolves (JAX ``:150-627``). Keys the port does not
+        implement raise by name."""
         ms = cfg.model_settings
         c_w = float(getattr(ms, "cascaded_objective_weight", 0.0))
         p_w = float(getattr(ms, "parallel_objective_weight", 0.0))
@@ -140,6 +149,21 @@ class KWClipConfig:
         normalize_type = getattr(ae, "normalize_type", "s3prl")
         if normalize_type not in ("s3prl", "method1", "method2"):
             raise NotImplementedError(f"audio_encoder.normalize_type {normalize_type!r}")
+        if getattr(ae, "tiny", False):
+            audio_cfg = HubertConfig.tiny(d_model=int(getattr(ae, "tiny_width", 32)))
+        else:
+            # the wav2vec2/HuBERT family, else the mel upstreams (JAX :266-276)
+            name = getattr(ae, "name", "hubert_base")
+            try:
+                audio_cfg = HubertConfig.from_upstream_name(name)
+            except NotImplementedError:
+                audio_cfg = MelUpstreamConfig.from_upstream_name(name)
+        mel = isinstance(audio_cfg, MelUpstreamConfig)
+        for key in _HUBERT_ONLY_KEYS if mel else ():
+            if getattr(ae, key, None) not in (None, [], ()):
+                raise NotImplementedError(
+                    f"audio_encoder.{key}: a wav2vec2/HuBERT tower key, and {name!r} is a "
+                    f"mel upstream ({audio_cfg.arch})")
         audio_is_trainable = bool(getattr(ae, "trainable", False)
                                   or getattr(ae, "reinit_layers", None)
                                   or getattr(ae, "unfreeze_layers", None))
@@ -186,14 +210,11 @@ class KWClipConfig:
         clip_cfg = dataclasses.replace(clip_cfg, text_fused_attention_vjp=bool(text_vjp),
                                        text_remat_mode=str(text_remat))
 
-        if getattr(ae, "tiny", False):
-            audio_cfg = HubertConfig.tiny(d_model=int(getattr(ae, "tiny_width", 32)))
-        else:
-            audio_cfg = HubertConfig.from_upstream_name(getattr(ae, "name", "hubert_base"))
         # the reference trains with dropout on in the frozen tower (Lightning's
         # train() undoes its eval()); `frozen_dropout: false` opts out (JAX :353-371)
         if not bool(getattr(ae, "frozen_dropout", True)):
-            audio_cfg = dataclasses.replace(audio_cfg, dropout=0.0, attention_dropout=0.0)
+            off = {"dropout": 0.0} if mel else {"dropout": 0.0, "attention_dropout": 0.0}
+            audio_cfg = dataclasses.replace(audio_cfg, **off)
         # `fused_attention` selects K5 around plain projections; the block
         # kernel K1 is the default for the frozen tower (`false` forces it off)
         if fused_attn is not None:
@@ -289,7 +310,8 @@ class KWClip(nn.Module):
     def __init__(self, cfg: KWClipConfig):
         super().__init__()
         self.cfg = c = cfg
-        self.audio_encoder = HubertModel(c.audio)
+        self.audio_encoder = (MelUpstream(c.audio) if isinstance(c.audio, MelUpstreamConfig)
+                              else HubertModel(c.audio))
         self.weightedsum = nn.Parameter(torch.zeros(c.audio.num_hidden_states))
         self.clip = ClipModel(c.clip)
         # one branch module: the cascaded / hybrid one, or the parallel one
@@ -330,7 +352,7 @@ class KWClip(nn.Module):
     def forward_audio(self, wav: torch.Tensor, wav_len: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       return_hidden_states: bool = False):
-        """Frozen HuBERT + the feature `feat_select_idx` names -> (feat
+        """Frozen tower + the feature `feat_select_idx` names -> (feat
         (B, T', D) fp32, or (n, B, T', D) for n > 1 indices, feat_len (B,)),
         and with `return_hidden_states` the tower's (L+1, B, T', D) stack
         third (JAX ``:725-803``). The weighted sum, plain or s3prl-normalized,

@@ -26,12 +26,14 @@ import torch.nn.functional as F
 from ..ops.random import attention_keep_mask
 
 __all__ = ["tf32_round", "split_tf32", "rounded_matmul", "emulated_attention",
-           "emulated_attention_backward", "MODES", "PRECISE_ABOVE"]
+           "emulated_attention_backward", "MODES", "PRECISE_ABOVE", "PRECISE_BEYOND_T"]
 
 MODES = ("fp32", "tf32", "tf32x3")
 # K2 with a bf16 cotangent at dh <= 128: a (16 own, 64 other) tile that holds a
 # weight above this takes the compensated passes (csrc/attention_bwd.cuh)
 PRECISE_ABOVE = 0.25
+# ... and past this many keys every tile does (the one-pass error grows with T)
+PRECISE_BEYOND_T = 384
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -113,7 +115,8 @@ def _tile_max(p, rows: int, cols: int):
 
 def emulated_attention_backward(qkv, key_padding_bias, dctx, ctx, lse, n_heads: int, mode: str,
                                 seeds=None, keep_prob: float = 1.0, attn_bias=None,
-                                precise_above: float = PRECISE_ABOVE):
+                                precise_above: float = PRECISE_ABOVE,
+                                precise_beyond_t: int = PRECISE_BEYOND_T):
     """K2 on the same inputs as `plain_attention_backward`: dqkv (B, T, 3D)
     fp32, every one of the five products with its operands rounded.
 
@@ -124,12 +127,12 @@ def emulated_attention_backward(qkv, key_padding_bias, dctx, ctx, lse, n_heads: 
     and keeps the dropped weights unrounded in wᵀ dctx; ds k and dsᵀ q take one
     pass everywhere. Own rows are queries for dq and keys for dk and dv. Pass
     `float("inf")` to see what one pass everywhere leaves where a row's weight
-    sits on a few keys. One head of 768 takes the compensated passes in
-    every tile."""
+    sits on a few keys. One head of 768 or more, and a sequence of more than
+    `precise_beyond_t` keys, take the compensated passes in every tile."""
     b, t, d3 = qkv.shape
     d = d3 // 3
     dh = d // n_heads
-    if dh > 128:
+    if dh > 128 or t > precise_beyond_t:
         precise_above = -1.0
     q, k, v = (_heads(a, b, t, n_heads) for a in qkv.split(d, dim=-1))
     g, o = _heads(dctx, b, t, n_heads), _heads(ctx, b, t, n_heads)

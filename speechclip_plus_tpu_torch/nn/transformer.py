@@ -5,12 +5,13 @@ Port of ``speechclip_plus_tpu/nn/transformer.py`` (reference
 residual + LayerNorm, with `extract_attention_map`; `TransformerEncoderLayer`
 (torch's, batch-first, post- or pre-norm, exact-erf GELU FFN, three dropouts)
 and `TransformerEncoder` (:47-97), a stack of them plus a final LayerNorm,
-with `extract_hidden_states`. Every self-attention is the differentiable
-fused attention block in context-only mode (K1 forward, K2 backward), with
-attention dropout at the config's rate (0.1) in training; the out-projection
-after it is a plain ``ctx @ Wo + bo``. Attention maps take the plain path.
-Parameters are fp32 master weights computed in `compute_dtype` (flax
-`dtype=`).
+with `extract_hidden_states`. Every branch self-attention is the
+differentiable fused attention block in context-only mode (K1 forward, K2
+backward), with attention dropout at the config's rate (0.1) in training; the
+out-projection after it is a plain ``ctx @ Wo + bo``. A frozen tower's layer
+(`fuse_out=True`) takes K1 with the out-projection fused in instead.
+Attention maps take the plain path. Parameters are fp32 master weights
+computed in `compute_dtype` (flax `dtype=`).
 """
 from __future__ import annotations
 
@@ -77,16 +78,19 @@ class MultiheadAttentionAndNorm(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """torch `nn.TransformerEncoderLayer` (batch-first): self-attention and a
     two-layer FFN, each with dropout and a residual; LayerNorm after
-    (post-norm) or before (`norm_first`) each."""
+    (post-norm) or before (`norm_first`) each. `fuse_out=True` is a frozen
+    tower's layer (the mel transformers): K1 with the out-projection fused
+    in, forward only, in place of the differentiable K1 + K2 route."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 3072,
                  dropout: float = 0.1, activation: str = "gelu", layer_norm_eps: float = 1e-5,
-                 norm_first: bool = False, compute_dtype: torch.dtype = torch.float32):
+                 norm_first: bool = False, compute_dtype: torch.dtype = torch.float32,
+                 fuse_out: bool = False):
         super().__init__()
         self.dropout, self.norm_first = float(dropout), norm_first
         self.compute_dtype = compute_dtype
         self.act = _ACT[activation]
-        self.self_attn = MultiheadAttention(d_model, nhead, fuse_out=False,
+        self.self_attn = MultiheadAttention(d_model, nhead, fuse_out=fuse_out,
                                             compute_dtype=compute_dtype, dropout=dropout)
         self.norm1 = LayerNorm(d_model, eps=layer_norm_eps, compute_dtype=compute_dtype)
         self.norm2 = LayerNorm(d_model, eps=layer_norm_eps, compute_dtype=compute_dtype)

@@ -10,6 +10,7 @@ them when the files are missing (``:164-187``).
 """
 from __future__ import annotations
 
+import logging
 import math
 import os
 from typing import Optional, Tuple
@@ -20,8 +21,11 @@ from torch import nn
 from ..config import ConfigNode
 from ..data.tokenizer import ReducedVocab
 from ..models.kwclip import KWClip, KWClipConfig, init_kw_bn_from_token_embedding
+from ..models.mel_upstreams import MelUpstreamConfig
 
 __all__ = ["build_model_from_config", "resolve_reduced_vocab", "init_params"]
+
+logger = logging.getLogger(__name__)
 
 _REPO_ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
 
@@ -60,14 +64,19 @@ _NORMAL_STD = {
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init on the CPU: fan-in normal for weights (lecun, as flax),
-    zeros for biases, ones/zeros for norms, CLIP's stds for embeddings."""
+    zeros for biases, ones/zeros for norms, CLIP's stds for embeddings, and
+    torch's U(-1/sqrt(H), 1/sqrt(H)) for every LSTM tensor (JAX
+    ``nn/lstm.py:39-42``)."""
     norms = tuple(m for m in model.modules()
                   if isinstance(m, (nn.LayerNorm, nn.GroupNorm)))
     norm_weights = {id(m.weight) for m in norms}
     for name, p in model.named_parameters():
         if name == "criterion_log_inv_temp":
             continue  # log(1/T), set by the model
-        if id(p) in norm_weights or name.endswith("gru_rel_pos_const"):
+        if "lstm" in name.split("."):  # (4H, ...) gate-stacked tensors
+            p.uniform_(-(p.shape[0] // 4) ** -0.5, (p.shape[0] // 4) ** -0.5,
+                       generator=generator)
+        elif id(p) in norm_weights or name.endswith("gru_rel_pos_const"):
             p.fill_(1.0)
         elif name.endswith("bias") or name in ("weightedsum", "clip.logit_scale"):
             p.zero_()
@@ -93,6 +102,13 @@ def build_model_from_config(
             eot_id=int(vocab.eot_reduced))
     else:
         model_cfg = KWClipConfig.from_config(cfg)
+    if isinstance(model_cfg.audio, MelUpstreamConfig) \
+            and getattr(cfg.audio_encoder, "ckpt_path", None):
+        # JAX :139-150: only the wav2vec2/HuBERT family has a checkpoint format
+        logger.warning(
+            "audio_encoder.ckpt_path is only importable for the HuBERT/wav2vec2 tower "
+            "(fairseq format); the %s mel upstream stays randomly initialized "
+            "(import_torch_lstm_state covers the LSTM family)", model_cfg.audio.kind)
     model = KWClip(model_cfg)
     init_params(model, torch.Generator().manual_seed(seed))
     init_kw_bn_from_token_embedding(model)

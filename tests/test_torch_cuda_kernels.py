@@ -931,7 +931,8 @@ def _excess(got, want):
 @pytest.mark.parametrize("b,t,d,heads,causal", [
     (4, 320, 768, 8, False), (4, 327, 768, 1, False), (4, 77, 512, 8, True),
     (4, 320, 768, 12, False), (4, 1499, 128, 2, False), (4, 320, 1024, 8, False),
-    (4, 329, 1024, 8, False), (4, 327, 1024, 1, False), (4, 328, 1024, 1, False)])
+    (4, 329, 1024, 8, False), (4, 327, 1024, 1, False), (4, 328, 1024, 1, False),
+    (4, 639, 512, 8, False), (4, 639, 768, 8, False)])
 def test_attention_kernels_match_their_numerical_model(cuda_device, b, t, d, heads, causal, p):
     """The bf16 kernels round what `attention_numerics` says they round: K1's
     attention kernel (context and lse) and K2 agree with the emulation of their
@@ -1133,3 +1134,97 @@ def test_dh128_kernels_at_the_large_branch_shapes(cuda_device, dtype, p, b, t):
         an = (got.double() * v).sum().item()
         typical = got.double().norm().item() * v.norm().item() / v.numel() ** 0.5
         assert abs(fd - an) <= 1e-4 * max(abs(fd), typical), (fd, an, typical)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dh", [64, 96, 768])
+@pytest.mark.parametrize("t", [638, 639, 640])
+def test_kernels_at_the_mel_lengths(cuda_device, dtype, p, dh, t):
+    """K1 context-only + lse and K2 at the mel upstreams' lengths: 638 frames
+    for 102400 samples (the cascaded+ branch), 639 with one CLS row (hybrid+,
+    parallel) and 640, at the branches' heads (8 of 96 and 8 of 64; one of
+    768), against their twins, bit-identical reruns. Prints K2's bf16 error
+    beyond half an ulp over RMS."""
+    heads = 1 if dh == 768 else 8
+    b, d = 4, heads * dh
+    x, w_in, b_in, kb, seeds, _, ctx, qkv, lse, dctx = _bwd_case(
+        cuda_device, dtype, b, t, d, heads, p, None)
+    keep = 1.0 - p
+    ctx0, _, lse0 = fab.plain_fused_attention_block(
+        x.float(), w_in.float(), b_in.float(), None, None, kb, heads, False, seeds=seeds,
+        keep_prob=keep, return_aux=True)
+    assert bool(torch.isfinite(ctx.float()).all())
+    _close(ctx, ctx0, dtype)
+    _lse_close(lse, lse0)
+    again, _, lse2 = fab.attention_forward(x, w_in, b_in, kb, n_heads=heads, seeds=seeds,
+                                           keep_prob=keep)
+    assert torch.equal(ctx, again) and torch.equal(lse, lse2)
+    got = vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads, seeds=seeds,
+                                 keep_prob=keep)
+    want = vjp.plain_attention_backward(qkv, kb, dctx.float(), ctx.float(), lse, heads, seeds,
+                                        keep)
+    assert bool(torch.isfinite(got.float()).all())
+    if dtype == torch.bfloat16:
+        print(f"K2 dh={dh} T={t} p={p} bf16: beyond half an ulp {_excess(got, want):.3e} x RMS")
+    _close(got, want, dtype)
+    assert torch.equal(got, vjp.attention_backward(qkv, kb, dctx, ctx, lse, n_heads=heads,
+                                                   seeds=seeds, keep_prob=keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_fused_out_block_at_the_mel_tower_shape(cuda_device, dtype, p):
+    """K1 fused-out, as the mel transformers' layers call it: 12 heads of 64
+    over 638 frames (B=8), with and without attention dropout."""
+    b, t, d, heads = 8, 638, 768, 12
+    args = _block_args(cuda_device, b, t, d)
+    args = [a.to(dtype) if i < 5 else a for i, a in enumerate(args)]
+    kw = dict(seeds=draw_seed(torch.Generator(device=cuda_device).manual_seed(3)),
+              keep_prob=1.0 - p) if p else {}
+    before = fab.LAUNCHES
+    got = fab._run(*args, heads, True, **kw)
+    assert fab.LAUNCHES == before + 1
+    want = fab.plain_fused_attention_block(*[a.float() for a in args], heads, True, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+    assert torch.equal(got, fab._run(*args, heads, True, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["lstm", "transformer"])
+def test_mel_tower_on_the_card_matches_its_cpu_twin(cuda_device, arch):
+    """The log-mel frontend and the mel tower (APC's 3 LSTM layers of 512 on
+    cuDNN, TF32 off inside the LSTM; TERA's 3 post-norm layers of 768 through
+    K1 fused-out) in fp32 on the card against the same weights on the CPU
+    (plain twins), on ragged 6.4 s waveforms: 1e-4 abs for the log-mel,
+    1e-4 x max(1, RMS) for every hidden state and the weighted sum."""
+    from speechclip_plus_tpu_torch.models.mel_upstreams import MelUpstream, MelUpstreamConfig
+    from speechclip_plus_tpu_torch.ops.mel import log_mel_spectrogram
+    from speechclip_plus_tpu_torch.tasks.builder import init_params
+
+    cfg = MelUpstreamConfig.from_upstream_name("apc" if arch == "lstm" else "tera")
+    cpu = MelUpstream(cfg).eval()
+    init_params(cpu, torch.Generator().manual_seed(0))
+    card = MelUpstream(cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda_device)
+    g = torch.Generator().manual_seed(7)
+    t = 102400
+    lens = torch.tensor([t, 80000, 51234, 33000])
+    wav = 0.1 * torch.randn(4, t, generator=g)
+    pad = torch.arange(t)[None] >= lens[:, None]
+    wav = wav.masked_fill(pad, 0.0)
+    mel = log_mel_spectrogram(wav)
+    assert (log_mel_spectrogram(wav.to(cuda_device)).cpu() - mel).abs().max().item() <= 1e-4
+    weights = torch.softmax(torch.linspace(-1.0, 1.0, cfg.num_hidden_states), dim=0)
+    with torch.no_grad():
+        want = cpu(wav, pad, weights, return_hidden_states=True)
+        got = card(wav.to(cuda_device), pad.to(cuda_device), weights.to(cuda_device),
+                   return_hidden_states=True)
+    assert torch.equal(got["padding_mask"].cpu(), want["padding_mask"])
+    assert tuple(want["hidden_states"].shape) == (cfg.num_hidden_states, 4, 638, cfg.d_model)
+    for key in ("hidden_states", "weighted_sum"):
+        _close(got[key].cpu(), want[key], torch.float32)

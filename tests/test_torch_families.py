@@ -50,6 +50,7 @@ from speechclip_plus_tpu_torch.config import load_config
 from speechclip_plus_tpu_torch.models.clip import ClipConfig
 from speechclip_plus_tpu_torch.models.hubert import HubertConfig
 from speechclip_plus_tpu_torch.models.kwclip import KWClip, KWClipConfig
+from speechclip_plus_tpu_torch.models.mel_upstreams import MelUpstreamConfig
 from speechclip_plus_tpu_torch.optim.optimizer import (
     build_optimizer_from_config,
     trainable_parameters,
@@ -193,9 +194,11 @@ def test_family_builds_and_matches_jax(path):
     check_small_family(jcfg, jsmall, cfg, small, family)
 
 
-def check_small_family(jcfg, jsmall, cfg, small, family):
+def check_small_family(jcfg, jsmall, cfg, small, family, jit_encode=False):
     """The cut model of one family in both packages, the same weights:
-    `encode_speech` and STEPS training steps with dropout off."""
+    `encode_speech` (JAX's under `jax.jit` with `jit_encode`, which compiles
+    a recurrent tower once instead of op by op) and STEPS training steps
+    with dropout off."""
     jmodel = JKWClip(jsmall)
     variables = _jax_variables(jmodel, jsmall)
     model = KWClip(small).eval()
@@ -204,8 +207,9 @@ def check_small_family(jcfg, jsmall, cfg, small, family):
 
     # encode_speech: the features the family has, None where JAX has None
     batch = _batch()
-    want = jmodel.apply(variables, jnp.asarray(batch["wav"]), jnp.asarray(batch["wav_len"]),
-                        method=JKWClip.encode_speech)
+    encode = lambda v, w, n: jmodel.apply(v, w, n, method=JKWClip.encode_speech)
+    want = (jax.jit(encode) if jit_encode else encode)(
+        variables, jnp.asarray(batch["wav"]), jnp.asarray(batch["wav_len"]))
     with torch.inference_mode():
         got = model.encode_speech(torch.from_numpy(batch["wav"]),
                                   torch.from_numpy(batch["wav_len"]))
@@ -277,6 +281,13 @@ def _tiny():
     return load_config(os.path.join(REPO, "config", "dev", "tiny.yaml"))
 
 
+def _jax_tiny_named(name):
+    cfg = jax_load_config(os.path.join(REPO, "config", "dev", "tiny.yaml"))
+    cfg.audio_encoder.tiny = False
+    cfg.audio_encoder.name = name
+    return cfg
+
+
 def _set(cfg, dotted, value):
     node = cfg
     *parents, leaf = dotted.split(".")
@@ -345,18 +356,28 @@ def test_text_vjp_knob_needs_a_frozen_text_tower():
         KWClipConfig.from_config(cfg)
 
 
-@pytest.mark.parametrize("name", ["data2vec_large", "wavlm_large", "apc", "hubert_large_ll60k"])
+@pytest.mark.parametrize("name", ["data2vec_large", "wavlm_large", "apc", "hubert_large_ll60k",
+                                  "pase_plus"])
 def test_upstreams_left_for_later_raise(name):
-    """The mel upstreams (apc) still raise; the large towers build since they
-    were ported, each as its preset and as JAX resolves the name."""
+    """An upstream outside both families (pase_plus) raises by name; the large
+    towers and the mel upstreams (apc) resolve since they were ported, each
+    as its preset and as JAX resolves the name."""
     cfg = _tiny()
     cfg.audio_encoder.tiny = False
     cfg.audio_encoder.name = name
     preset = {"data2vec_large": HubertConfig.data2vec_large, "wavlm_large":
               HubertConfig.wavlm_large, "hubert_large_ll60k": HubertConfig.large}.get(name)
-    if preset is None:
-        with pytest.raises(NotImplementedError):
+    if name == "pase_plus":
+        with pytest.raises(NotImplementedError, match="pase_plus"):
             KWClipConfig.from_config(cfg)
+        return
+    if preset is None:  # a mel upstream
+        audio = KWClipConfig.from_config(cfg).audio
+        want = JKWClipConfig.from_config(_jax_tiny_named(name)).audio
+        assert audio == MelUpstreamConfig.from_upstream_name(name)
+        assert type(want).__name__ == "MelUpstreamConfig"
+        for field in ("kind", "arch", "d_model", "n_layers", "n_heads", "ffn_dim", "dropout"):
+            assert getattr(audio, field) == getattr(want, field), field
         return
     audio = KWClipConfig.from_config(cfg).audio
     assert audio == preset()
