@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase large    # phase 2 at the large shapes, then paths M and N
     python3 chip_smoke.py --phase large_fixed  # phase 2 at path N's shapes, then path N
     python3 chip_smoke.py --phase mel      # phase 2 at the base and path O shapes, then path O
+    python3 chip_smoke.py --phase variants # phase 2 at the base shapes, then path P
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -133,6 +134,27 @@ Phases, each fatal on failure:
      head of 768 in the branch) through the family path with cached images;
      O2's LSTM tower alone in fp32 against the CPU, and its time with and
      without cuDNN's TF32.
+  P. the training variants (bf16, full width, B=128 x 102400; base YAMLs with
+     keys overridden in memory, VARIANT_CONFIGS), each through the family
+     path (an index of 256 images, `search` at B = 1, 8, 64, `encode_speech`,
+     3 warm-up and 5 timed steps a cell) with launch counts equal to the plan
+     of its configuration's routes: a trainable acoustic tower takes the plain
+     attention (no tower K1, in serving too), a trainable ViT the plain
+     attention (no ViT K1), a trainable text tower the materialized VQ scores
+     (no K3, K3b). P1 hybrid+ with `unfreeze_layers: [10, 11]` and a learnable
+     VQ temperature (K3b's dt is its gradient), cached and live images: only
+     layers 10 and 11, `encoder_layer_norm` and the temperature train, every
+     other tower tensor bit-identical after the steps; its fp32 card-vs-CPU
+     parity of one step, `d curr_temp` included. P2 cascaded+ with the whole
+     tower trainable, LayerDrop 0.05, SupConLoss and the scheduled VQ
+     temperature, cached images, every tower tensor moved; a second leg with
+     `audio_encoder.remat: true` from the same seed and weights, and both
+     legs again with deterministic algorithms (cuDNN's included), where the
+     remat leg's parameters after the steps must equal the plain leg's bit
+     for bit (the default algorithms' difference printed beside), each leg's
+     peak memory printed. P3 cascaded (fixed K) with the text and image
+     towers trainable and Gumbel VQ, live images: K3 and K3b 0 times, the
+     ViT's and the text tower's tensors and the token table moved.
 Phase 2 also holds the pieces those paths add against their twins: K2 with
 the causal bias at the text shape (128, 77, 512, H=8) and K1 context-only
 there, K1 and K2 at (128, 328, 768) with one head (p=0.1 and 0), each against
@@ -787,8 +809,9 @@ def check_vq_bwd(torch, fk, vocab, dtype, gen, n=128 * 75, d=512):
     norms = emb.norm(dim=-1).clamp_min(1e-8).contiguous()
     en = (emb / norms[:, None]).to(dtype).contiguous()
     mask = fk.column_mask(v, (0, vocab.sot_reduced, vocab.eot_reduced), "cuda")
-    kern = lambda: fk.st_backward(x, g, en, norms, mask, 0.1)
-    plain = lambda: fk.plain_st_backward(x, g, en, norms, mask, 0.1)
+    temp = torch.full((), 0.1, device="cuda")  # read by the kernel from device memory
+    kern = lambda: fk.st_backward(x, g, en, norms, mask, temp)
+    plain = lambda: fk.plain_st_backward(x, g, en, norms, mask, temp)
     (dx, dt), (dx2, dt2) = kern(), kern()
     dx0, dt0 = plain()
     torch.cuda.synchronize()
@@ -1024,12 +1047,16 @@ def record_shapes(torch, model):
 
     def vq(module, args, kwargs):
         xn, emb = args[0], args[1]
+        c = module.cfg
+        if not (module.fused_score_kernel and c.time_first):
+            return  # the materialized scores: no K3
+        training = len(args) > 3 and args[3]
         seen.add(("k3", (xn.numel() // xn.shape[-1], xn.shape[-1], emb.shape[0]), 0.0,
-                  torch.is_grad_enabled()))
+                  torch.is_grad_enabled() and (not training or (c.hard and not c.use_gumbel))))
 
     hooks = []
     for m in model.modules():
-        if isinstance(m, MultiheadAttention) and not m.fuse_out:
+        if isinstance(m, MultiheadAttention) and not m.fuse_out and m.kernel:
             hooks.append(m.register_forward_pre_hook(attention, with_kwargs=True))
         elif isinstance(m, SimpleVectorQuantizer):
             hooks.append(m.register_forward_pre_hook(vq, with_kwargs=True))
@@ -1733,6 +1760,105 @@ def phase_mel(torch):
     return by_path
 
 
+# --------------------------------------------------------------- path P ----
+
+VQ_ARGS = "model_settings.cascaded_branch.vq.args."
+VARIANT_CONFIGS = {  # path P, the training variants: base YAMLs with keys overridden in memory
+    "P1 hybrid+ top layers": (CONFIG, {"audio_encoder.unfreeze_layers": [10, 11],
+                                       VQ_ARGS + "temp": "learnable=0.1"}),
+    "P2 cascaded+ full tower": ("config/speechclip_plus/base/cascaded_plus.yaml", {
+        "audio_encoder.trainable": True, "audio_encoder.layer_drop": "original",
+        "cl_loss.type": "SupConLoss", VQ_ARGS + "temp": "(2, 0.5, 0.999995)"}),
+    "P3 cascaded text+image": ("config/speechclip/base/cascaded.yaml", {
+        "clip.text_encoder_trainable": True, "clip.image_encoder_trainable": True,
+        VQ_ARGS + "use_gumbel": True}),
+}
+
+
+def p1_trains(name):
+    """P1's trainable set: all but the towers, and of the acoustic tower
+    layers 10 and 11 and the post-norm encoder LayerNorm."""
+    if name.startswith("clip."):
+        return False
+    return not name.startswith("audio_encoder.") or name.startswith(
+        ("audio_encoder.layers.10.", "audio_encoder.layers.11.",
+         "audio_encoder.encoder_layer_norm."))
+
+
+def params_difference(torch, a, b):
+    """(tensors that differ, the largest absolute difference) of two
+    parameter dicts."""
+    diff = [n for n in a if not torch.equal(a[n], b[n])]
+    return diff, max([(a[n].float() - b[n].float()).abs().max().item() for n in diff],
+                     default=0.0)
+
+
+def phase_variants(torch):
+    """Path P, the training variants (bf16, full width, seeded random weights;
+    VARIANT_CONFIGS) through the family path, with P1's fp32 card-vs-CPU
+    parity of one step and P2's remat leg. Returns the launch counts by
+    path."""
+    by_path, ms = {}, {}
+    label = "P1 hybrid+ top layers"
+    config = VARIANT_CONFIGS[label]
+    counts, ms[label] = phase_family(torch, label, config, cells=("cached", "live"),
+                                     trains=p1_trains)
+    by_path["P1_serve"], by_path["P1_train"] = counts["serve"], counts["train"]
+    print(f"[path P1] the tower's layers 0-9, conv frontend, post_extract_proj and pos_conv "
+          f"stayed bit-identical; layers 10 and 11, encoder_layer_norm and curr_temp moved")
+    phase_train_parity(torch, f"path {label}", config)
+
+    label = "P2 cascaded+ full tower"
+    path, keys = VARIANT_CONFIGS[label]
+    legs = {}
+    counts, ms[label] = phase_family(torch, label, (path, keys), final=legs.setdefault(
+        "plain", {}))
+    by_path["P2_serve"], by_path["P2_train"] = counts["serve"], counts["train"]
+    remat = {**keys, "audio_encoder.remat": True}
+    # the remat leg, then both legs again with deterministic algorithms (cuDNN's
+    # convolution backward among them): the remat leg must equal the plain leg
+    # bit for bit there, and beside it the default algorithms' difference
+    for name, leg_keys, det in (("remat", remat, False), ("plain det", keys, True),
+                                ("remat det", remat, True)):
+        torch.backends.cudnn.deterministic = det
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            built = build(torch, (path, leg_keys))
+            require(built[2].audio.remat == ("remat" in name), f"P2 {name}: remat")
+            by_path[f"P2_train_{name.replace(' ', '_')}"], ms[f"{label} {name}"] = phase_train(
+                torch, f"path {label} {name}", (path, leg_keys), cells=("cached",),
+                built=built, final=legs.setdefault(name, {}))
+        finally:
+            torch.backends.cudnn.deterministic = False
+            torch.use_deterministic_algorithms(False)
+    diff, worst = params_difference(torch, legs["plain"], legs["remat"])
+    det_diff, det_worst = params_difference(torch, legs["plain det"], legs["remat det"])
+    print(f"[path P2] parameters after the steps, remat leg vs plain leg: deterministic "
+          f"algorithms {len(det_diff)} of {len(legs['plain'])} tensors differ (max_abs_diff "
+          f"{det_worst:.3e}); default algorithms {len(diff)} differ (max_abs_diff {worst:.3e})")
+    require(not det_diff, "P2: with deterministic algorithms the remat leg differs from the "
+                          f"plain leg: {det_diff[:5]}")
+    print(f"[path P2] peak memory, cached images: plain {ms[label]['cached_peak_gib']:.2f} GiB, "
+          f"remat {ms[label + ' remat']['cached_peak_gib']:.2f} GiB; ms/step plain "
+          f"{ms[label]['cached']:.2f}, remat {ms[label + ' remat']['cached']:.2f}, with "
+          f"deterministic algorithms {ms[label + ' plain det']['cached']:.2f} / "
+          f"{ms[label + ' remat det']['cached']:.2f}")
+    del legs
+
+    label = "P3 cascaded text+image"
+    counts, ms[label] = phase_family(torch, label, VARIANT_CONFIGS[label], cells=("live",),
+                                     still=("clip.logit_scale",))
+    by_path["P3_serve"], by_path["P3_train"] = counts["serve"], counts["train"]
+    require(all(c.get(k, 0) == 0 for c in counts.values()
+                for k in ("fused_cosine_vq", "fused_cosine_vq_bwd")),
+            "P3: K3 or K3b ran with a trainable text tower")
+    print(f"[path P] ms/step, pairs/s, peak at B={TRAIN_BATCH} x {TRAIN_WAV}: " + "; ".join(
+        f"{label} {cell} {v:.2f} ms, {TRAIN_BATCH / v * 1e3:.1f} pairs/s, "
+        f"peak {cells[cell + '_peak_gib']:.2f} GiB"
+        for label, cells in ms.items() for cell, v in cells.items() if not cell.endswith("gib")))
+    return by_path
+
+
 # --------------------------------------------------------- phases 3-6 ----
 
 def ragged_wavs(rng, b, int16):
@@ -1801,8 +1927,16 @@ def speech_query_plan(tower, cascaded):
 
 def tower_k1_layers(audio):
     """The tower's K1 (fused-out) launches a forward: one a layer, none for
-    an LSTM upstream (cuDNN)."""
-    return 0 if getattr(audio, "arch", None) == "lstm" else audio.n_layers
+    an LSTM upstream (cuDNN) or a trainable tower (the plain attention)."""
+    if getattr(audio, "arch", None) == "lstm" or not audio.fused_attention_block:
+        return 0
+    return audio.n_layers
+
+
+def vision_k1_layers(mc):
+    """The ViT's K1 (fused-out) launches for one image batch: none for a
+    trainable image tower (the plain attention)."""
+    return mc.clip.vision_layers if mc.vision_fused_attention_block else 0
 
 
 def tower_frames(torch, model, n_samples=TRAIN_WAV):
@@ -1825,38 +1959,46 @@ def family_plans(mc):
     the step), at one head of 768 the wide-head kernels, at heads of 128 the
     dh=128 ones; with a keyword head the cosine-VQ (K3; K3b in the step), on
     a 768-wide codebook its D=768 instances; with `text_fused_attention_vjp`
-    the text layers (K1; K2 with the bias in the step)."""
+    the text layers (K1; K2 with the bias in the step). The routes follow
+    the configuration: no tower K1 for a trainable tower, no branch K1 / K2
+    under `fused_attention_vjp: false`, no K3 with `fused_score_kernel` off
+    (a trainable text tower) and no K3b for a training form that is not
+    straight-through (Gumbel, `hard: false`)."""
     ta = mc.cascaded_ta if mc.has_cascaded else mc.parallel_ta
-    at = HEAD_COUNTERS.get(ta.d_model // ta.nhead)
+    at = HEAD_COUNTERS.get(ta.d_model // ta.nhead) if mc.fused_attention_vjp else None
     d768 = mc.has_cascaded and mc.clip.text_width == 768
     text = mc.clip.text_layers if mc.has_cascaded and mc.clip.text_fused_attention_vjp else 0
-    branch = k1_plan(tower_k1_layers(mc.audio), 1)
+    vq = mc.head.vq
+    k3 = mc.has_cascaded and mc.head.fused_score_kernel and vq.time_first
+    k3b = k3 and vq.hard and not vq.use_gumbel
+    branch = k1_plan(tower_k1_layers(mc.audio), int(mc.fused_attention_vjp))
     if at:
         branch["fused_attention_block" + at] = 1
     full = dict(branch)
-    if mc.has_cascaded:
+    if k3:
         full["fused_cosine_vq"] = 1
         if d768:
             full["fused_cosine_vq_d768"] = 1
+    if mc.has_cascaded:
         add_counts(full, k1_plan(0, text))
-    step = dict(full, fused_attention_block_bwd=1 + text)
+    step = dict(full, fused_attention_block_bwd=int(mc.fused_attention_vjp) + text)
     if at:
         step["fused_attention_block_bwd" + at] = 1
     if text:
         step["fused_attention_block_bwd_attn_bias"] = text
-    if mc.has_cascaded:
+    if k3b:
         step["fused_cosine_vq_bwd"] = 1
         if d768:
             step["fused_cosine_vq_bwd_d768"] = 1
     return {"parallel": branch, "cascaded": full}, full, step
 
 
-def phase_family(torch, label, config, cells=("cached",), warmup=WARMUP_STEPS):
-    """Paths E-H, L, M and N: one family, bf16: build, an image index of 256
-    images, `search` with the YAML's feature source at B = 1, 8, 64,
+def phase_family(torch, label, config, cells=("cached",), warmup=WARMUP_STEPS, **train_kw):
+    """Paths E-H, L, M, N and P: one family, bf16: build, an image index of
+    256 images, `search` with the YAML's feature source at B = 1, 8, 64,
     `encode_speech`; then the training phase (`cells`, `warmup` untimed steps
-    a cell) on the same model. Returns ({"serve", "train"} launch counts,
-    ms/step by cell)."""
+    a cell, `train_kw` to `phase_train`) on the same model. Returns
+    ({"serve", "train"} launch counts, ms/step by cell)."""
     from speechclip_plus_tpu_torch.api import SpeechCLIP
     from speechclip_plus_tpu_torch.serving import SpeechRetriever, build_image_index
 
@@ -1880,7 +2022,7 @@ def phase_family(torch, label, config, cells=("cached",), warmup=WARMUP_STEPS):
     images = torch.randn(n_img, 224, 224, 3, generator=gen, device="cuda")
     index_ids = np.arange(n_img) + 10000
     reset_counts()
-    expect = k1_plan(mc.clip.vision_layers)  # one image batch through the ViT
+    expect = k1_plan(vision_k1_layers(mc))  # one image batch through the ViT
     index = build_image_index(sc, images, index_ids, batch_size=256)
     require(len(index) == n_img and bool(torch.isfinite(index.feats).all()), f"{label}: index")
     retriever = SpeechRetriever(sc, index)  # the YAML's feature source
@@ -1919,7 +2061,7 @@ def phase_family(torch, label, config, cells=("cached",), warmup=WARMUP_STEPS):
     torch.cuda.empty_cache()
     check_path_shapes(torch, f"path {label} serving", seen)
     counts["train"], ms = phase_train(torch, f"path {label}", config, cells=cells, built=built,
-                                      warmup=warmup)
+                                      warmup=warmup, **train_kw)
     return counts, ms
 
 
@@ -2036,7 +2178,7 @@ def phase_model(torch, label, config, *, tower="k1", batches=(1, 8, 64), wires=(
     t0 = time.perf_counter()
     index = build_image_index(sc, images, index_ids, batch_size=batch)
     torch.cuda.synchronize()
-    add_counts(expect, k1_plan(mc.clip.vision_layers), -(-n_img // batch))
+    add_counts(expect, k1_plan(vision_k1_layers(mc)), -(-n_img // batch))
     require(len(index) == n_img and bool(torch.isfinite(index.feats).all()), "index")
     print(f"[index] {label}: {n_img} images in {time.perf_counter() - t0:.2f} s")
 
@@ -2112,11 +2254,14 @@ def train_batch(torch, b, t, image_size, seed):
 
 def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
                 built=None, first_loss=False, warmup=WARMUP_STEPS, batch_size=TRAIN_BATCH,
-                **audio_keys):
+                still=(), trains=None, final=None, **audio_keys):
     """Phase 6 for one configuration: B=128 x 102400 training steps (`warmup`
     untimed and TIMED_STEPS timed steps a cell; `batch_size` for another B),
     on a model built here or handed in (`built`, with the plan of its
-    family)."""
+    family). Every trainable tensor must move but those named in `still`
+    (no gradient in exact arithmetic, and a zero weight decay term);
+    `trains(name)`, where given, must say which tensors train; `final`, a
+    dict, receives the parameters after the steps (on the host)."""
     from speechclip_plus_tpu_torch.optim.optimizer import (
         build_optimizer_from_config, trainable_parameters)
     from speechclip_plus_tpu_torch.parallel.train_step import (
@@ -2128,6 +2273,9 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
     state = create_train_state(optimizer)
     step_fn = make_train_step(model, optimizer, int(cfg.trainer.accumulate_grad_batches or 1))
     trainable = trainable_parameters(model)
+    if trains is not None:
+        wrong = [n for n, p in model.named_parameters() if p.requires_grad != trains(n)]
+        require(not wrong, f"{label}: the trainable set differs from the plan: {wrong[:5]}")
     frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
     before = {n: p.detach().clone() for n, p in trainable}
     bn = getattr(getattr(model.cascaded_branch, "head", None), "bn_layer", None)
@@ -2148,9 +2296,14 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     seen, shape_hooks = record_shapes(torch, model)
-    finite = []
-    hooks = [p.register_hook(lambda g: finite.append(torch.isfinite(g).all()))
-             for _, p in trainable]
+    finite = {}  # each trainable tensor's first gradient: all finite?
+
+    def note(name):
+        def hook(g):
+            finite.setdefault(name, torch.isfinite(g).all())  # returns None: g unchanged
+        return hook
+
+    hooks = [p.register_hook(note(n)) for n, p in trainable]
     # one step: the tower's 12 layers (K1, or K5), the branch attention forward
     # (K1) and backward (K2), the cosine-VQ forward (K3) and backward (K3b);
     # with live images the ViT's 12 layers (K1) as well
@@ -2185,7 +2338,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
         n = warmup + TIMED_STEPS
         add_counts(expect, step_plan, n)
         if cell == "live":  # the ViT on the batch's images
-            add_counts(expect, k1_plan(model_cfg.clip.vision_layers), n)
+            add_counts(expect, k1_plan(vision_k1_layers(model_cfg)), n)
         loss = torch.stack(losses).float().cpu()
         gn = float(metrics["grad_norm"])
         result[cell] = sec * 1e3
@@ -2200,20 +2353,25 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
         require(peak_bytes < 80e9, f"train {label} {cell}: peak {peak_bytes / 1e9:.2f} GB")
         require(gn > 0 and np.isfinite(gn), f"train {label} {cell}: grad_norm {gn}")
     counts = read_counts(torch, f"{label} training", expect)
-    require(len(finite) == len(trainable) and bool(torch.stack(finite).all()),
-            "a gradient is not finite")
+    missing = sorted({n for n, _ in trainable} - set(finite) - set(still))
+    require(not missing, f"trainable tensors without a gradient: {missing[:5]}")
+    require(bool(torch.stack(list(finite.values())).all()), "a gradient is not finite")
     unchanged = [n for n, p in trainable if torch.equal(p, before[n])]
-    require(not unchanged, f"trainable tensors did not change: {unchanged}")
+    require(unchanged == [n for n, _ in trainable if n in still],
+            f"trainable tensors did not change: {unchanged}")
     moved = [n for n, p in model.named_parameters() if not p.requires_grad
              and not torch.equal(p, frozen[n])]
     require(not moved, f"frozen tensors changed: {moved[:5]}")
     require(bn is None or (not torch.equal(bn.running_mean, bn_before[0])
                            and not torch.equal(bn.running_var, bn_before[1])),
             "keyword-BN statistics did not move")
-    print(f"[train] {label} checks: {len(trainable)} trainable tensors all changed and all "
-          f"finite gradients; {len(frozen)} frozen tensors bit-identical; keyword-BN running "
-          f"statistics {'moved' if bn is not None else '(no keyword BN)'}; state.step "
+    print(f"[train] {label} checks: {len(trainable)} trainable tensors all changed"
+          + (f" but {unchanged} (no gradient in exact arithmetic)" if unchanged else "")
+          + f" and all finite gradients; {len(frozen)} frozen tensors bit-identical; keyword-BN "
+          f"running statistics {'moved' if bn is not None else '(no keyword BN)'}; state.step "
           f"{state.step}")
+    if final is not None:
+        final.update({n: p.detach().cpu() for n, p in model.named_parameters()})
     for h in shape_hooks:
         h.remove()
     del model, optimizer, state, step_fn, frozen, before, cached, batches, batch, built
@@ -2370,6 +2528,13 @@ def phase_train_parity(torch, label, config, clip_keys=None, batch_size=2,
         if cos < worst:
             worst, worst_name = cos, f"{n}, {size:.1e} of the norm"
     perr = max((pg[n] - pc[n]).abs().max().item() for n in pc)
+    # a scalar's cosine is its sign: each 0-d gradient (a learnable temperature's,
+    # K3b's dt for the VQ's) is held to 1e-3 of its size
+    scalars = {n: (gg[n].item(), gc[n].item()) for n in gc if gc[n].dim() == 0}
+    scalar_err = {n: abs(a - b) / max(abs(b), 1e-12) for n, (a, b) in scalars.items()}
+    print(f"[parity] {label} 0-d gradients, card vs CPU: " + ", ".join(
+        f"{n} {a:.7e} vs {b:.7e} (rel {scalar_err[n]:.2e})" for n, (a, b) in scalars.items()))
+    require(all(e <= 1e-3 for e in scalar_err.values()), f"{label}: 0-d gradients {scalar_err}")
     print(f"[parity] {label} training step fp32 B={batch_size}, card vs CPU: loss {lg:.7f} vs "
           f"{lc:.7f} (rel {rel:.2e}), min gradient cosine {worst:.7f} ({worst_name}) over "
           f"{len(gc) - len(noise) - len(tiny)} tensors; zero by rule, at rounding noise: "
@@ -3104,7 +3269,7 @@ def print_kernels_line(rows, by_path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit", "large",
-                                        "large_fixed", "mel"), default="all")
+                                        "large_fixed", "mel", "variants"), default="all")
     args = ap.parse_args()
     import torch
 
@@ -3149,6 +3314,11 @@ def main() -> int:
             print_kernels_line(rows, by_path)
             return 0
         rows = phase_kernels(torch)
+        if args.phase == "variants":
+            by_path = phase_variants(torch)
+            print(f"[time] chip_smoke --phase variants: {time.perf_counter() - started:.1f} s")
+            print_kernels_line(rows, by_path)
+            return 0
         if args.phase == "mel":
             add_modes(rows, phase_kernels_mel(torch))
             by_path = phase_mel(torch)
@@ -3188,6 +3358,7 @@ def main() -> int:
             by_path.update(phase_large(torch))
             by_path.update(phase_large_fixed(torch))
             by_path.update(phase_mel(torch))
+            by_path.update(phase_variants(torch))
             print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s")
             print_kernels_line(rows, by_path)
     except SmokeFailure as e:

@@ -17,6 +17,13 @@ two versions are compared in one call, each in its own process:
     python3 scripts/torch_k3b_times.py --label change
     python3 scripts/torch_k3b_times.py --kernel k3 --profile
 
+K3b takes the temperature t = 0.1 as a float, or with `--device-temp` as a
+0-d fp32 tensor on the card (the training path's form since the kernel reads
+it from device memory). `--dump DIR` writes each K3b row's dx and dt to
+`DIR/<label>_<dtype>_<N>.pt`, and `--same-as LABEL` then requires them to
+equal, bit for bit, the files LABEL dumped there (the fixed-temperature
+results of two builds).
+
 Needs a CUDA card and nvcc; prints nothing and exits 1 without a card.
 """
 import argparse
@@ -46,7 +53,8 @@ def kernel_ms(torch, fn, calls=5):
     return out
 
 
-def k3b_rows(torch, fk, gen, median_ms):
+def k3b_rows(torch, fk, gen, median_ms, temp=0.1, out=None):
+    """`out`: a dict that receives each row's (dx, dt) by (dtype, N)."""
     d, v = 512, 8112
     for dtype in (torch.bfloat16, torch.float32):
         for n in (9600, 1024):
@@ -57,10 +65,12 @@ def k3b_rows(torch, fk, gen, median_ms):
             norms = emb.norm(dim=-1).clamp_min(1e-8).contiguous()
             en = (emb / norms[:, None]).to(dtype).contiguous()
             mask = fk.column_mask(v, (0, 2, 3), "cuda")
-            kern = lambda: fk.st_backward(x, g, en, norms, mask, 0.1)
-            plain = lambda: fk.plain_st_backward(x, g, en, norms, mask, 0.1)
+            kern = lambda: fk.st_backward(x, g, en, norms, mask, temp)
+            plain = lambda: fk.plain_st_backward(x, g, en, norms, mask, temp)
             (dx, dt), (dx0, dt0) = kern(), plain()
             torch.cuda.synchronize()
+            if out is not None:
+                out[(str(dtype)[6:], n)] = (dx.cpu(), dt.cpu())
             plan = getattr(fk, "_bwd_plan", None)
             yield kern, {"dtype": str(dtype)[6:], "n": n, "d": d, "v": v,
                          "ms": median_ms(kern), "plain_ms": median_ms(plain),
@@ -105,6 +115,10 @@ def main() -> int:
     ap.add_argument("--kernel", choices=("k3b", "k3"), default="k3b")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time of each kernel of a call (torch.profiler)")
+    ap.add_argument("--device-temp", action="store_true",
+                    help="K3b: pass the temperature as a 0-d tensor on the card")
+    ap.add_argument("--dump", help="K3b: write each row's dx and dt under this directory")
+    ap.add_argument("--same-as", help="K3b: require the dump of this label to equal this one")
     args = ap.parse_args()
     import torch
 
@@ -132,14 +146,34 @@ def main() -> int:
         return float(np.median(times))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = k3_rows if args.kernel == "k3" else k3b_rows
-    for kern, row in rows(torch, fk, gen, median_ms):
-        row = {"label": args.label, "card": card, "kernel": args.kernel, **row}
+    outputs = {}
+    if args.kernel == "k3":
+        rows = k3_rows(torch, fk, gen, median_ms)
+    else:
+        temp = torch.full((), 0.1, device="cuda") if args.device_temp else 0.1
+        rows = k3b_rows(torch, fk, gen, median_ms, temp, outputs)
+    for kern, row in rows:
+        row = {"label": args.label, "card": card, "kernel": args.kernel,
+               "temperature": "device tensor" if args.device_temp else "float", **row}
         if args.profile:
             row["kernels_ms"] = kernel_ms(torch, kern)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
-    return 0
+    differ = []
+    for (dtype, n), (dx, dt) in outputs.items():
+        if args.dump:
+            os.makedirs(args.dump, exist_ok=True)
+            torch.save({"dx": dx, "dt": dt},
+                       os.path.join(args.dump, f"{args.label}_{dtype}_{n}.pt"))
+        if args.same_as:
+            ref = torch.load(os.path.join(args.dump, f"{args.same_as}_{dtype}_{n}.pt"))
+            same = torch.equal(ref["dx"], dx) and torch.equal(ref["dt"], dt)
+            print(json.dumps({"label": args.label, "same_as": args.same_as, "dtype": dtype,
+                              "n": n, "bit_identical": same,
+                              "dx_max_abs_diff": (ref["dx"] - dx).abs().max().item(),
+                              "dt_abs_diff": abs(ref["dt"].item() - dt.item())}), flush=True)
+            differ += [] if same else [(dtype, n)]
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

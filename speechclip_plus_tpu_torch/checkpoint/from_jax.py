@@ -25,6 +25,10 @@ compute the same function in the parity tests. The layout rules:
     b_ih, b_hh}` (torch's layout already: copied as is onto each layer's
     `weight_ih_l0` ...), or `input_proj`, `input_norm` and `layer_i/{self_attn,
     norm1, norm2, linear1, linear2}`.
+  - CIF's alpha net is `conv_i` (the port's `conv`, then `conv_1`, ...) or
+    `dense_proj`, then `weight_proj`, with `cif_output_proj` where the
+    output width differs; a learnable VQ temperature is
+    `head/vector_quantizer/curr_temp`.
   - The branch transformer is `multihead_attn_layer` + `attentionBlock_Norm`,
     or `layer_i/{self_attn, norm1, norm2, linear1, linear2}` + `norm`; an MLP
     projection is `dense_i` where a single projection is a Dense.
@@ -244,12 +248,20 @@ def _fill_branch(f: _Filler, mod, p: Dict, stats: Dict) -> None:
         if getattr(mod, name, None) is not None:
             _fill_mlp(f, getattr(mod, name), p[name])
     if hasattr(mod, "downsampling"):
-        ds = p["downsampling"]
-        f.conv1d(mod.downsampling.conv, ds["conv_0"])
-        f.linear(mod.downsampling.weight_proj, ds["weight_proj"])
+        cif, ds = mod.downsampling, p["downsampling"]
+        if cif.cfg.produce_weight_type == "dense":
+            f.linear(cif.dense_proj, ds["dense_proj"])
+        else:
+            for i, conv in enumerate(cif.convs()):
+                f.conv1d(conv, ds[f"conv_{i}"])
+        f.linear(cif.weight_proj, ds["weight_proj"])
+        if hasattr(cif, "cif_output_proj"):
+            f.linear(cif.cif_output_proj, ds["cif_output_proj"])
     if hasattr(mod, "head"):
         head, ph = mod.head, p["head"]
         _fill_mlp(f, head.linear_proj, ph["linear_proj"])
+        if hasattr(head.vector_quantizer, "curr_temp"):  # `learnable=` VQ temperature
+            f.put(head.vector_quantizer.curr_temp, ph["vector_quantizer"]["curr_temp"])
         if hasattr(head, "bn_layer"):
             f.norm(head.bn_layer, ph["bn_layer"])
             f.put(head.bn_layer.running_mean, stats["head"]["bn_layer"]["mean"])

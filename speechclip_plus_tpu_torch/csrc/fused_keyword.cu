@@ -583,6 +583,14 @@ __global__ void vq_reduce_kernel(const float* __restrict__ col_part, int row_til
 //   pass 3: vq_bwd_reduce_kernel sums the partial dx in split order and
 //     vq_bwd_dt_kernel the dt partials in (row tile, split) order.
 
+// 1 / t from the temperature in device memory, rounded as the host's fp32
+// division would round it (IEEE division: the build has no fast-math); NaN
+// for a temperature that is not positive.
+__device__ __forceinline__ float inverse_temperature(const float* __restrict__ temp) {
+  const float t = __ldg(temp);
+  return t > 0.f ? 1.f / t : __int_as_float(0x7fc00000);
+}
+
 // Merge the statistics (m, z, zu) of two column sets. An empty set (m =
 // INIT_MAX, z = zu = 0) merges as the identity: exp(INIT_MAX - INIT_MAX) = 1
 // multiplies zeros, exp(INIT_MAX - m) = 0 for any real m.
@@ -670,8 +678,9 @@ template <bool DX>
 __global__ void __launch_bounds__(V_THREADS) vq_bwd_fma_kernel(
     const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ en,
     const float* __restrict__ norms, const int* __restrict__ mask, int N, int V, int D,
-    int splits, int cols_per_split, float inv_t, float* __restrict__ stats,
-    float* __restrict__ dx_out, float* __restrict__ dt_part) {
+    int splits, int cols_per_split, const float* __restrict__ temp,
+    float* __restrict__ stats, float* __restrict__ dx_out, float* __restrict__ dt_part) {
+  const float inv_t = inverse_temperature(temp);
   __shared__ float xs[VR][VD + 1];
   __shared__ float gs[VR][VD + 1];
   __shared__ float es[VC][VD + 1];
@@ -911,8 +920,9 @@ template <int ROWS, bool DX>
 __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ en,
     const float* __restrict__ norms, const int* __restrict__ mask, int N, int V, int D,
-    int splits, int cols_per_split, float inv_t, float* __restrict__ stats,
-    float* __restrict__ dx_out, float* __restrict__ dt_part) {
+    int splits, int cols_per_split, const float* __restrict__ temp,
+    float* __restrict__ stats, float* __restrict__ dx_out, float* __restrict__ dt_part) {
+  const float inv_t = inverse_temperature(temp);
   using Tile = TcTile<ROWS>;
   constexpr int RG = Tile::RG, CH = Tile::CH, WC = Tile::WC, NJ = Tile::NJ, DC = Tile::DC;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1105,7 +1115,7 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
 template <int ROWS>
 cudaError_t launch_vq_bwd_tc(const bf16* x, const bf16* g, const bf16* en, const float* norms,
                              const int* mask, int N, int V, int D, const dim3 grid, int splits,
-                             int cols_per_split, float inv_t, float* stats, float* out,
+                             int cols_per_split, const float* temp, float* stats, float* out,
                              float* dt_part, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(ROWS, D);
   cudaError_t err = cudaFuncSetAttribute(vq_bwd_tc_kernel<ROWS, false>,
@@ -1115,11 +1125,11 @@ cudaError_t launch_vq_bwd_tc(const bf16* x, const bf16* g, const bf16* en, const
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   vq_bwd_tc_kernel<ROWS, false><<<grid, T_THREADS, smem, stream>>>(
-      x, g, en, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
+      x, g, en, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   vq_bwd_tc_kernel<ROWS, true><<<grid, T_THREADS, smem, stream>>>(
-      x, g, en, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
+      x, g, en, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
   return cudaGetLastError();
 }
 
@@ -1148,22 +1158,21 @@ __global__ void vq_bwd_dt_kernel(const float* __restrict__ part, int n, float* _
 }
 
 cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void* en,
-                          const float* norms, const int* mask, int N, int V, int D, float t,
-                          int rows, int splits, float* stats, float* dx_part, float* dt_part,
-                          float* dx, float* dt, cudaStream_t stream) {
+                          const float* norms, const int* mask, int N, int V, int D,
+                          const float* temp, int rows, int splits, float* stats, float* dx_part,
+                          float* dt_part, float* dx, float* dt, cudaStream_t stream) {
   const int col_tiles = (V + VC - 1) / VC, row_tiles = (N + rows - 1) / rows;
   const int cols_per_split = (col_tiles + splits - 1) / splits * VC;
   const dim3 grid(row_tiles, splits);
   float* out = splits > 1 ? dx_part : dx;
-  const float inv_t = 1.f / t;
   cudaError_t err;
   if (is_bf16) {
     const bf16 *xb = static_cast<const bf16*>(x), *gb = static_cast<const bf16*>(g),
                *eb = static_cast<const bf16*>(en);
     err = rows == 64 ? launch_vq_bwd_tc<64>(xb, gb, eb, norms, mask, N, V, D, grid, splits,
-                                            cols_per_split, inv_t, stats, out, dt_part, stream)
+                                            cols_per_split, temp, stats, out, dt_part, stream)
                      : launch_vq_bwd_tc<32>(xb, gb, eb, norms, mask, N, V, D, grid, splits,
-                                            cols_per_split, inv_t, stats, out, dt_part, stream);
+                                            cols_per_split, temp, stats, out, dt_part, stream);
     if (err != cudaSuccess) return err;
   } else {
     const size_t smem = sizeof(float) * VR * D;
@@ -1173,11 +1182,11 @@ cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void*
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     vq_bwd_fma_kernel<false><<<grid, V_THREADS, 0, stream>>>(
-        xf, gf, ef, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
+        xf, gf, ef, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     vq_bwd_fma_kernel<true><<<grid, V_THREADS, smem, stream>>>(
-        xf, gf, ef, norms, mask, N, V, D, splits, cols_per_split, inv_t, stats, out, dt_part);
+        xf, gf, ef, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1255,22 +1264,23 @@ extern "C" {
 
 // Straight-through backward. x, g (N, D) and en (V, D) in the compute dtype
 // (is_bf16), row-major, 16-byte aligned, D a multiple of 16 (at most 768 in
-// bf16, 1024 in fp32); norms (V,) fp32 = ||emb||, mask (V,) int32, t the
-// temperature. rows (bf16: 64 up to D = 512, else 32; fp32: 32) and splits
+// bf16, 1024 in fp32); norms (V,) fp32 = ||emb||, mask (V,) int32, temp the
+// temperature, one fp32 in device memory that each block reads (a value that
+// is not positive gives NaN results). rows (bf16: 64 up to D = 512, else 32; fp32: 32) and splits
 // come from the wrapper's plan. Scratch: stats 3 * splits * N fp32, dx_part splits * N * D
 // fp32 (unused, may be null, when splits == 1), dt_part ceil(N / rows) *
 // splits fp32. Outputs: dx (N, D) fp32, dt (1,) fp32. Returns a cudaError_t.
 int sc_vq_bwd(const void* x, const void* g, const void* en, const float* norms,
-              const int* mask, int N, int V, int D, float t, int is_bf16, int rows, int splits,
-              float* stats, float* dx_part, float* dt_part, float* dx, float* dt,
+              const int* mask, int N, int V, int D, const float* temp, int is_bf16, int rows,
+              int splits, float* stats, float* dx_part, float* dt_part, float* dx, float* dt,
               cudaStream_t stream) {
   const int col_tiles = V > 0 ? (V + VC - 1) / VC : 0;
   const int want_rows = !is_bf16 ? VR : D <= T_DMAX_64 ? 64 : 32;
-  if (N <= 0 || V <= 0 || D <= 0 || D % 16 || D > (is_bf16 ? T_DMAX : 1024) || !(t > 0.f) ||
-      rows != want_rows || splits < 1 || splits > col_tiles ||
+  if (N <= 0 || V <= 0 || D <= 0 || D % 16 || D > (is_bf16 ? T_DMAX : 1024) ||
+      temp == nullptr || rows != want_rows || splits < 1 || splits > col_tiles ||
       (splits > 1 && dx_part == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_vq_bwd(is_bf16, x, g, en, norms, mask, N, V, D, t, rows, splits, stats,
+  return (int)launch_vq_bwd(is_bf16, x, g, en, norms, mask, N, V, D, temp, rows, splits, stats,
                             dx_part, dt_part, dx, dt, stream);
 }
 

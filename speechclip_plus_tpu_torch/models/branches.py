@@ -17,8 +17,13 @@ Port of ``speechclip_plus_tpu/models/branches.py`` (reference
 The branch transformer is `MultiheadAttentionAndNorm` or `TransformerEncoder`
 (`make_self_att`); its self-attention is K1 forward and K2 backward at every
 head width the configs use (8 heads of 96 or 128, or one head of 768 or
-1024). The keyword head's cosine score + VQ is K3, with the straight-through
-backward K3b in training.
+1024), or the plain attention of ``nn/attention.py`` with
+`model_settings.fused_attention_vjp: false` (JAX ``:60-75``). The keyword
+head's cosine score + VQ is K3, with the straight-through backward K3b in
+training, where `model_settings.fused_score_kernel` is on (the default for a
+frozen text tower) and the VQ's training form is straight-through; else the
+materialized scores of ``ops/vq.py`` (JAX ``:231-252``). The VQ temperature
+is fixed, learnable (`curr_temp`) or scheduled by the optimizer step.
 
 Every parameter is stored in fp32 and cast to the compute dtype at use, as
 flax's `dtype=` does (`TransformerArgs.compute_dtype` /
@@ -42,6 +47,7 @@ from ..nn.transformer import MultiheadAttentionAndNorm, TransformerEncoder
 from ..ops.fused_keyword import fused_cosine_vq
 from ..ops.kw_bn import kw_bn_dynamic, kw_bn_fixed
 from ..ops.masks import get_keypadding_mask
+from ..ops.vq import scheduled_temperature, simple_vector_quantizer
 from .cif import CIF, CifConfig
 
 __all__ = ["TransformerArgs", "VQConfig", "KwBnConfig", "KeywordHeadConfig", "make_self_att",
@@ -71,40 +77,66 @@ class TransformerArgs:
         return TransformerArgs(**{k: v for k, v in d.items() if k in allowed})
 
 
-def make_self_att(args: TransformerArgs) -> nn.Module:
-    """Branch transformer factory (reference ``kw_branches.py:31-42``)."""
+def make_self_att(args: TransformerArgs, kernel: bool = True) -> nn.Module:
+    """Branch transformer factory (reference ``kw_branches.py:31-42``); its
+    self-attention through K1 + K2, or with `kernel=False`
+    (`model_settings.fused_attention_vjp: false`) the plain attention."""
     if args.type == "TransformerEncoder":
         return TransformerEncoder(
             n_layers=int(args.n_layers), d_model=int(args.d_model), nhead=int(args.nhead),
             dim_feedforward=int(args.dim_feedforward), dropout=float(args.dropout),
             activation=args.activation, layer_norm_eps=float(args.layer_norm_eps),
-            norm_first=bool(args.norm_first), compute_dtype=args.compute_dtype)
+            norm_first=bool(args.norm_first), compute_dtype=args.compute_dtype,
+            kernel=kernel)
     if args.type == "MultiheadAttentionAndNorm":
         return MultiheadAttentionAndNorm(
             int(args.d_model), int(args.nhead), float(args.layer_norm_eps),
-            compute_dtype=args.compute_dtype, dropout=float(args.dropout))
+            compute_dtype=args.compute_dtype, dropout=float(args.dropout), kernel=kernel)
     raise NotImplementedError(f"branch transformer {args.type!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class VQConfig:
-    """`model_settings.cascaded_branch.vq.args`: hard, time-first, no Gumbel,
-    fixed temperature (every shipped config; in eval the temperature is only
-    reported)."""
+    """`model_settings.cascaded_branch.vq.args` (reference
+    ``my_vector_quantizer.py:15-62``, JAX ``:115-150``): the temperature is
+    `fixed=t`, `learnable=t` (the `curr_temp` parameter) or a schedule
+    "(max, min, decay)" over the optimizer step."""
 
-    temp: float = 0.1
+    temp_type: str = "fixed"  # fixed | learnable | scheduled
+    temp_init: float = 0.1
+    temp_schedule: Tuple[float, float, float] = (2.0, 0.5, 0.999995)
+    use_gumbel: bool = False
+    hard: bool = True
+    time_first: bool = True
     prob_msk: Tuple[int, ...] = (0, 2, 3)
+    ground_truth_perplexity: Optional[float] = None
+    # the straight-through form as a gather with its exact gradient; false:
+    # the materialized one-hot + softmax product (``ops/vq.py``)
+    fused_st: bool = True
 
     @staticmethod
     def from_config(node) -> "VQConfig":
         d = node.to_dict() if hasattr(node, "to_dict") else dict(node)
-        temp = str(d.get("temp", "fixed=0.1"))
-        if d.get("use_gumbel", False) or not d.get("hard", True) \
-                or not d.get("time_first", True) or not temp.startswith("fixed=") \
-                or not d.get("fused_st", True):
-            raise NotImplementedError("VQ other than hard, time-first, fixed temperature, "
-                                      "fused straight-through")
-        return VQConfig(temp=float(ast.literal_eval(temp[len("fixed="):])))
+        temp = d.get("temp", "fixed=0.1")
+        temp_type, temp_init, sched = "fixed", 0.1, (2.0, 0.5, 0.999995)
+        if isinstance(temp, str):
+            if temp.startswith("learnable="):
+                temp_type, temp_init = "learnable", float(ast.literal_eval(temp[10:]))
+            elif temp.startswith("fixed="):
+                temp_init = float(ast.literal_eval(temp[6:]))
+            else:
+                temp_type, sched = "scheduled", tuple(float(v) for v in ast.literal_eval(temp))
+        elif isinstance(temp, (list, tuple)):
+            temp_type, sched = "scheduled", tuple(float(v) for v in temp)
+        else:
+            temp_init = float(temp)
+        gt = d.get("groundTruthPerplexity", None)
+        return VQConfig(temp_type=temp_type, temp_init=temp_init, temp_schedule=sched,
+                        use_gumbel=bool(d.get("use_gumbel", False)),
+                        hard=bool(d.get("hard", True)),
+                        time_first=bool(d.get("time_first", True)),
+                        ground_truth_perplexity=None if gt is None else float(gt),
+                        fused_st=bool(d.get("fused_st", True)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,19 +170,58 @@ class KeywordHeadConfig:
     bn: KwBnConfig = KwBnConfig()
     keyword_num: int = 8
     compute_dtype: torch.dtype = torch.float32
+    # the cosine scores + VQ through K3 / K3b (`model_settings.fused_score_kernel`,
+    # on by default for a frozen text tower; they give no codebook gradient)
+    fused_score_kernel: bool = True
 
 
 class SimpleVectorQuantizer(nn.Module):
-    """Quantizes through the fused cosine-score + VQ path (K3; K3b backward)."""
+    """The VQ with its temperature (JAX ``:168-271``): K3 (K3b backward) where
+    the configuration takes the fused route and the form is straight-through
+    (or eval), else the materialized scores of ``ops/vq.py``."""
 
-    def __init__(self, cfg: VQConfig):
+    def __init__(self, cfg: VQConfig, fused_score_kernel: bool = True):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.fused_score_kernel = cfg, fused_score_kernel
+        if cfg.temp_type == "learnable":
+            self.curr_temp = nn.Parameter(torch.tensor(float(cfg.temp_init)))
+
+    def temperature(self, global_step, device) -> torch.Tensor:
+        """The 0-d fp32 temperature on `device`: the parameter, the fixed
+        value, or the schedule at the optimizer step (0 when None)."""
+        c = self.cfg
+        if c.temp_type == "learnable":
+            return self.curr_temp
+        if c.temp_type == "fixed":
+            return torch.full((), c.temp_init, dtype=torch.float32, device=device)
+        return scheduled_temperature(*c.temp_schedule, global_step, device=device)
 
     def forward(self, xn: torch.Tensor, emb: torch.Tensor, compute_dtype: torch.dtype,
-                training: bool = False) -> Dict[str, torch.Tensor]:
-        return fused_cosine_vq(xn, emb, self.cfg.temp, prob_msk=self.cfg.prob_msk,
-                               dtype=compute_dtype, training=training)
+                training: bool = False, global_step=None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        c = self.cfg
+        temp = self.temperature(global_step, xn.device)
+        st_compatible = not training or (c.hard and not c.use_gumbel)
+        if self.fused_score_kernel and st_compatible and c.time_first:
+            res = fused_cosine_vq(xn, emb, temp, prob_msk=c.prob_msk, dtype=compute_dtype,
+                                  training=training)
+            gt = c.ground_truth_perplexity
+            if gt is not None:
+                v = res["num_vars"]
+                res["diversity_loss"] = (res["prob_perplexity"] - gt) ** 2 / (v - gt) ** 2
+            return res
+        # the materialized cosine scores (the reference einsum): bf16 operands
+        # under bf16 compute, fp32 products and sums, as JAX's
+        # preferred_element_type=float32
+        embf = emb.float()
+        en = embf / embf.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+        scores = xn.to(compute_dtype).float() @ en.to(compute_dtype).float().T
+        return simple_vector_quantizer(
+            scores, temp=temp, prob_msk=c.prob_msk, training=training,
+            use_gumbel=c.use_gumbel, hard=c.hard,
+            generator=generator if training and c.use_gumbel else None,
+            ground_truth_perplexity=c.ground_truth_perplexity, time_first=c.time_first,
+            codebook=embf, fused_st=c.fused_st)
 
 
 class KwBatchNorm(nn.Module):
@@ -203,10 +274,11 @@ class KeywordHead(nn.Module):
         if cfg.bn.enabled:
             self.bn_layer = KwBatchNorm(cfg.text_dim, cfg=cfg.bn, variant=variant,
                                         kw_num=cfg.keyword_num)
-        self.vector_quantizer = SimpleVectorQuantizer(cfg.vq)
+        self.vector_quantizer = SimpleVectorQuantizer(cfg.vq, cfg.fused_score_kernel)
 
     def forward(self, feats: torch.Tensor, token_embedding: torch.Tensor,
-                training: bool = False, generator: Optional[torch.Generator] = None):
+                training: bool = False, generator: Optional[torch.Generator] = None,
+                global_step=None):
         cd, lp = self.cfg.compute_dtype, self.linear_proj
         if isinstance(lp, MLPLayers):
             x = lp(feats, generator)
@@ -216,7 +288,8 @@ class KeywordHead(nn.Module):
             x = self.bn_layer(x, training)
         xf = x.float()
         xn = xf / xf.norm(dim=-1, keepdim=True).clamp_min(1e-8)
-        vq = self.vector_quantizer(xn, token_embedding.float(), cd, training)
+        vq = self.vector_quantizer(xn, token_embedding.float(), cd, training, global_step,
+                                   generator)
         keywords = vq.pop("keywords")
         return vq, keywords
 
@@ -232,10 +305,11 @@ def _prepend(cls: torch.Tensor, audio_feat: torch.Tensor, audio_len: torch.Tenso
 class ParallelBranch(nn.Module):
     """Reference KW_ParallelBranch (``kw_branches.py:200-282``)."""
 
-    def __init__(self, ta: TransformerArgs, out_dim: int = 512, need_projection: bool = True):
+    def __init__(self, ta: TransformerArgs, out_dim: int = 512, need_projection: bool = True,
+                 kernel: bool = True):
         super().__init__()
         self.cls = nn.Parameter(torch.zeros(1, 1, ta.d_model))
-        self.self_att = make_self_att(ta)
+        self.self_att = make_self_att(ta, kernel)
         self.linear_proj = nn.Linear(ta.d_model, out_dim) if need_projection else None
 
     def parallel_feature(self, audio_feat: torch.Tensor, audio_len: torch.Tensor,
@@ -258,19 +332,20 @@ class CascadedBranch(nn.Module):
     returns the keywords and the VQ results; the parent runs CLIP's
     `encode_keywords`."""
 
-    def __init__(self, ta: TransformerArgs, head: KeywordHeadConfig):
+    def __init__(self, ta: TransformerArgs, head: KeywordHeadConfig, kernel: bool = True):
         super().__init__()
         self.cls = nn.Parameter(torch.zeros(1, head.keyword_num, ta.d_model))
-        self.self_att = make_self_att(ta)
+        self.self_att = make_self_att(ta, kernel)
         self.head = KeywordHead(head, variant="fixed")
 
     def forward(self, audio_feat: torch.Tensor, audio_len: torch.Tensor,
-                token_embedding: torch.Tensor, *, training: bool = False,
+                token_embedding: torch.Tensor, *, training: bool = False, global_step=None,
                 generator: Optional[torch.Generator] = None, **_) -> Dict[str, torch.Tensor]:
         k = self.head.cfg.keyword_num
         src, mask = _prepend(self.cls, audio_feat, audio_len)
         out = self.self_att(src, key_padding_mask=mask, generator=generator)
-        vq_results, keywords = self.head(out[:, :k, :], token_embedding, training, generator)
+        vq_results, keywords = self.head(out[:, :k, :], token_embedding, training, generator,
+                                         global_step)
         return {"vq_results": vq_results, "keywords": keywords, "keyword_num": k}
 
     def extract_hidden_states(self, audio_feat, audio_len) -> Tuple[torch.Tensor, ...]:
@@ -294,11 +369,11 @@ class HybridBranch(nn.Module):
     def __init__(self, ta: TransformerArgs, head: KeywordHeadConfig, out_dim: int = 512,
                  need_projection: bool = True,
                  parallel_proj_dims: Optional[Tuple[int, ...]] = None,
-                 parallel_proj_dropout: float = 0.1):
+                 parallel_proj_dropout: float = 0.1, kernel: bool = True):
         super().__init__()
         self.parallel_cls = nn.Parameter(torch.zeros(1, 1, ta.d_model))
         self.cascaded_cls = nn.Parameter(torch.zeros(1, head.keyword_num, ta.d_model))
-        self.self_att = make_self_att(ta)
+        self.self_att = make_self_att(ta, kernel)
         self.head = KeywordHead(head, variant="fixed")
         self.parallel_proj = None
         if need_projection:
@@ -322,12 +397,12 @@ class HybridBranch(nn.Module):
         return self._project(self._attend(audio_feat, audio_len)[:, 0, :])
 
     def forward(self, audio_feat: torch.Tensor, audio_len: torch.Tensor,
-                token_embedding: torch.Tensor, *, training: bool = False,
+                token_embedding: torch.Tensor, *, training: bool = False, global_step=None,
                 generator: Optional[torch.Generator] = None, **_) -> Dict[str, torch.Tensor]:
         k = self.head.cfg.keyword_num
         out = self._attend(audio_feat, audio_len, generator)
         vq_results, keywords = self.head(out[:, 1: 1 + k, :], token_embedding, training,
-                                         generator)
+                                         generator, global_step)
         return {"parallel_audio_feat": self._project(out[:, 0, :]),
                 "vq_results": vq_results, "keywords": keywords, "keyword_num": k}
 
@@ -346,7 +421,7 @@ def _downsample_head(branch, frames, pad_mask, token_embedding, target_len, glob
     if target_len is not None:
         dsample["target_len"] = target_len
     vq_results, keywords = branch.head(dsample["dsample_feats"], token_embedding, training,
-                                       generator)
+                                       generator, global_step)
     return {"vq_results": vq_results, "keywords": keywords, "dsample_results": dsample,
             "keywords_len": dsample["dsample_feats_length"]}
 
@@ -355,9 +430,10 @@ class CascadedBranchPlus(nn.Module):
     """Reference KW_CascadedBranchPlus (``kw_branches.py:580-777``):
     transformer -> CIF downsampling -> dynamic keyword head."""
 
-    def __init__(self, ta: TransformerArgs, head: KeywordHeadConfig, cif: CifConfig):
+    def __init__(self, ta: TransformerArgs, head: KeywordHeadConfig, cif: CifConfig,
+                 kernel: bool = True):
         super().__init__()
-        self.self_att = make_self_att(ta)
+        self.self_att = make_self_att(ta, kernel)
         self.downsampling = CIF(cif)
         self.head = KeywordHead(head, variant="dynamic")
 
@@ -379,10 +455,10 @@ class HybridBranchPlus(nn.Module):
     """Reference KW_HybridBranchPlus (``kw_branches.py:780-891``)."""
 
     def __init__(self, ta: TransformerArgs, head: KeywordHeadConfig, cif: CifConfig,
-                 out_dim: int = 512):
+                 out_dim: int = 512, kernel: bool = True):
         super().__init__()
         self.cls = nn.Parameter(torch.zeros(1, 1, ta.d_model))
-        self.self_att = make_self_att(ta)
+        self.self_att = make_self_att(ta, kernel)
         self.downsampling = CIF(cif)
         self.head = KeywordHead(head, variant="dynamic")
         self.parallel_proj = nn.Linear(ta.d_model, out_dim)

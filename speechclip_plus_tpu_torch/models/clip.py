@@ -13,6 +13,12 @@ forward, K2 backward, the causal mask as their per-head bias; JAX
 ("attn") in the backward with `torch.utils.checkpoint` instead of saving
 their activations ("none"); values and gradients are the same in every mode.
 
+Every module computes in `ClipConfig.dtype` and casts its parameters to it at
+use, so a trainable tower (`clip.image_encoder_trainable`,
+`clip.text_encoder_trainable`; JAX ``models/kwclip.py:204-221``, ``:811``,
+``:909``) can hold fp32 masters (`KWClip` casts them); a trainable ViT takes
+the plain attention (`ClipModel(vision_kernel=False)`: K1 is forward-only).
+
 `encode_keywords` (``clip.py:404-439``) builds [SOT, kw_1..kw_n, EOT, 0...]
 over the static context with selects, so the keyword count is data, and pools
 at the EOT slot; `TextTransformer.forward` finds EOT by its id, not by argmax
@@ -24,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -98,11 +105,12 @@ class ResidualAttentionBlock(nn.Module):
     plain attention in the backward."""
 
     def __init__(self, d_model: int, n_head: int, dtype: torch.dtype, fused_vjp: bool = False,
-                 remat_attn: bool = False):
+                 remat_attn: bool = False, kernel: bool = True):
         super().__init__()
-        self.fused_vjp, self.remat_attn = fused_vjp, remat_attn
+        self.fused_vjp, self.remat_attn, self.cd = fused_vjp, remat_attn, dtype
         self.ln_1 = LayerNorm(d_model, dtype=dtype)
-        self.attn = MultiheadAttention(d_model, n_head, fuse_out=not fused_vjp, dtype=dtype)
+        self.attn = MultiheadAttention(d_model, n_head, fuse_out=not fused_vjp, dtype=dtype,
+                                       kernel=kernel)
         self.ln_2 = LayerNorm(d_model, dtype=dtype)
         self.c_fc = nn.Linear(d_model, 4 * d_model, dtype=dtype)
         self.c_proj = nn.Linear(4 * d_model, d_model, dtype=dtype)
@@ -121,19 +129,21 @@ class ResidualAttentionBlock(nn.Module):
             x = x + _remat(self._attend, h, attn_mask)
         else:
             x = x + self._attend(h, attn_mask)
-        return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
+        cd, fc, proj = self.cd, self.c_fc, self.c_proj
+        h = quick_gelu(F.linear(self.ln_2(x), fc.weight.to(cd), fc.bias.to(cd)))
+        return x + F.linear(h, proj.weight.to(cd), proj.bias.to(cd))
 
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype,
-                 fused_vjp: bool = False, remat: str = "none"):
+                 fused_vjp: bool = False, remat: str = "none", kernel: bool = True):
         super().__init__()
         # the fused route saves only each layer's input and K1's qkv and lse,
         # so recomputing on top of it would rerun the forward for nothing
         self.remat_full = remat == "full" and not fused_vjp
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, dtype, fused_vjp=fused_vjp,
-                                   remat_attn=remat == "attn")
+                                   remat_attn=remat == "attn", kernel=kernel)
             for _ in range(layers))
 
     def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
@@ -145,26 +155,29 @@ class Transformer(nn.Module):
 class VisionTransformer(nn.Module):
     """Patch conv -> [CLS; patches] + pos -> ln_pre -> blocks -> ln_post(CLS) @ proj."""
 
-    def __init__(self, c: ClipConfig):
+    def __init__(self, c: ClipConfig, kernel: bool = True):
         super().__init__()
         w, p, dt = c.vision_width, c.vision_patch_size, c.dtype
+        self.cd = dt
         self.conv1 = nn.Conv2d(3, w, p, stride=p, bias=False, dtype=dt)
         self.class_embedding = nn.Parameter(torch.zeros(w, dtype=dt))
         n_pos = (c.image_resolution // p) ** 2 + 1
         self.positional_embedding = nn.Parameter(torch.zeros(n_pos, w, dtype=dt))
         self.ln_pre = LayerNorm(w, dtype=dt)
-        self.transformer = Transformer(w, c.vision_layers, c.vision_heads, dt)
+        self.transformer = Transformer(w, c.vision_layers, c.vision_heads, dt, kernel=kernel)
         self.ln_post = LayerNorm(w, dtype=dt)
         self.proj = nn.Parameter(torch.zeros(w, c.embed_dim, dtype=dt))
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """image (B, H, W, 3) -> (B, embed_dim)."""
-        x = self.conv1(image.permute(0, 3, 1, 2).to(self.conv1.weight.dtype))
+        cd = self.cd
+        x = F.conv2d(image.permute(0, 3, 1, 2).to(cd), self.conv1.weight.to(cd),
+                     stride=self.conv1.stride)
         x = x.flatten(2).transpose(1, 2)                            # (B, P, W)
-        cls = self.class_embedding.expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        cls = self.class_embedding.to(cd).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)
         x = self.transformer(self.ln_pre(x))
-        return self.ln_post(x[:, 0, :]) @ self.proj
+        return self.ln_post(x[:, 0, :]) @ self.proj.to(cd)
 
 
 class TextTransformer(nn.Module):
@@ -189,14 +202,15 @@ class TextTransformer(nn.Module):
         self.register_buffer("causal_bias", causal, persistent=False)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.token_embedding(ids).to(self.positional_embedding.dtype)
+        return self.token_embedding(ids).to(self.cfg.dtype)
 
     def run(self, x: torch.Tensor, eot_index: torch.Tensor) -> torch.Tensor:
         """Embedded sequence (B, ctx, W) -> pooled feature (B, E) at eot_index."""
-        x = x + self.positional_embedding
+        cd = self.cfg.dtype
+        x = x + self.positional_embedding.to(cd)
         x = self.ln_final(self.transformer(x, self.causal_bias))
         pooled = x[torch.arange(x.shape[0], device=x.device), eot_index]
-        return pooled @ self.text_projection
+        return pooled @ self.text_projection.to(cd)
 
     def forward(self, text_ids: torch.Tensor) -> torch.Tensor:
         is_eot = text_ids == self.cfg.eot_id
@@ -224,9 +238,12 @@ class TextTransformer(nn.Module):
 
 
 class ClipModel(nn.Module):
-    def __init__(self, c: ClipConfig):
+    """`vision_kernel`: the ViT's attention through K1 fused-out (a frozen
+    image tower), else the plain attention."""
+
+    def __init__(self, c: ClipConfig, vision_kernel: bool = True):
         super().__init__()
-        self.visual = VisionTransformer(c)
+        self.visual = VisionTransformer(c, kernel=vision_kernel)
         self.text = TextTransformer(c)
         self.logit_scale = nn.Parameter(torch.tensor(0.0))
 

@@ -1,8 +1,7 @@
 """HuBERT, WavLM and data2vec-audio acoustic towers, base and large.
 
 Port of ``speechclip_plus_tpu/models/hubert.py`` (reference
-``avssl/module/speech_encoder_plus.py:29-107``), forward only (the tower is
-frozen):
+``avssl/module/speech_encoder_plus.py:29-107``), frozen or trainable (below):
 
   conv frontend (GroupNorm on layer 0 only, exact-erf GELU) -> LayerNorm ->
   post_extract_proj -> zero padded frames -> + weight-normed pos_conv
@@ -28,7 +27,7 @@ precedence (``:794-910``):
   2. WavLM plain (`rel_pos_bias` without the fused block): the full gated
      bias through `dot_product_attention`;
   3. K1 with the out-projection fused in (`fused_attention_block`, the
-     default: the tower is frozen and the card is the accelerator);
+     default for a frozen tower, the card being the accelerator);
   4. plain q/k/v/out projections around K5 (`fused_attention_dropout`), K4
      (`use_flash_attention`, only without attention dropout) or
      `dot_product_attention`.
@@ -46,7 +45,7 @@ at the JAX sites, all p=0.1 for HuBERT-base: features after the projection
 in the frozen tower (`audio_encoder.frozen_dropout`, default true). The
 softmax-weighted sum over the L+1 hidden states (13, or 25 large) is accumulated inside the layer loop (JAX ``:1016-1044``), so no (L+1, B, T, D)
 stack exists. The pos-conv weight norm is materialized to one kernel, as the
-JAX side stores it (``:627-680``): the tower is frozen.
+JAX side stores it (``:627-680``), and a trainable tower trains that kernel.
 
 The large towers (`HubertConfig.large`, `wavlm_large`, `data2vec_large`, JAX
 ``:174-212``) are 24 layers of D=1024 with 16 heads (K1 at dh=64). HuBERT-Large
@@ -57,6 +56,22 @@ input and the residual staying outside it. The encoder LayerNorm of a
 pre-norm tower keeps its parameters (the checkpoints carry them) but is not
 applied to the hidden states (JAX ``:973-980``). data2vec-large is the base
 data2vec structure at large width (post-norm, no conv bias).
+
+A trainable tower (`audio_encoder.trainable`, `unfreeze_layers`,
+`reinit_layers`; JAX ``:93-132``, ``:1000-1050``) takes gradients through
+every layer: its hidden states and their weighted-sum contributions keep
+theirs (JAX's `stop_contrib_gradient=not audio_trainable`), its attention
+takes the plain route (K1 is forward-only, so `fused_attention_block` is off,
+as JAX turns it off), and under bf16 its parameters are fp32 masters
+(`KWClip` casts them) cast to the compute dtype at use, as flax keeps them. In
+training (a generator passed) `layer_drop` skips each layer with that
+probability, one Bernoulli keep per layer per step from the step's
+generator; a dropped layer passes its input through (JAX ``:1009-1011``,
+``:746``). `remat` recomputes each layer in the backward
+(`torch.utils.checkpoint`, JAX `nn.remat`): the layer's dropouts draw from
+a generator set to the state the step's generator had before the layer, in
+the forward and again in the recompute, so both build the same masks, and
+the step's generator then moves on as if the layer had drawn from it.
 
 Layouts at the public surface follow JAX: waveforms (B, T), features
 (B, T', D).
@@ -70,6 +85,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.attention import MultiheadAttention, dot_product_attention, padding_bias
 from ..nn.dropout import dropout
@@ -109,8 +125,12 @@ class HubertConfig:
     rel_max_distance: int = 800
     dropout: float = 0.1
     attention_dropout: float = 0.1
-    # K1 per layer (forward only; the tower is frozen). On by default: the
-    # JAX default is "on for a frozen tower on the accelerator"
+    # the probability that a training step skips a layer (fairseq LayerDrop)
+    layer_drop: float = 0.0
+    # each layer recomputed in the backward (a trainable tower)
+    remat: bool = False
+    # K1 per layer (forward only: a frozen tower). On by default: the JAX
+    # default is "on for a frozen tower on the accelerator"
     fused_attention_block: bool = True
     # K5: attention only, in-kernel dropout, plain projections
     # (`audio_encoder.fused_attention`)
@@ -118,6 +138,8 @@ class HubertConfig:
     # K4: the flash forward, for long audio; taken only without attention
     # dropout (no YAML key, as in the JAX package)
     use_flash_attention: bool = False
+    # the compute dtype, and the parameters' as built (a trainable tower's
+    # are then made fp32 masters, cast to it at use)
     dtype: torch.dtype = torch.float32
 
     @property
@@ -228,6 +250,19 @@ def _channel_layer_norm(x: torch.Tensor, norm: Optional[nn.Module]) -> torch.Ten
     return F.gelu(y).transpose(1, 2)
 
 
+def _linear(x: torch.Tensor, mod: nn.Linear, cd: torch.dtype) -> torch.Tensor:
+    """mod(x) in the compute dtype: the parameters cast at use (a no-op for a
+    tower stored in it)."""
+    bias = None if mod.bias is None else mod.bias.to(cd)
+    return F.linear(x.to(cd), mod.weight.to(cd), bias)
+
+
+def _conv1d(x: torch.Tensor, mod: nn.Conv1d, cd: torch.dtype) -> torch.Tensor:
+    bias = None if mod.bias is None else mod.bias.to(cd)
+    return F.conv1d(x.to(cd), mod.weight.to(cd), bias, mod.stride, mod.padding, mod.dilation,
+                    mod.groups)
+
+
 class ConvFeatureExtractor(nn.Module):
     """Waveform (B, T) -> frames (B, T', C), run channel-first as torch convs
     want: conv -> [GroupNorm(C, C) on layer 0] -> GELU (`group_norm` mode), or
@@ -235,7 +270,7 @@ class ConvFeatureExtractor(nn.Module):
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        self.mode = cfg.extractor_mode
+        self.mode, self.cd = cfg.extractor_mode, cfg.dtype
         if self.mode not in ("group_norm", "layer_norm"):
             raise NotImplementedError(f"extractor_mode {self.mode!r}")
         convs, cin = [], 1
@@ -251,9 +286,9 @@ class ConvFeatureExtractor(nn.Module):
                                              for ch, _, _ in cfg.conv_layers)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        x = wav[:, None, :].to(self.conv_layers[0].weight.dtype)
+        x = wav[:, None, :].to(self.cd)
         for i, conv in enumerate(self.conv_layers):
-            x = conv(x)
+            x = _conv1d(x, conv, self.cd)
             if self.mode == "layer_norm":
                 x = _channel_layer_norm(x, self.layer_norms[i])
                 continue
@@ -276,7 +311,7 @@ class PositionalConvEmbedding(nn.Module):
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        k = cfg.conv_pos
+        k, self.cd = cfg.conv_pos, cfg.dtype
         conv = lambda: nn.Conv1d(cfg.d_model, cfg.d_model, k, padding=k // 2,
                                  groups=cfg.conv_pos_groups, dtype=cfg.dtype)
         if cfg.pos_conv_depth > 1:
@@ -287,12 +322,12 @@ class PositionalConvEmbedding(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.transpose(1, 2)
         if not hasattr(self, "layers"):
-            out = self.conv(x)
+            out = _conv1d(x, self.conv, self.cd)
             if self.conv.kernel_size[0] % 2 == 0:
                 out = out[:, :, :-1]
             return F.gelu(out).transpose(1, 2)
         for conv in self.layers:  # k=19: odd, so no SamePad trim
-            x = _channel_layer_norm(conv(x), None)
+            x = _channel_layer_norm(_conv1d(x, conv, self.cd), None)
         return x.transpose(1, 2)
 
 
@@ -321,7 +356,8 @@ class HubertEncoderLayer(nn.Module):
         b, t, d = x.shape
         h = self.cfg.n_heads
         gh = x.reshape(b, t, h, d // h).transpose(1, 2)
-        proj = self.gru_rel_pos_linear(gh).float().reshape(b, h, t, 2, 4).sum(-1)
+        proj = _linear(gh, self.gru_rel_pos_linear, self.cfg.dtype).float()
+        proj = proj.reshape(b, h, t, 2, 4).sum(-1)
         gate_a, gate_b = torch.sigmoid(proj).split(1, dim=-1)
         gate = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
         return gate[..., 0]
@@ -356,8 +392,9 @@ class HubertEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        c, g = self.cfg, generator
-        ffn = lambda h: self.fc2(F.gelu(self.fc1(h)))  # activation_dropout is 0 (JAX :917)
+        c, g, cd = self.cfg, generator, self.cfg.dtype
+        # activation_dropout is 0 (JAX :917)
+        ffn = lambda h: _linear(F.gelu(_linear(h, self.fc1, cd)), self.fc2, cd)
         if c.layer_norm_first:
             attn = self.attention(self.self_attn_layer_norm(x), key_padding_bias, g,
                                   position_bias)
@@ -408,45 +445,77 @@ class HubertModel(nn.Module):
                 normalize_contrib: bool = False) -> dict:
         """wav (B, T), wav_padding_mask (B, T) bool (True = pad), layer_weights
         (L+1,) fp32 softmax weights, or None for no weighted sum; `generator`
-        turns the dropouts on. Returns the last hidden state `x`, the fp32
-        `weighted_sum` (B, T', D) and the frame `padding_mask` (B, T'); with
-        `return_hidden_states` also `hidden_states`, the (L+1, B, T', D) stack
-        of the encoder input and every layer's output in the tower's dtype.
-        `normalize_contrib` layer-norms each hidden state in fp32 (no
-        parameters, eps 1e-5) before its weight (s3prl's normalized sum, JAX
-        ``:748-751``, ``:1020-1023``). The hidden states take no gradient
-        (frozen tower): the weighted sum's only gradient is into
-        `layer_weights`, which keeps each fp32 contribution for it."""
-        p, g = self.cfg.dropout, generator
+        turns the dropouts (and LayerDrop) on. Returns the last hidden state
+        `x`, the fp32 `weighted_sum` (B, T', D) and the frame `padding_mask`
+        (B, T'); with `return_hidden_states` also `hidden_states`, the
+        (L+1, B, T', D) stack of the encoder input and every layer's output in
+        the tower's dtype. `normalize_contrib` layer-norms each hidden state in
+        fp32 (no parameters, eps 1e-5) before its weight (s3prl's normalized
+        sum, JAX ``:748-751``, ``:1020-1023``). The hidden states carry the
+        gradient of whatever tower parameters take one (none for a frozen
+        tower, whose weighted sum then takes gradients into `layer_weights`
+        alone)."""
+        c, g = self.cfg, generator
+        p = c.dropout
         feats = self.feature_extractor(wav)
         pad = downsample_padding_mask(wav_padding_mask, feats.shape[1])
         feats = self.layer_norm(feats)
         if self.post_extract_proj is not None:
-            feats = self.post_extract_proj(feats)
+            feats = _linear(feats, self.post_extract_proj, c.dtype)
         x = dropout(feats, p, g).masked_fill(pad[:, :, None], 0.0)
         x = x + self.pos_conv(x)
-        if not self.cfg.layer_norm_first:  # a pre-norm tower keeps the norm unapplied
+        if not c.layer_norm_first:  # a pre-norm tower keeps the norm unapplied
             x = self.encoder_layer_norm(x)
         x = dropout(x, p, g)
         bias = padding_bias(pad)
         position_bias = self.position_bias(x.shape[1])
+        keep = None
+        if c.layer_drop > 0.0 and g is not None:
+            keep = torch.empty(len(self.layers), device=x.device).bernoulli_(
+                1.0 - c.layer_drop, generator=g).bool()
 
         def contrib(h):
-            h = h.float().detach()
+            h = h.float()
             return layer_norm(h) if normalize_contrib else h
 
         acc = None if layer_weights is None else layer_weights[0] * contrib(x)
         hidden = None
         if return_hidden_states:  # filled layer by layer: one copy of the stack
             hidden = x.new_empty((len(self.layers) + 1, *x.shape))
-            hidden[0] = x.detach()
+            hidden[0] = x
         for i, layer in enumerate(self.layers):
-            x = layer(x, bias, g, position_bias)
+            y = self._run_layer(layer, x, bias, g, position_bias)
+            x = y if keep is None else torch.where(keep[i], y, x)
             if acc is not None:
                 acc = acc + layer_weights[i + 1] * contrib(x)
             if hidden is not None:
-                hidden[i + 1] = x.detach()
+                hidden[i + 1] = x
         out = {"x": x, "weighted_sum": acc, "padding_mask": pad}
         if hidden is not None:
             out["hidden_states"] = hidden
+        return out
+
+    def _run_layer(self, layer, x, bias, generator, position_bias):
+        """One layer, recomputed in the backward under `remat` when it takes
+        a gradient; its dropouts draw from a generator set to the step
+        generator's state before the layer, in the forward and again in the
+        recompute, and the step generator continues from where the layer's
+        draws left it."""
+        if not (self.cfg.remat and torch.is_grad_enabled()
+                and (x.requires_grad or any(p.requires_grad for p in layer.parameters()))):
+            return layer(x, bias, generator, position_bias)
+        if generator is None:
+            return checkpoint(layer, x, bias, None, position_bias, use_reentrant=False,
+                              preserve_rng_state=False)
+        start, end = generator.get_state(), {}
+
+        def run(h):
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+            out = layer(h, bias, g, position_bias)
+            end["state"] = g.get_state()
+            return out
+
+        out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+        generator.set_state(end["state"])
         return out

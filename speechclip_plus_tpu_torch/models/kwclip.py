@@ -12,19 +12,23 @@ features. A model with one objective has one feature: the other is None in
 
 `forward` is the JAX `__call__` (``:829-992``): (loss_feats, log_metrics,
 others) for a batch, in training with keyword-BN batch statistics, CIF alpha
-scaling and straight-through VQ gradients, and with dropout when a generator
-is given; `compute_loss` (``:1006-1063``) is the masked contrastive loss of
-each branch plus the weighted CIF quantity loss. The towers are frozen
-(`requires_grad=False`): gradients reach the weighted sum, the branch, the
-keyword inputs of the text tower and the learnable contrastive temperature
-`criterion_log_inv_temp`.
+scaling and straight-through VQ gradients, and with dropout (and LayerDrop,
+Gumbel noise) when a generator is given; `compute_loss` (``:1006-1063``) is
+the masked contrastive loss, or SupConLoss over the audio and image views, of
+each branch plus the weighted CIF quantity loss. Gradients reach the weighted
+sum, the branch, the keyword inputs of the text tower and the learnable
+temperatures (`criterion_log_inv_temp`, the VQ's `curr_temp`); the towers
+train where the configuration says so (`audio_encoder.trainable`,
+`unfreeze_layers`, `reinit_layers`, `clip.image_encoder_trainable`,
+`clip.text_encoder_trainable`), through JAX's trainable set
+(``optim/optimizer.py``), and are frozen otherwise (`requires_grad=False`).
 
 `trainer.precision: bf16` (or 16) puts the towers, the branch attention, the
 keyword projection and the CIF conv in bf16, as `KWClipConfig.from_config`
 does in JAX (``:281-287``, ``:515-525``): the frozen towers store bf16, the
 trainable modules keep fp32 master weights and compute in bf16; statistics,
-BN, the alpha head and the VQ codebook stay fp32. Configuration keys the port
-does not implement raise by name.
+BN, the alpha head and the VQ codebook stay fp32; a trainable tower keeps
+fp32 masters too. Configuration keys JAX does not implement raise by name.
 """
 from __future__ import annotations
 
@@ -35,9 +39,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.losses import masked_contrastive_loss, quantity_l1_loss
+from ..ops.losses import masked_contrastive_loss, quantity_l1_loss, supcon_loss
 from ..ops.weighted_sum import layer_weights, weighted_sum
 from ..nn.mlp import MLPLayers
+from ..optim.optimizer import trainable_mask
 from .branches import (CascadedBranch, CascadedBranchPlus, HybridBranch, HybridBranchPlus,
                        KeywordHeadConfig, KwBnConfig, ParallelBranch, TransformerArgs,
                        VQConfig)
@@ -53,27 +58,33 @@ _HALF = ("16", "16-mixed", "bf16", "bf16-mixed", "bfloat16")
 
 @dataclasses.dataclass(frozen=True)
 class ClLossConfig:
-    """`cl_loss` (MaskedContrastiveLoss only)."""
+    """`cl_loss`: MaskedContrastiveLoss or SupConLoss (JAX ``:54-84``)."""
 
+    type: str = "MaskedContrastiveLoss"
     temperature: float = 0.07
     temperature_trainable: bool = True
     margin: float = 0.0
     dcl: bool = False
     a2b: bool = True
     b2a: bool = True
+    base_temperature: float = 0.07  # SupConLoss
+    contrast_mode: str = "all"  # SupConLoss: all | one
 
     @staticmethod
     def from_config(node) -> "ClLossConfig":
         d = node.to_dict() if hasattr(node, "to_dict") else dict(node)
-        if d.get("type", "MaskedContrastiveLoss") != "MaskedContrastiveLoss":
-            raise NotImplementedError(f"cl_loss.type {d.get('type')!r}")
+        kind = d.get("type", "MaskedContrastiveLoss")
+        if kind not in ("MaskedContrastiveLoss", "SupConLoss"):
+            raise NotImplementedError(f"cl_loss.type {kind!r}")
         a = d.get("args", {})
         return ClLossConfig(
-            temperature=float(a.get("temperature", 0.07)),
+            type=kind, temperature=float(a.get("temperature", 0.07)),
             temperature_trainable=bool(a.get("temperature_trainable",
                                              a.get("learnable_temperature", True))),
             margin=float(a.get("margin", 0.0)), dcl=bool(a.get("dcl", False)),
-            a2b=bool(a.get("a2b", True)), b2a=bool(a.get("b2a", True)))
+            a2b=bool(a.get("a2b", True)), b2a=bool(a.get("b2a", True)),
+            base_temperature=float(a.get("base_temperature", 0.07)),
+            contrast_mode=a.get("contrast_mode", "all"))
 
 
 # tower keys that only the wav2vec2/HuBERT family has: they raise for a mel
@@ -114,6 +125,23 @@ class KWClipConfig:
     feat_select_idx: Any = "weighted_sum"
     normalize_hiddenstates: bool = False
     normalize_type: str = "s3prl"
+    # the trainable towers and the acoustic tower's subset policies (JAX
+    # ``:103-114``): the two lists are exclusive, and either implies a
+    # trainable tower that trains only those layers
+    audio_trainable: bool = False
+    image_encoder_trainable: bool = False
+    text_encoder_trainable: bool = False
+    reinit_layers: Tuple[int, ...] = ()
+    unfreeze_layers: Tuple[int, ...] = ()
+    # CIF's target length from the caption's EOT (original ids) where the
+    # batch carries `text` (JAX ``:891-903``)
+    using_gt_len: bool = False
+    original_eot_id: int = 49407
+    # the branch self-attention through K1 + K2 (`model_settings.fused_attention_vjp`)
+    # and the ViT's through K1 (`clip.fused_attention_block`; off for a
+    # trainable image tower): else the plain attention
+    fused_attention_vjp: bool = True
+    vision_fused_attention_block: bool = True
 
     @property
     def keyword_num(self) -> Optional[int]:
@@ -164,30 +192,36 @@ class KWClipConfig:
                 raise NotImplementedError(
                     f"audio_encoder.{key}: a wav2vec2/HuBERT tower key, and {name!r} is a "
                     f"mel upstream ({audio_cfg.arch})")
-        audio_is_trainable = bool(getattr(ae, "trainable", False)
-                                  or getattr(ae, "reinit_layers", None)
-                                  or getattr(ae, "unfreeze_layers", None))
-        # the tower's attention kernels are forward-only (JAX :383-388, :406-413)
+        reinit_layers = tuple(int(i) for i in (getattr(ae, "reinit_layers", None) or []))
+        unfreeze_layers = tuple(int(i) for i in (getattr(ae, "unfreeze_layers", None) or []))
+        if reinit_layers and unfreeze_layers:
+            raise ValueError("reinit_layers and unfreeze_layers are mutually exclusive "
+                             "(reference speech_encoder_plus.py:418)")
+        audio_is_trainable = bool(getattr(ae, "trainable", False) or reinit_layers
+                                  or unfreeze_layers)
+        # the forward-only kernels need a frozen tower (JAX :383-388, :406-413,
+        # :204-221, :534-547)
         fused_attn = getattr(ae, "fused_attention", None)
         fused_blk = getattr(ae, "fused_attention_block", None)
         for key, on in (("fused_attention", fused_attn), ("fused_attention_block", fused_blk)):
             if on and audio_is_trainable:
                 raise ValueError(f"audio_encoder.{key} requires a frozen tower "
                                  f"(forward-only kernel, nn/{key}.py)")
+        image_trainable = bool(getattr(cfg.clip, "image_encoder_trainable", False))
+        clip_fused = getattr(cfg.clip, "fused_attention_block", None)
+        if clip_fused and image_trainable:
+            raise ValueError("clip.fused_attention_block requires a frozen image tower "
+                             "(forward-only kernel, nn/fused_attention_block.py)")
         text_trainable = bool(getattr(cfg.clip, "text_encoder_trainable", False))
         text_vjp = getattr(cfg.clip, "text_fused_attention_vjp", None)
         if text_vjp and text_trainable:
             raise ValueError("clip.text_fused_attention_vjp assumes a frozen text tower "
                              "(the backward returns input gradients only)")
-        if audio_is_trainable or text_trainable \
-                or getattr(cfg.clip, "image_encoder_trainable", False):
-            raise NotImplementedError("trainable towers (the port trains frozen towers only)")
-        if float(getattr(ae, "layer_drop", 0.0) or 0.0) != 0.0:
-            raise NotImplementedError("audio_encoder.layer_drop")
-        for key in ("fused_attention_vjp", "fused_score_kernel"):
-            if getattr(ms, key, None) is False:
-                raise NotImplementedError(
-                    f"model_settings.{key}: false (the port's branch always runs its kernels)")
+        fused_score = getattr(ms, "fused_score_kernel", None)
+        if fused_score and text_trainable:
+            raise ValueError("model_settings.fused_score_kernel requires a frozen text tower "
+                             "(no codebook gradient, ops/fused_keyword.py)")
+        fused_score = not text_trainable if fused_score is None else bool(fused_score)
 
         if getattr(cfg.clip, "tiny", False):
             width = int(getattr(cfg.clip, "tiny_width", 32))
@@ -210,17 +244,31 @@ class KWClipConfig:
         clip_cfg = dataclasses.replace(clip_cfg, text_fused_attention_vjp=bool(text_vjp),
                                        text_remat_mode=str(text_remat))
 
+        # LayerDrop: a rate, or "original" = the pretrained model's 0.05 (JAX
+        # :301-307); a mel upstream has no LayerDrop (JAX accepts and ignores it)
+        layer_drop = getattr(ae, "layer_drop", 0.0) or 0.0
+        layer_drop = 0.05 if layer_drop == "original" else float(layer_drop)
+        if not mel:
+            # `remat` is auto-on for a trainable tower of width >= 1024 (JAX :437-448)
+            remat = getattr(ae, "remat", None)
+            if remat is None:
+                remat = audio_is_trainable and audio_cfg.d_model >= 1024
+            audio_cfg = dataclasses.replace(audio_cfg, layer_drop=layer_drop, remat=bool(remat))
         # the reference trains with dropout on in the frozen tower (Lightning's
-        # train() undoes its eval()); `frozen_dropout: false` opts out (JAX :353-371)
-        if not bool(getattr(ae, "frozen_dropout", True)):
-            off = {"dropout": 0.0} if mel else {"dropout": 0.0, "attention_dropout": 0.0}
+        # train() undoes its eval()); `frozen_dropout: false` opts a frozen
+        # tower out (JAX :353-371)
+        if not audio_is_trainable and not bool(getattr(ae, "frozen_dropout", True)):
+            off = {"dropout": 0.0} if mel else {"dropout": 0.0, "attention_dropout": 0.0,
+                                                "layer_drop": 0.0}
             audio_cfg = dataclasses.replace(audio_cfg, **off)
         # `fused_attention` selects K5 around plain projections; the block
-        # kernel K1 is the default for the frozen tower (`false` forces it off)
+        # kernel K1 is the default for a frozen tower (`false` forces it off)
+        # and off for a trainable one
         if fused_attn is not None:
             audio_cfg = dataclasses.replace(audio_cfg, fused_attention_dropout=bool(fused_attn))
-        if fused_blk is not None:
-            audio_cfg = dataclasses.replace(audio_cfg, fused_attention_block=bool(fused_blk))
+        if fused_blk is None:
+            fused_blk = not audio_is_trainable
+        audio_cfg = dataclasses.replace(audio_cfg, fused_attention_block=bool(fused_blk))
 
         def branch_ta(node) -> TransformerArgs:
             """`transformer_args`; the original-SpeechCLIP configs name the
@@ -250,13 +298,16 @@ class KWClipConfig:
                 vq=VQConfig.from_config(cb.vq.args),
                 bn=KwBnConfig.from_config(getattr(kw, "batchnorms", None)
                                           if kw is not None else None),
-                keyword_num=int(getattr(kw, "number", 8)) if kw is not None else 8)
+                keyword_num=int(getattr(kw, "number", 8)) if kw is not None else 8,
+                fused_score_kernel=fused_score)
             ds = getattr(cb, "downsampling", None)
             if ds is not None and getattr(ds, "type", None) == "cif":
                 cif = CifConfig.from_config(ds.cif)
                 # keyword slots + SOT + EOT must fit the text context (75 + 2 = 77)
                 cif = dataclasses.replace(
                     cif, max_feat_len=min(cif.max_feat_len, clip_cfg.context_length - 2))
+                # the keyword head reads CIF's output (its projection's width)
+                head = dataclasses.replace(head, d_model=cif.out_dim)
             if branch_type.endswith("_plus") and cif is None:
                 raise NotImplementedError(f"{branch_type} without CIF downsampling")
         pb = getattr(ms, "parallel_branch", None)
@@ -299,7 +350,13 @@ class KWClipConfig:
             retrieval_audio_feat_src=getattr(cfg.retrieval, "audio_feat_src", "parallel"),
             feat_select_idx=feat_select_idx,
             normalize_hiddenstates=bool(getattr(ae, "normalize_hiddenstates", False)),
-            normalize_type=normalize_type)
+            normalize_type=normalize_type, audio_trainable=audio_is_trainable,
+            image_encoder_trainable=image_trainable, text_encoder_trainable=text_trainable,
+            reinit_layers=reinit_layers, unfreeze_layers=unfreeze_layers,
+            using_gt_len=bool(cif is not None and cif.using_gt_len),
+            fused_attention_vjp=getattr(ms, "fused_attention_vjp", None) is not False,
+            vision_fused_attention_block=not image_trainable if clip_fused is None
+            else bool(clip_fused))
 
 
 def _l2norm(x: torch.Tensor) -> torch.Tensor:
@@ -313,29 +370,32 @@ class KWClip(nn.Module):
         self.audio_encoder = (MelUpstream(c.audio) if isinstance(c.audio, MelUpstreamConfig)
                               else HubertModel(c.audio))
         self.weightedsum = nn.Parameter(torch.zeros(c.audio.num_hidden_states))
-        self.clip = ClipModel(c.clip)
+        self.clip = ClipModel(c.clip, vision_kernel=c.vision_fused_attention_block)
         # one branch module: the cascaded / hybrid one, or the parallel one
         # when only the parallel objective has a weight (JAX :651-686)
         self.cascaded_branch = self.parallel_branch = None
+        kernel = c.fused_attention_vjp
         if c.has_cascaded:
             if c.branch_type == "CascadedBranch":
-                self.cascaded_branch = CascadedBranch(c.cascaded_ta, c.head)
+                self.cascaded_branch = CascadedBranch(c.cascaded_ta, c.head, kernel=kernel)
             elif c.branch_type == "CascadedBranch_plus":
-                self.cascaded_branch = CascadedBranchPlus(c.cascaded_ta, c.head, c.cif)
+                self.cascaded_branch = CascadedBranchPlus(c.cascaded_ta, c.head, c.cif,
+                                                          kernel=kernel)
             elif c.branch_type == "HybridBranch":
                 self.cascaded_branch = HybridBranch(
                     c.cascaded_ta, c.head, out_dim=c.clip.text_width,
                     need_projection=c.need_projection,
                     parallel_proj_dims=c.pbranch_proj_dims,
-                    parallel_proj_dropout=c.pbranch_proj_dropout)
+                    parallel_proj_dropout=c.pbranch_proj_dropout, kernel=kernel)
             elif c.branch_type == "HybridBranch_plus":
                 self.cascaded_branch = HybridBranchPlus(c.cascaded_ta, c.head, c.cif,
-                                                        out_dim=c.clip.text_width)
+                                                        out_dim=c.clip.text_width, kernel=kernel)
             else:
                 raise NotImplementedError(c.branch_type)
         elif c.has_parallel:
             self.parallel_branch = ParallelBranch(c.parallel_ta, out_dim=c.clip.text_width,
-                                                  need_projection=c.need_projection)
+                                                  need_projection=c.need_projection,
+                                                  kernel=kernel)
         mlp = lambda dims, p: None if dims is None else MLPLayers(dims, p)
         self.img_enc_proj_net = mlp(c.img_proj_dims, c.img_proj_dropout)
         self.p_branch_proj_net = mlp(c.p_proj_dims, c.p_proj_dropout)
@@ -344,10 +404,18 @@ class KWClip(nn.Module):
             # learnable log(1/T) (reference losses.py:160-163, JAX :706-712)
             self.criterion_log_inv_temp = nn.Parameter(
                 torch.tensor(math.log(1.0 / c.cl_loss.temperature)))
-        # frozen towers: gradients flow through their activations (the text
-        # tower's keyword inputs), never into their weights
-        self.audio_encoder.requires_grad_(False)
-        self.clip.requires_grad_(False)
+        # JAX's trainable set: a frozen tower passes gradients through its
+        # activations (the text tower's keyword inputs), never into its
+        # weights; a trainable tower keeps fp32 masters, as flax does, each
+        # module casting them to its compute dtype at use
+        for trains, tower in ((c.audio_trainable, self.audio_encoder),
+                              (c.image_encoder_trainable, self.clip.visual),
+                              (c.text_encoder_trainable, self.clip.text)):
+            if trains:
+                tower.float()
+        mask = trainable_mask(self, c)
+        for name, p in self.named_parameters():
+            p.requires_grad_(mask[name])
 
     def forward_audio(self, wav: torch.Tensor, wav_len: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
@@ -402,8 +470,9 @@ class KWClip(nn.Module):
         return hidden_states[-1], hidden_states
 
     def encode_image_raw(self, image: torch.Tensor) -> torch.Tensor:
-        """Frozen CLIP image features (B, H, W, 3) -> (B, E), before projection
-        and normalization (the quantity a training run may cache)."""
+        """CLIP image features (B, H, W, 3) -> (B, E), before projection and
+        normalization (the quantity a training run with a frozen ViT may
+        cache)."""
         return self.clip.encode_image(image)
 
     def project_image_feat(self, feat: torch.Tensor,
@@ -476,15 +545,25 @@ class KWClip(nn.Module):
                            batch: Dict[str, torch.Tensor], *, training: bool = False,
                            global_step=None, generator: Optional[torch.Generator] = None):
         """Everything downstream of the acoustic tower (JAX ``:859-992``)."""
+        c = self.cfg
         if batch.get("image_feat") is not None:
             image_feat = batch["image_feat"].detach()  # cached frozen-tower output
-        else:
-            with torch.no_grad():
+        else:  # the ViT takes gradients where it trains (JAX :806-813)
+            with torch.set_grad_enabled(torch.is_grad_enabled() and c.image_encoder_trainable):
                 image_feat = self.encode_image_raw(batch["image"])
         image_feat = self.project_image_feat(image_feat, generator)
-        plus = self.cfg.branch_type.endswith("_plus")
-        target_len = (torch.round(audio_feat_len.float() / 20.0).to(torch.int64)
-                      if plus else None)
+        target_len = None
+        if c.branch_type.endswith("_plus"):
+            if c.using_gt_len and "text" in batch:
+                # the caption length: EOT position - 1 in original-id space,
+                # the EOT found by its id (argmax where a row has none)
+                text = batch["text"]
+                is_eot = text == c.original_eot_id
+                eot_pos = torch.where(is_eot.any(dim=-1), is_eot.int().argmax(dim=-1),
+                                      text.argmax(dim=-1))
+                target_len = eot_pos - 1
+            else:
+                target_len = torch.round(audio_feat_len.float() / 20.0).to(torch.int64)
         if self.cascaded_branch is not None:
             out = self.cascaded_branch(
                 audio_feat, audio_feat_len, self.clip.text.token_embedding.weight,
@@ -545,9 +624,18 @@ class KWClip(nn.Module):
                 ("cascaded_audio_feat", c.cascaded_objective_weight, "c_cl_loss"),
                 ("parallel_audio_feat", c.parallel_objective_weight, "p_cl_loss")):
             if weight > 0.0 and key in loss_feats:
-                losses[short] = masked_contrastive_loss(
-                    loss_feats[key].float(), image_feat, ids, logit_scale=scale,
-                    margin=l.margin, dcl=l.dcl, a2b=l.a2b, b2a=l.b2a, valid=valid)
+                if l.type == "SupConLoss":
+                    # audio and image as two views of the pair: same-id samples
+                    # are positives (JAX :1021-1035)
+                    feats = torch.stack([loss_feats[key].float(), image_feat], dim=1)
+                    losses[short] = supcon_loss(
+                        feats, labels=ids, temperature=1.0 / scale,
+                        base_temperature=l.base_temperature, contrast_mode=l.contrast_mode,
+                        valid=valid)
+                else:
+                    losses[short] = masked_contrastive_loss(
+                        loss_feats[key].float(), image_feat, ids, logit_scale=scale,
+                        margin=l.margin, dcl=l.dcl, a2b=l.a2b, b2a=l.b2a, valid=valid)
                 total = total + weight * losses[short]
         if c.cif is not None and loss_feats.get("cif_target_len") is not None:
             losses["quantity_loss"] = quantity_l1_loss(

@@ -15,10 +15,12 @@ of two architectures:
   -> n post-norm `TransformerEncoderLayer`s (D=768, exact-erf GELU, eps
   1e-12). The hidden states are the embedding and every layer, L = n + 1.
 
-The tower is frozen. Its self-attention takes the frozen towers' route, K1
-with the out-projection fused in, forward only, with the attention dropout
-inside the kernel (`TransformerEncoderLayer(fuse_out=True)`); JAX runs the
-same math as plain attention in XLA (``nn/attention.py:134-139``). Frames
+A frozen tower's self-attention takes the frozen towers' route, K1 with the
+out-projection fused in, forward only, with the attention dropout inside the
+kernel (`TransformerEncoderLayer(fuse_out=True)`); JAX runs the same math as
+plain attention in XLA (``nn/attention.py:134-139``). A trainable tower
+(`audio_encoder.trainable`) takes that plain attention
+(`fused_attention_block` off). Frames
 whose samples are all padding (`downsample_padding_mask`) have their mel
 zeroed and are masked keys. Parameters are fp32 and compute in the config's
 dtype (flax `dtype=`); the LSTM recurrence stays fp32 (``nn/lstm.py``).
@@ -63,6 +65,9 @@ class MelUpstreamConfig:
     # every dropout of the tower: between LSTM layers; the transformer's
     # input, attention and residual dropouts (JAX uses this one rate for all)
     dropout: float = 0.1
+    # the transformer layers' attention through K1 fused-out (forward only: a
+    # frozen tower); off, the plain attention (a trainable tower)
+    fused_attention_block: bool = True
     dtype: torch.dtype = torch.float32
 
     @property
@@ -116,7 +121,7 @@ class MelUpstream(nn.Module):
             self.layers = nn.ModuleList(
                 TransformerEncoderLayer(c.d_model, c.n_heads, c.ffn_dim, c.dropout, "gelu",
                                         1e-12, norm_first=False, compute_dtype=c.dtype,
-                                        fuse_out=True)
+                                        fuse_out=True, kernel=c.fused_attention_block)
                 for _ in range(c.n_layers))
         else:
             raise NotImplementedError(f"mel upstream arch {c.arch!r}")

@@ -23,7 +23,10 @@ with no mask or a 2-D one (the mask becomes the kernels' per-head bias, as
 the CLIP text tower's causal mask does behind `clip.text_fused_attention_vjp`);
 a mask of more dims, a `fuse_out=True` module given a mask (the text tower by
 default), and `return_weights` (attention maps) take the plain path with
-plain autograd. `attn_bias` with an optional `attn_gate` (WavLM's gated
+plain autograd; so does every call of a module built with `kernel=False` (a
+trainable tower's layers, the branch under
+`model_settings.fused_attention_vjp: false`), attention dropout included.
+`attn_bias` with an optional `attn_gate` (WavLM's gated
 relative position bias) rides inside K1; without a gate it also rides K1 + K2
 in the context-only route, where a shape other than (T, T), (1, T, T) or
 (H, T, T) raises.
@@ -87,11 +90,12 @@ def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None,
 class MultiheadAttention(nn.Module):
     def __init__(self, d_model: int, nhead: int, *, fuse_out: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.0,
+                 kernel: bool = True):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} not divisible by nhead {nhead}")
-        self.d_model, self.nhead, self.fuse_out = d_model, nhead, fuse_out
+        self.d_model, self.nhead, self.fuse_out, self.kernel = d_model, nhead, fuse_out, kernel
         self.compute_dtype = compute_dtype or dtype
         self.dropout = float(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, dtype=dtype))
@@ -134,7 +138,7 @@ class MultiheadAttention(nn.Module):
             raise ValueError("attn_bias and attn_mask are one additive term: pass one")
         if attn_gate is not None and (attn_bias is None or not self.fuse_out or return_weights):
             raise NotImplementedError("attn_gate outside the fused-out block")
-        if not return_weights:
+        if self.kernel and not return_weights:
             if self.fuse_out and attn_mask is None:
                 return fused_attention_block(
                     x.contiguous(), w_in, self.in_proj_bias, w_out, b_out, key_padding_bias,
@@ -145,8 +149,9 @@ class MultiheadAttention(nn.Module):
                     x.contiguous(), w_in, self.in_proj_bias, w_out, b_out, key_padding_bias,
                     n_heads=self.nhead, dropout_rate=self.dropout, generator=generator,
                     attn_bias=attn_mask if attn_bias is None else attn_bias)
-        if self.dropout > 0.0 and generator is not None:
-            raise NotImplementedError("attention dropout on the plain path")
+        if attn_gate is not None:
+            raise NotImplementedError("attn_gate on the plain path (HubertEncoderLayer gates "
+                                      "the bias itself)")
         b, t, d = x.shape
         q, k, v = F.linear(x, w_in, self.in_proj_bias.to(cd)).split(d, dim=-1)
         split = lambda a: a.reshape(b, t, self.nhead, -1).transpose(1, 2)
@@ -155,7 +160,7 @@ class MultiheadAttention(nn.Module):
         if key_padding_bias is not None:
             kb = key_padding_bias[:, None, None, :]
             bias = kb if bias is None else bias + kb
-        out = dot_product_attention(split(q), split(k), split(v), bias,
+        out = dot_product_attention(split(q), split(k), split(v), bias, self.dropout, generator,
                                     return_weights=return_weights)
         if return_weights:
             out, weights = out

@@ -9,7 +9,9 @@ with `extract_hidden_states`. Every branch self-attention is the
 differentiable fused attention block in context-only mode (K1 forward, K2
 backward), with attention dropout at the config's rate (0.1) in training; the
 out-projection after it is a plain ``ctx @ Wo + bo``. A frozen tower's layer
-(`fuse_out=True`) takes K1 with the out-projection fused in instead.
+(`fuse_out=True`) takes K1 with the out-projection fused in instead;
+`kernel=False` takes the plain attention with its dropout
+(`model_settings.fused_attention_vjp: false`, a trainable mel tower).
 Attention maps take the plain path. Parameters are fp32 master weights
 computed in `compute_dtype` (flax `dtype=`).
 """
@@ -47,10 +49,12 @@ class LayerNorm(nn.LayerNorm):
 
 class MultiheadAttentionAndNorm(nn.Module):
     def __init__(self, d_model: int = 768, nhead: int = 8, layer_norm_eps: float = 1e-5,
-                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 kernel: bool = True):
         super().__init__()
         self.multihead_attn_layer = MultiheadAttention(
-            d_model, nhead, fuse_out=False, compute_dtype=compute_dtype, dropout=dropout)
+            d_model, nhead, fuse_out=False, compute_dtype=compute_dtype, dropout=dropout,
+            kernel=kernel)
         self.attentionBlock_Norm = LayerNorm(d_model, eps=layer_norm_eps,
                                              compute_dtype=compute_dtype)
 
@@ -85,13 +89,14 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 3072,
                  dropout: float = 0.1, activation: str = "gelu", layer_norm_eps: float = 1e-5,
                  norm_first: bool = False, compute_dtype: torch.dtype = torch.float32,
-                 fuse_out: bool = False):
+                 fuse_out: bool = False, kernel: bool = True):
         super().__init__()
         self.dropout, self.norm_first = float(dropout), norm_first
         self.compute_dtype = compute_dtype
         self.act = _ACT[activation]
         self.self_attn = MultiheadAttention(d_model, nhead, fuse_out=fuse_out,
-                                            compute_dtype=compute_dtype, dropout=dropout)
+                                            compute_dtype=compute_dtype, dropout=dropout,
+                                            kernel=kernel)
         self.norm1 = LayerNorm(d_model, eps=layer_norm_eps, compute_dtype=compute_dtype)
         self.norm2 = LayerNorm(d_model, eps=layer_norm_eps, compute_dtype=compute_dtype)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
@@ -123,11 +128,11 @@ class TransformerEncoder(nn.Module):
     def __init__(self, n_layers: int = 1, d_model: int = 768, nhead: int = 8,
                  dim_feedforward: int = 3072, dropout: float = 0.1, activation: str = "gelu",
                  layer_norm_eps: float = 1e-5, norm_first: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, kernel: bool = True):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward, dropout, activation,
-                                    layer_norm_eps, norm_first, compute_dtype)
+                                    layer_norm_eps, norm_first, compute_dtype, kernel=kernel)
             for _ in range(n_layers))
         self.norm = LayerNorm(d_model, eps=1e-5, compute_dtype=compute_dtype)
 

@@ -16,9 +16,14 @@ of (row tiles, V splits) that a cached plan (`_fwd_plan`, `_bwd_plan`)
 chooses per shape so that every row count fills the card; on a CPU tensor
 its plain PyTorch twin. The gather `emb[k]` and the perplexity and
 entropy reductions stay plain torch, as they are XLA outside the kernel in
-JAX (:334-366). The codebook gets no gradient: the token table is frozen in
-every reference configuration, and `fused_cosine_vq` refuses a table that
-requires one.
+JAX (:334-366). The codebook gets no gradient: the configuration takes this
+route only for a frozen token table (`model_settings.fused_score_kernel`),
+and `fused_cosine_vq` refuses a table that requires one.
+
+The temperature is a 0-d fp32 tensor on the rows' device, which K3b reads in
+the kernel: a learnable temperature (`curr_temp`) takes K3b's dt as its
+gradient, and no temperature, fixed, scheduled or learnable, is read back to
+the host.
 """
 from __future__ import annotations
 
@@ -49,6 +54,15 @@ def column_mask(v: int, prob_msk: Sequence[int], device) -> torch.Tensor:
         if 0 <= int(i) < v:
             mask[int(i)] = 1
     return mask.to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _cached_mask(v: int, prob_msk: tuple, device) -> torch.Tensor:
+    """`column_mask` made once per (V, ids, device): building it copies from
+    the host, which waits for the card. Made outside inference mode, so that a
+    training step can save the mask a serving call made."""
+    with torch.inference_mode(False):
+        return column_mask(v, prob_msk, device)
 
 
 def plain_cosine_vq_stats(xn: torch.Tensor, en: torch.Tensor, mask: torch.Tensor):
@@ -112,10 +126,12 @@ def cosine_vq_stats(xn: torch.Tensor, en: torch.Tensor, mask: torch.Tensor):
     return _launch(xn, en, mask)
 
 
-def plain_st_backward(xn, g, en, norms, mask, temp: float):
+def plain_st_backward(xn, g, en, norms, mask, temp: torch.Tensor):
     """Plain PyTorch twin of K3b: fp32 products on the operands' values, with
     dz / t rounded to the compute dtype before its product, as the kernel.
-    Returns (dx (N, D) fp32, dt () fp32)."""
+    `temp` is a 0-d fp32 tensor (or a float). Returns (dx (N, D) fp32, dt ()
+    fp32)."""
+    temp = torch.as_tensor(temp, dtype=torch.float32, device=xn.device)
     live = ~mask.bool()[None, :]
     s = xn.float() @ en.float().T
     p = torch.softmax(torch.where(live, s / temp, -torch.inf), dim=-1)
@@ -258,16 +274,20 @@ def _launch_bwd(xn, g, en, norms, mask, temp):
 
     n, d = xn.shape
     v = en.shape[0]
+    if not torch.is_tensor(temp):
+        temp = torch.full((), float(temp), dtype=torch.float32, device=xn.device)
     if xn.dtype not in (torch.float32, torch.bfloat16) or g.dtype != xn.dtype \
             or en.dtype != xn.dtype or norms.dtype != torch.float32:
         raise TypeError(f"st_backward: dtypes x {xn.dtype}, g {g.dtype}, en {en.dtype}, "
                         f"norms {norms.dtype}")
     if tuple(g.shape) != (n, d) or en.shape[1] != d or tuple(norms.shape) != (v,) \
-            or tuple(mask.shape) != (v,) or mask.dtype != torch.int32:
+            or tuple(mask.shape) != (v,) or mask.dtype != torch.int32 \
+            or temp.dim() != 0 or temp.dtype != torch.float32:
         raise ValueError(f"st_backward: shapes x {tuple(xn.shape)}, g {tuple(g.shape)}, "
                          f"en {tuple(en.shape)}, norms {tuple(norms.shape)}, "
-                         f"mask {tuple(mask.shape)} {mask.dtype}")
-    for t in (xn, g, en, norms, mask):
+                         f"mask {tuple(mask.shape)} {mask.dtype}, temp "
+                         f"{tuple(temp.shape)} {temp.dtype}")
+    for t in (xn, g, en, norms, mask, temp):
         if t.device != xn.device or not t.is_contiguous():
             raise ValueError("st_backward: inputs must be contiguous on one device")
     if any(t.data_ptr() % 16 for t in (xn, g, en)):
@@ -279,7 +299,7 @@ def _launch_bwd(xn, g, en, norms, mask, temp):
         dx = torch.empty(n, d, dtype=torch.float32, device=xn.device)
         dt = torch.empty(1, dtype=torch.float32, device=xn.device)
         check(lib.sc_vq_bwd(xn.data_ptr(), g.data_ptr(), en.data_ptr(), norms.data_ptr(),
-                            mask.data_ptr(), n, v, d, float(temp),
+                            mask.data_ptr(), n, v, d, temp.data_ptr(),
                             int(xn.dtype == torch.bfloat16), rows, splits,
                             scratch["stats"].data_ptr(), scratch["dx_part"].data_ptr(),
                             scratch["dt_part"].data_ptr(), dx.data_ptr(), dt.data_ptr(),
@@ -291,9 +311,12 @@ def _launch_bwd(xn, g, en, norms, mask, temp):
 
 
 def st_backward(xn: torch.Tensor, g: torch.Tensor, en: torch.Tensor, norms: torch.Tensor,
-                mask: torch.Tensor, temp: float):
+                mask: torch.Tensor, temp: torch.Tensor):
     """K3b: xn, g (N, D) and en (V, D) in the compute dtype, norms (V,) fp32
-    = ‖emb‖, mask (V,) int32, temp > 0 -> (dx (N, D) fp32, dt () fp32)."""
+    = ‖emb‖, mask (V,) int32, temp a 0-d fp32 tensor > 0 on the same device
+    (the kernel reads it; a temperature that is not positive gives a NaN dx)
+    -> (dx (N, D) fp32, dt () fp32). A float temperature is put on the device
+    first."""
     if xn.device.type == "cpu":
         return plain_st_backward(xn, g, en, norms, mask, temp)
     if xn.device.type != "cuda":
@@ -302,21 +325,21 @@ def st_backward(xn: torch.Tensor, g: torch.Tensor, en: torch.Tensor, norms: torc
 
 
 class _STGather(torch.autograd.Function):
-    """keywords = emb[k] from the exact fp32 table; backward K3b into xn
-    (the JAX `_st_gather` custom_vjp). The fixed temperature takes no
-    gradient, so dt is computed and dropped."""
+    """keywords = emb[k] from the exact fp32 table; backward K3b into xn and,
+    where the temperature takes a gradient (`learnable=`), K3b's dt into it
+    (the JAX `_st_gather` custom_vjp)."""
 
     @staticmethod
     def forward(ctx, flat, embf, en, norms, mask, temp, k):
-        ctx.save_for_backward(flat, en, norms, mask)
-        ctx.temp = temp
+        ctx.save_for_backward(flat, en, norms, mask, temp)
         return embf[k]
 
     @staticmethod
     def backward(ctx, g):
-        flat, en, norms, mask = ctx.saved_tensors
-        dx, _ = st_backward(flat, g.to(flat.dtype).contiguous(), en, norms, mask, ctx.temp)
-        return dx.to(flat.dtype), None, None, None, None, None, None
+        flat, en, norms, mask, temp = ctx.saved_tensors
+        dx, dt = st_backward(flat, g.to(flat.dtype).contiguous(), en, norms, mask, temp)
+        dt = dt.reshape(temp.shape) if ctx.needs_input_grad[5] else None
+        return dx.to(flat.dtype), None, None, None, None, dt, None
 
 
 def fused_cosine_vq(
@@ -331,10 +354,12 @@ def fused_cosine_vq(
     """Cosine score + SimpleVectorQuantizer, hard form.
 
     xn: (B, K, D) L2-normalized keyword vectors; emb: (V, D) raw fp32 token
-    embedding (also the codebook; frozen); temp: the fixed VQ temperature.
+    embedding (also the codebook; frozen); temp: the VQ temperature, a 0-d
+    fp32 tensor on xn's device (a learnable one takes K3b's dt) or a float.
     `training` gives the keywords the straight-through gradient (K3b).
     Returns the JAX `fused_cosine_vq` result dict without `subword_prob`
-    (the (B, K, V) one-hot nothing reads)."""
+    (the (B, K, V) one-hot nothing reads). Nothing in it waits for the card
+    once the column mask of (V, prob_msk) is on the device."""
     if emb.requires_grad:
         raise ValueError("fused_cosine_vq: the codebook must be frozen (no codebook gradient)")
     b, kk, d = xn.shape
@@ -343,15 +368,20 @@ def fused_cosine_vq(
     embf = emb.float()
     norms = embf.norm(dim=-1).clamp_min(1e-8)
     en = (embf / norms[:, None]).to(dtype).contiguous()
-    mask = column_mask(v, prob_msk, xn.device)
+    mask = _cached_mask(v, tuple(int(i) for i in prob_msk), xn.device)
     flat = xn.reshape(n, d).to(dtype).contiguous()
     k, ent, psum = cosine_vq_stats(flat, en, mask)
     k = k.long()
     avg_probs = psum / n
-    hard_probs = torch.bincount(k, minlength=v).float() / n
+    # the counts by index_add_, exact in fp32: bincount reads its size back to
+    # the host
+    hard_probs = torch.zeros(v, device=xn.device).index_add_(
+        0, k, torch.ones(n, device=xn.device)) / n
     perplexity = lambda p: torch.exp(-(p * torch.log(p + 1e-7)).sum())
+    if not torch.is_tensor(temp):
+        temp = torch.full((), float(temp), dtype=torch.float32, device=xn.device)
     if training:
-        keywords = _STGather.apply(flat, embf, en, norms.contiguous(), mask, float(temp), k)
+        keywords = _STGather.apply(flat, embf, en, norms.contiguous(), mask, temp, k)
     else:
         keywords = embf[k]
     result = {
@@ -359,7 +389,7 @@ def fused_cosine_vq(
         "prob_perplexity": perplexity(avg_probs),
         "code_perplexity": perplexity(hard_probs),
         "ent_per_t": ent.reshape(b, kk).mean(dim=0),
-        "temp": torch.as_tensor(temp, dtype=torch.float32, device=xn.device),
+        "temp": temp.detach(),
         "targets": k.reshape(b, kk, 1),
         "keywords": keywords.reshape(b, kk, d),
     }

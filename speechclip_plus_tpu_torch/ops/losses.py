@@ -1,11 +1,12 @@
 """Contrastive and CIF quantity objectives.
 
-Port of `masked_contrastive_loss` and `quantity_l1_loss` from
-``speechclip_plus_tpu/ops/losses.py`` (reference ``avssl/module/losses.py:129-245``
+Port of `masked_contrastive_loss`, `supcon_loss` and `quantity_l1_loss` from
+``speechclip_plus_tpu/ops/losses.py`` (reference ``avssl/module/losses.py:8-245``
 and torch `nn.L1Loss`): symmetric InfoNCE over the B x B similarity matrix
 with id-aware negatives (captions of the same image are not negatives), an
 optional margin and decoupled (DCL) variant, an optional `valid` row mask for
-padded batch rows, and a numerically stable masked log-sum-exp.
+padded batch rows, and a numerically stable masked log-sum-exp; the
+supervised contrastive loss over views (`cl_loss.type: SupConLoss`).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["masked_contrastive_loss", "quantity_l1_loss"]
+__all__ = ["masked_contrastive_loss", "supcon_loss", "quantity_l1_loss"]
 
 _NEG_INF = -1e30
 
@@ -60,6 +61,51 @@ def masked_contrastive_loss(feat_a: torch.Tensor, feat_b: torch.Tensor,
             loss = loss + per.sum() / denom
             n_terms += 1
     return loss / n_terms
+
+
+def supcon_loss(features: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, *, temperature,
+                base_temperature: float = 0.07, contrast_mode: str = "all",
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Supervised contrastive loss (reference ``losses.py:46-123``, JAX
+    ``:137-210``). features (B, n_views, D); labels (B,) (samples of one label
+    are positives) or mask (B, B); temperature the divisor of the logits;
+    valid (B,) bool excludes padded rows as anchors and as contrasts."""
+    if features.dim() != 3:
+        raise ValueError("features must be [bsz, n_views, ...]")
+    b, n_views = features.shape[:2]
+    dev = features.device
+    if labels is not None and mask is not None:
+        raise ValueError("Cannot define both labels and mask")
+    if labels is None and mask is None:
+        mask = torch.eye(b, dtype=torch.float32, device=dev)
+    elif labels is not None:
+        labels = labels.reshape(-1, 1)
+        mask = (labels == labels.T).float()
+    else:
+        mask = mask.float()
+    contrast = features.transpose(0, 1).reshape(b * n_views, -1)
+    if contrast_mode == "one":
+        anchor, anchor_count = features[:, 0], 1
+    elif contrast_mode == "all":
+        anchor, anchor_count = contrast, n_views
+    else:
+        raise ValueError(f"Unknown mode: {contrast_mode}")
+    logits = (anchor @ contrast.T) / temperature
+    logits = logits - logits.max(dim=1, keepdim=True).values.detach()
+    mask = mask.repeat(anchor_count, n_views)
+    logits_mask = 1.0 - torch.eye(b * anchor_count, b * n_views, device=dev)
+    if valid is not None:
+        logits_mask = logits_mask * valid.float().repeat(n_views)[None, :]
+    mask = mask * logits_mask
+    exp_logits = torch.exp(logits) * logits_mask
+    log_prob = logits - torch.log(exp_logits.sum(dim=1, keepdim=True).clamp_min(1e-12))
+    mean_log_prob_pos = (mask * log_prob).sum(dim=1) / mask.sum(dim=1).clamp_min(1e-12)
+    per_anchor = (-(1.0 / base_temperature) * mean_log_prob_pos).reshape(anchor_count, b)
+    if valid is None:
+        return per_anchor.mean()
+    v = valid.float()
+    return (per_anchor * v[None, :]).sum() / (anchor_count * v.sum()).clamp_min(1.0)
 
 
 def quantity_l1_loss(quantity_out: torch.Tensor, target_len: torch.Tensor,

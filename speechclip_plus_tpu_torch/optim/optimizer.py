@@ -2,8 +2,16 @@
 
 Port of ``speechclip_plus_tpu/optim/optimizer.py`` (reference
 ``avssl/model/kwClip.py:646-674``): one Adam over the trainable parameters
-only (the frozen towers are excluded), with the trainer's global-norm clip
-and the LR schedule stepped per optimizer step. JAX's optax chain is
+only, with the trainer's global-norm clip and the LR schedule stepped per
+optimizer step. The trainable set is JAX's (`trainable_mask`,
+`audio_subset_mask`, ``:43-130``), which `KWClip` applies as `requires_grad`:
+the branches, projections and temperatures; the acoustic tower when it
+trains, and under `unfreeze_layers` / `reinit_layers` only the selected
+layers and, for a post-norm tower, `encoder_layer_norm`; the ViT, and the
+text tower with the token table and `logit_scale`, when each trains. JAX
+multiplies the gradients by its subset mask before the clip and weight decay
+and the updates after; leaving the other tensors out of Adam gives the same
+update and the same clip norm. JAX's optax chain is
 clip_by_global_norm -> add_decayed_weights (torch Adam's coupled L2) ->
 scale_by_adam -> lr schedule; here:
 
@@ -19,20 +27,54 @@ Gradient accumulation (optax.MultiSteps in JAX) is counted by the train step
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.schedulers import get_schedule
 
-__all__ = ["Optimizer", "trainable_parameters", "global_norm", "build_optimizer",
-           "build_optimizer_from_config"]
+__all__ = ["Optimizer", "trainable_mask", "audio_subset_mask", "trainable_parameters",
+           "global_norm", "build_optimizer", "build_optimizer_from_config"]
+
+
+def audio_subset_mask(name: str, cfg) -> Optional[bool]:
+    """Whether the acoustic tower's parameter `name` (relative to the tower)
+    trains under a subset policy (`reinit_layers` / `unfreeze_layers`, JAX
+    ``:74-114``): the selected layers and, for a post-norm tower, the
+    encoder LayerNorm. None when no subset policy is active."""
+    sel = set(cfg.reinit_layers) or set(cfg.unfreeze_layers)
+    if not (cfg.audio_trainable and sel):
+        return None
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return int(parts[1]) in sel
+    return parts[0] == "encoder_layer_norm" and not cfg.audio.layer_norm_first
+
+
+def trainable_mask(model: nn.Module, cfg) -> Dict[str, bool]:
+    """Parameter name -> whether it trains (JAX ``:43-71``): the acoustic
+    tower when `audio_trainable` (within its subset policy), the ViT
+    (`clip.visual`) when `image_encoder_trainable`, the rest of `clip` (the
+    text tower, the token table, `logit_scale`) when
+    `text_encoder_trainable`, and everything outside the towers."""
+    out = {}
+    for name, _ in model.named_parameters():
+        root, _, rest = name.partition(".")
+        if root == "audio_encoder":
+            subset = audio_subset_mask(rest, cfg)
+            out[name] = cfg.audio_trainable if subset is None else subset
+        elif root == "clip":
+            out[name] = (cfg.image_encoder_trainable if rest.startswith("visual.")
+                         else cfg.text_encoder_trainable)
+        else:
+            out[name] = True
+    return out
 
 
 def trainable_parameters(model: nn.Module):
-    """(name, parameter) pairs that take gradients (the frozen towers have
-    `requires_grad=False`)."""
+    """(name, parameter) pairs that take gradients (`requires_grad`, set from
+    `trainable_mask`)."""
     return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
 
 

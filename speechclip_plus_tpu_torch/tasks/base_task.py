@@ -161,11 +161,12 @@ class TrainSpeechClipBaseTask(BaseTask):
         dev_batch_size = int(getattr(cfg.data, "dev_batch_size", batch_size))
         max_audio_len = int(getattr(cfg.audio_encoder, "max_audio_len", -1))
 
-        # the image tower is frozen (the port's config refuses a trainable
-        # one), so its outputs are training-invariant: the cache (computed
-        # once, no ViT or JPEG decode in any step) defaults on, and
-        # data.cache_image_embeddings: false opts out
-        cache_images = bool(getattr(cfg.data, "cache_image_embeddings", True))
+        # a frozen image tower's outputs are training-invariant: the cache
+        # (computed once, no ViT or JPEG decode in any step) defaults on,
+        # data.cache_image_embeddings: false opts out, and a trainable ViT
+        # never reads it (JAX :167-170)
+        cache_images = bool(getattr(cfg.data, "cache_image_embeddings", True)) \
+            and not model_cfg.image_encoder_trainable
 
         def _maybe_cache(ds):
             if not cache_images:

@@ -3,31 +3,85 @@
 Port of ``speechclip_plus_tpu/tasks/builder.py``: resolve the reduced subword
 vocabulary (``config.clip.reduce_subword_embbedding``, mapped onto this
 repository's `assets/`), build the typed config and the model, initialize it
-from a seed with an explicit `torch.Generator`, and set keyword BN from the
-token-table statistics. No weight files ship with the repository, so the
-towers are seeded random weights at full width, as the JAX builder leaves
-them when the files are missing (``:164-187``).
+from a seed with an explicit `torch.Generator`, import the tower weights
+where `audio_encoder.ckpt_path` (fairseq HuBERT) and `clip.ckpt_path`
+(OpenAI CLIP) name files that exist (with `reinit_layers`, the selected
+layers keep the seeded initialization: `reinit_hubert_layers`), and set
+keyword BN from the token-table statistics. No weight files ship with the
+repository, so the towers are seeded random weights at full width, as the
+JAX builder leaves them when the files are missing (``:139-187``).
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..checkpoint.torch_import import load_port_state_dict, load_torch_state_dict
+from ..checkpoint.towers import fairseq_hubert_to_port, openai_clip_to_port, reduce_token_embedding
 from ..config import ConfigNode
 from ..data.tokenizer import ReducedVocab
 from ..models.kwclip import KWClip, KWClipConfig, init_kw_bn_from_token_embedding
 from ..models.mel_upstreams import MelUpstreamConfig
 
-__all__ = ["build_model_from_config", "resolve_reduced_vocab", "init_params"]
+__all__ = ["build_model_from_config", "resolve_reduced_vocab", "init_params",
+           "reinit_hubert_layers"]
 
 logger = logging.getLogger(__name__)
 
 _REPO_ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
+
+
+def reinit_hubert_layers(imported: Dict[str, np.ndarray], random_state: Dict[str, np.ndarray],
+                         layer_ids: Sequence[int]) -> Dict[str, np.ndarray]:
+    """An imported tower state (port names relative to the tower) with the
+    selected layers' tensors replaced by the seeded initialization's
+    (reference `reinit_layers`, ``speech_encoder_plus.py:418-431``, JAX
+    ``tasks/builder.py:45-68``); a new dict."""
+    ids = {int(i) for i in layer_ids}
+    out = dict(imported)
+    for name, value in random_state.items():
+        parts = name.split(".")
+        if parts[0] == "layers" and int(parts[1]) in ids:
+            out[name] = value
+    return out
+
+
+def _import_towers(cfg: ConfigNode, model: KWClip, model_cfg: KWClipConfig,
+                   vocab: Optional[ReducedVocab]) -> None:
+    """The tower weights from local files, where the YAML names ones that
+    exist (JAX ``:139-187``); a missing file leaves the seeded weights."""
+    path = getattr(cfg.audio_encoder, "ckpt_path", None)
+    if isinstance(model_cfg.audio, MelUpstreamConfig):
+        if path:  # JAX :139-150: only the wav2vec2/HuBERT family has a checkpoint format
+            logger.warning(
+                "audio_encoder.ckpt_path is only importable for the HuBERT/wav2vec2 tower "
+                "(fairseq format); the %s mel upstream stays randomly initialized "
+                "(import_torch_lstm_state covers the LSTM family)", model_cfg.audio.kind)
+    elif path and os.path.exists(path):
+        tower = model.audio_encoder
+        arrays = fairseq_hubert_to_port(load_torch_state_dict(path), model_cfg.audio)
+        if model_cfg.reinit_layers:
+            seeded = {k: v.detach().float().cpu().numpy() for k, v in tower.state_dict().items()}
+            arrays = reinit_hubert_layers(arrays, seeded, model_cfg.reinit_layers)
+            logger.warning("Reinitialized encoder layers %s (reference "
+                           "speech_encoder_plus.py:420-422)", model_cfg.reinit_layers)
+        load_port_state_dict(tower, arrays)
+        logger.info("Loaded HuBERT weights from %s", path)
+    path = getattr(cfg.clip, "ckpt_path", None)
+    if path and os.path.exists(path):
+        full = dataclasses.replace(model_cfg.clip, vocab_size=49408)
+        arrays = openai_clip_to_port(load_torch_state_dict(path), full)
+        if vocab is not None:
+            arrays = reduce_token_embedding(arrays, vocab.selected_ids)
+        load_port_state_dict(model.clip, arrays)
+        logger.info("Loaded CLIP weights from %s", path)
 
 
 def resolve_reduced_vocab(cfg: ConfigNode) -> Optional[ReducedVocab]:
@@ -71,8 +125,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                   if isinstance(m, (nn.LayerNorm, nn.GroupNorm)))
     norm_weights = {id(m.weight) for m in norms}
     for name, p in model.named_parameters():
-        if name == "criterion_log_inv_temp":
-            continue  # log(1/T), set by the model
+        if name == "criterion_log_inv_temp" or name.endswith("curr_temp"):
+            continue  # log(1/T) and the VQ temperature, set by the model
         if "lstm" in name.split("."):  # (4H, ...) gate-stacked tensors
             p.uniform_(-(p.shape[0] // 4) ** -0.5, (p.shape[0] // 4) ** -0.5,
                        generator=generator)
@@ -102,14 +156,8 @@ def build_model_from_config(
             eot_id=int(vocab.eot_reduced))
     else:
         model_cfg = KWClipConfig.from_config(cfg)
-    if isinstance(model_cfg.audio, MelUpstreamConfig) \
-            and getattr(cfg.audio_encoder, "ckpt_path", None):
-        # JAX :139-150: only the wav2vec2/HuBERT family has a checkpoint format
-        logger.warning(
-            "audio_encoder.ckpt_path is only importable for the HuBERT/wav2vec2 tower "
-            "(fairseq format); the %s mel upstream stays randomly initialized "
-            "(import_torch_lstm_state covers the LSTM family)", model_cfg.audio.kind)
     model = KWClip(model_cfg)
     init_params(model, torch.Generator().manual_seed(seed))
+    _import_towers(cfg, model, model_cfg, vocab)
     init_kw_bn_from_token_embedding(model)
     return model.to(device).eval(), model_cfg, vocab

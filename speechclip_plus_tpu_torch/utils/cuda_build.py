@@ -66,7 +66,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sc_conv0.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.sc_fab_attention_bwd.argtypes = [p, p, p, i, p, p, p, p, p, u, f, f, p, i, i, i, i, i, p]
     lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
-    lib.sc_vq_bwd.argtypes = [p, p, p, p, p, i, i, i, f, i, i, i, p, p, p, p, p, p]
+    lib.sc_vq_bwd.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, p, p, p, p, p, p]
     for fn in (lib.sc_fab_gemm, lib.sc_fab_attention, lib.sc_fab_attention_bwd,
                lib.sc_fused_attention, lib.sc_flash_attention, lib.sc_conv0,
                lib.sc_vq_fwd, lib.sc_vq_bwd):

@@ -12,7 +12,9 @@ or gate, K2, K4, K5, K6); bf16 K1, K2, K4, K5 and K6 error beyond half an ulp
 of the bf16 output <= 2e-2 x the output's RMS; K4's lse 1e-4 relative; K3
 targets equal wherever the top-2 margin exceeds 1e-3 (bf16) or 1e-5 (fp32),
 ent and psum to rtol 1e-3, exact ties to the lowest index; K3b dx to 1e-4 (fp32) or 1e-2
-(bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes; the bf16 attention
+(bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes, with the
+temperature a float or a device tensor (the same bits at t = 0.1; a training
+step with a learnable one makes no device-to-host sync); the bf16 attention
 kernels against their numerical model (`nn/attention_numerics.py`) 4e-3 x RMS
 beyond half an ulp, a fifth of what the twin is allowed. K2, K3 and K3b repeat
 bit for bit (no float atomics), as do K1, K4, K5 and K6.
@@ -326,6 +328,78 @@ def test_st_backward_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fk.st_backward(x, cot, en.T.contiguous().T, norms, mask, 0.1)
     assert fk.BWD_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_st_backward_device_temperature_is_the_float_path(cuda_device, dtype):
+    """K3b reads the temperature from device memory: a 0-d tensor at t = 0.1
+    gives the float argument's results bit for bit (the wrapper puts a float
+    on the device as the same fp32 value)."""
+    n, d, v = 9600, 512, 8112
+    x, cot, en, norms = _st_inputs(cuda_device, dtype, n, d, v)
+    mask = fk.column_mask(v, SPECIAL, cuda_device)
+    temp = torch.full((), 0.1, device=cuda_device)
+    dx, dt = fk.st_backward(x, cot, en, norms, mask, temp)
+    dx2, dt2 = fk.st_backward(x, cot, en, norms, mask, 0.1)
+    assert torch.equal(dx, dx2) and torch.equal(dt, dt2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1024, 9600])
+def test_st_backward_dt_matches_the_twin_for_a_device_temperature(cuda_device, dtype, n):
+    """dt, the learnable temperature's gradient, at t = 0.37 on the device
+    against the twin, to 1e-4 x the sum of its terms' sizes; dx as K3b's
+    rows above."""
+    d, v, t = 512, 8112, 0.37
+    x, cot, en, norms = _st_inputs(cuda_device, dtype, n, d, v)
+    mask = fk.column_mask(v, SPECIAL, cuda_device)
+    temp = torch.full((), t, device=cuda_device)
+    dx, dt = fk.st_backward(x, cot, en, norms, mask, temp)
+    dx0, dt0 = fk.plain_st_backward(x, cot, en, norms, mask, temp)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (dx - dx0).abs().max().item() <= tol * dx0.pow(2).mean().sqrt().item()
+    s = x.float() @ en.float().T
+    p = torch.softmax(torch.where(mask.bool()[None], -torch.inf, s / t), dim=-1)
+    u = (cot.float() @ en.float().T) * norms
+    scale = (p * (u - (p * u).sum(-1, keepdim=True)) * s).abs().sum().item() / t ** 2
+    assert abs(dt.item() - dt0.item()) <= 1e-4 * scale
+    assert dt.item() != 0.0
+
+
+@pytest.mark.cuda
+def test_learnable_temperature_step_does_not_sync(cuda_device):
+    """A training step's pass through `fused_cosine_vq` with a learnable
+    temperature (K3, the gather, K3b into the keywords and the temperature)
+    waits for the card nowhere: `set_sync_debug_mode("error")` raises on any
+    device-to-host sync. The column mask is put on the device by a first
+    call, as in a training run's first step."""
+    dev, b, k, d, v = cuda_device, 128, 75, 512, 8112
+    g = torch.Generator(device=dev).manual_seed(3)
+    emb = torch.randn(v, d, generator=g, device=dev) * 0.1
+    x = torch.nn.functional.normalize(torch.randn(b, k, d, generator=g, device=dev), dim=-1)
+    cot = torch.randn(b, k, d, generator=g, device=dev) * 1e-3
+    temp = torch.nn.Parameter(torch.full((), 0.1, device=dev))
+
+    def step():
+        xn = x.clone().requires_grad_(True)
+        res = fk.fused_cosine_vq(xn, emb, temp, dtype=torch.bfloat16, training=True)
+        (res["keywords"] * cot).sum().backward()
+        return xn.grad
+
+    step()
+    temp.grad = None
+    before = (fk.LAUNCHES, fk.BWD_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dx = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (fk.LAUNCHES, fk.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert temp.grad is not None and bool(torch.isfinite(temp.grad)) and float(temp.grad) != 0
+    assert bool(torch.isfinite(dx).all())
 
 
 # ---- K1's bias and gate modes, K5, K4, K6 ----

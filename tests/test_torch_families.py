@@ -27,6 +27,7 @@ averages such a bias, so it is held to 1e-3 abs.
 Also: the configuration keys the port does not implement still raise by name.
 """
 import dataclasses
+import operator
 import os
 
 import jax
@@ -296,29 +297,36 @@ def _set(cfg, dotted, value):
     setattr(node, leaf, value)
 
 
+# a ported key's case gives the typed field (a dotted path of KWClipConfig)
+# that must hold the value, and `_TYPED` the value's typed form where it differs
+_TYPED = {"learnable=0.1": "learnable", "(2, 0.5, 0.999995)": (2.0, 0.5, 0.999995)}
+
+
 @pytest.mark.parametrize("key,value,error,match", [
-    ("model_settings.cascaded_branch.vq.args.use_gumbel", True, NotImplementedError, "VQ"),
-    ("model_settings.cascaded_branch.vq.args.hard", False, NotImplementedError, "VQ"),
-    ("model_settings.cascaded_branch.vq.args.temp", "learnable=0.1", NotImplementedError, "VQ"),
-    ("model_settings.cascaded_branch.vq.args.temp", "(2, 0.5, 0.999995)", NotImplementedError,
-     "VQ"),
-    ("model_settings.cascaded_branch.vq.args.fused_st", False, NotImplementedError, "VQ"),
+    # the VQ variants, trainable towers, LayerDrop, SupCon and the CIF variants
+    # build since the training variants were ported
+    ("model_settings.cascaded_branch.vq.args.use_gumbel", True, None, "head.vq.use_gumbel"),
+    ("model_settings.cascaded_branch.vq.args.hard", False, None, "head.vq.hard"),
+    ("model_settings.cascaded_branch.vq.args.temp", "learnable=0.1", None, "head.vq.temp_type"),
+    ("model_settings.cascaded_branch.vq.args.temp", "(2, 0.5, 0.999995)", None,
+     "head.vq.temp_schedule"),
+    ("model_settings.cascaded_branch.vq.args.fused_st", False, None, "head.vq.fused_st"),
     ("clip.name", "ViT-L/14", None, "L/14"),  # builds since the large family was ported
-    ("clip.text_encoder_trainable", True, NotImplementedError, "trainable towers"),
-    ("clip.image_encoder_trainable", True, NotImplementedError, "trainable towers"),
-    ("audio_encoder.trainable", True, NotImplementedError, "trainable towers"),
-    ("audio_encoder.layer_drop", 0.05, NotImplementedError, "layer_drop"),
+    ("clip.text_encoder_trainable", True, None, "text_encoder_trainable"),
+    ("clip.image_encoder_trainable", True, None, "image_encoder_trainable"),
+    ("audio_encoder.trainable", True, None, "audio_trainable"),
+    ("audio_encoder.layer_drop", 0.05, None, "audio.layer_drop"),
     # the audio feature's keys build since the fixed-K large family was ported
     ("audio_encoder.feat_select_idx", "last_hidden_state", None, "feat_select_idx"),
     ("audio_encoder.feat_select_idx", "mean_pool", NotImplementedError, "feat_select_idx"),
     ("audio_encoder.normalize_hiddenstates", True, None, "normalize_hiddenstates"),
     ("audio_encoder.normalize_type", "method3", NotImplementedError, "normalize_type"),
-    ("cl_loss.type", "SupConLoss", NotImplementedError, "cl_loss.type"),
-    ("model_settings.cascaded_branch.downsampling.cif.using_gt_len", True, NotImplementedError,
+    ("cl_loss.type", "SupConLoss", None, "cl_loss.type"),
+    ("model_settings.cascaded_branch.downsampling.cif.using_gt_len", True, None,
      "using_gt_len"),
-    ("model_settings.cascaded_branch.downsampling.cif.produce_weight_type", "dense",
-     NotImplementedError, "CIF"),
-    ("model_settings.fused_attention_vjp", False, NotImplementedError, "fused_attention_vjp"),
+    ("model_settings.cascaded_branch.downsampling.cif.produce_weight_type", "dense", None,
+     "cif.produce_weight_type"),
+    ("model_settings.fused_attention_vjp", False, None, "fused_attention_vjp"),
     ("model_settings.cascaded_branch.type", "KW_ConformerBranch", NotImplementedError,
      "cascaded_branch.type"),
     ("model_settings.cascaded_branch.transformer_args.type", "Conformer", NotImplementedError,
@@ -330,9 +338,9 @@ def test_unsupported_keys_raise_by_name(key, value, error, match):
     _set(cfg, key, value)
     if key == "clip.name":
         cfg.clip.tiny = False
-    if error is None and key.startswith("audio_encoder."):  # ported: the typed config, a build
+    if error is None and key != "clip.name":  # ported: the typed config, a build
         mc = KWClipConfig.from_config(cfg)
-        assert getattr(mc, match) == value
+        assert operator.attrgetter(match)(mc) == _TYPED.get(value, value)
         KWClip(mc)
         return
     if error is None:  # a key that is ported now: its typed config, not a full-width build

@@ -207,11 +207,12 @@ def test_wrapper_sizes_its_scratch_from_the_plan(monkeypatch, dtype, n, d, v):
                              torch.zeros(v, d, dtype=dtype), torch.ones(v),
                              fk.column_mask(v, SPECIAL, "cpu"))
     before = fk.BWD_LAUNCHES
-    dx, dt = fk._launch_bwd(x, g, en, norms, mask, 0.1)
+    temp = torch.tensor(0.1)  # the kernel reads the temperature from device memory
+    dx, dt = fk._launch_bwd(x, g, en, norms, mask, temp)
     assert fk.BWD_LAUNCHES == before + 1
     rows, splits = fk._bwd_plan(n, v, d, dtype, 132)
     (args,) = calls
-    assert args[5:12] == (n, v, d, pytest.approx(0.1), int(dtype == torch.bfloat16), rows,
+    assert args[5:12] == (n, v, d, temp.data_ptr(), int(dtype == torch.bfloat16), rows,
                           splits)
     (scratch,) = made
     assert scratch["stats"].numel() == 3 * splits * n
