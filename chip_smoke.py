@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phase large_fixed  # phase 2 at path N's shapes, then path N
     python3 chip_smoke.py --phase mel      # phase 2 at the base and path O shapes, then path O
     python3 chip_smoke.py --phase variants # phase 2 at the base shapes, then path P
+    python3 chip_smoke.py --phase dp       # phase 2 at the base shapes, then path Q
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -155,6 +156,18 @@ Phases, each fatal on failure:
      peak memory printed. P3 cascaded (fixed K) with the text and image
      towers trainable and Gumbel VQ, live images: K3 and K3b 0 times, the
      ViT's and the text tower's tensors and the token table moved.
+  Q. data parallelism through the training entry point (`run_task` with
+     synthetic_fit.yaml on phase J's synthetic tree, hybrid+ base, B=128,
+     bf16, the prefetch thread), each leg in a process of its own (this
+     script with `--dp-leg`): Q1 a leg without a process group over 8 steps,
+     a leg under NCCL at world size 1 (torchrun's variables) over 6 steps and
+     one resumed from it to 8; the NCCL legs' logged losses, validation and
+     saved model and Adam state against the group-less leg's, bit for bit
+     (the loss at most 1e-6 relative, or the run fails); ms/step of both
+     legs, the gradient all-reduce's time and bytes a step, the launch counts
+     against phase J's plan; Q2, where the machine shows two GPUs, two ranks
+     (B=128 as 2 x 64, dropout off, 3 steps) against one process (loss rtol
+     1e-4, `grad_norm` 1e-3), and otherwise a line that says it did not run.
 Phase 2 also holds the pieces those paths add against their twins: K2 with
 the causal bias at the text shape (128, 77, 512, H=8) and K1 context-only
 there, K1 and K2 at (128, 328, 768) with one head (p=0.1 and 0), each against
@@ -190,6 +203,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -326,7 +340,13 @@ def read_counts(torch, label, expect):
     """The launch counts since `reset_counts`, which must equal the plan
     (`expect`; kernels it does not name must not have run)."""
     torch.cuda.synchronize()
-    counts = {name: getattr(*_counter(name)) for name in KERNEL_COUNTERS}
+    return compare_counts(label, {name: getattr(*_counter(name)) for name in KERNEL_COUNTERS},
+                          expect)
+
+
+def compare_counts(label, counts, expect):
+    """`counts` (a path's launches, here or from a process of its own) must
+    equal the plan."""
     expect = {name: expect.get(name, 0) for name in KERNEL_COUNTERS}
     short = lambda d: {k: v for k, v in d.items() if v}
     print(f"[launches] {label}: {short(counts)} (expected {short(expect)})")
@@ -2831,6 +2851,295 @@ def phase_fit(torch, bare_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ path Q ----
+
+DP_FIRST, DP_TOTAL = 6, 8  # Q1: optimizer steps of the first leg, and with the resumed one
+DP_Q2_STEPS = 3
+
+
+def rank_env(port=None, rank=0, world=1):
+    """This environment with torchrun's variables for `rank` of `world` (a
+    free local port where `port` is None)."""
+    if port is None:
+        from speechclip_plus_tpu_torch.tasks.base_task import free_port
+
+        port = free_port()
+    return dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def bare_env():
+    """This environment without any process-group variables."""
+    drop = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+            "SPEECHCLIP_MULTIHOST", "SPEECHCLIP_COORDINATOR")
+    return {k: v for k, v in os.environ.items() if k not in drop}
+
+
+def dp_leg(spec):
+    """One leg of path Q1, in a process of its own: `run_task
+    TrainKWClip_GeneralTransformer --train` on the card with synthetic_fit.yaml
+    (overridden in memory: `max_steps`, a log row every 2 steps, no keyword
+    artifacts) and the prefetch thread, under the process group the
+    environment names (torchrun's variables) or none; writes the launch
+    counts (from 0 at the start of the run), the Trainer's timings, the
+    group's world size and the all-reduce's bytes to spec["out"]."""
+    import torch
+    from speechclip_plus_tpu_torch.config import load_config
+    from speechclip_plus_tpu_torch.run_task import main as run_task
+
+    cfg = load_config(FIT_CONFIG)
+    cfg.trainer.max_steps = spec["max_steps"]
+    cfg.trainer.log_every_n_steps = 2
+    cfg.log_setting.log_detokenize_results = False
+    reset_counts()
+    trainer = run_task(["TrainKWClip_GeneralTransformer", "--train", "--device", "cuda",
+                        "--dataset_root", spec["tree"], "--save_path", spec["save"],
+                        "--seed", "0", "--njobs", "0", "--log_level", "WARNING", *spec["argv"]],
+                       config=cfg)
+    torch.cuda.synchronize()
+    # a thread still running at the interpreter's exit is killed wherever it
+    # stands: run_task leaves none (the leg then exits through the normal
+    # teardown, and run_leg holds its exit code)
+    alive = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
+    require(not alive, f"Q1: threads alive after run_task: {alive}")
+    with open(spec["out"], "w") as f:
+        json.dump({"counts": {name: getattr(*_counter(name)) for name in KERNEL_COUNTERS},
+                   "timings": trainer.timings, "steps": trainer.state.step,
+                   "world": None if trainer.group is None else trainer.group.world,
+                   "reduce_bytes": trainer.train_step.reduce_bytes}, f)
+
+
+def run_leg(label, spec, env):
+    """`dp_leg` (or `dp_q2`) in a subprocess of this script (with Python's
+    fault handler, which prints every thread's stack on a fatal signal); its
+    result."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+                          spec.pop("mode"), json.dumps(spec)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    require(out.returncode == 0,
+            f"{label}: exit {out.returncode} after {time.perf_counter() - t0:.1f} s, result "
+            f"{'written' if os.path.exists(spec['out']) else 'not written'}; stdout: "
+            f"{out.stdout[-2000:]}; stderr: {out.stderr[-8000:]}")
+    with open(spec["out"]) as f:
+        res = json.load(f)
+    print(f"[path Q] {label}: exit {out.returncode}, {time.perf_counter() - t0:.1f} s with "
+          f"the process's start")
+    return res
+
+
+def leg_rows(save):
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    bad = [(k, v) for r in rows for k, v in r.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    require(rows and not bad, f"Q1: {save}: non-finite metrics {bad[:5]}")
+    return rows
+
+
+def saved_state(torch, save, step):
+    """(model state_dict, Adam state) of the checkpoint of `step` under any
+    manager of a run's `checkpoints/`."""
+    for manager in ("last", "val_recall_mean_10", "val_loss"):
+        path = os.path.join(save, "checkpoints", manager, str(step), "state.pt")
+        if os.path.exists(path):
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+            return payload["model"], payload["optimizer"]["state"]
+    raise SmokeFailure(f"Q1: no checkpoint of step {step} under {save}")
+
+
+def loop_ms(rows, timings):
+    """(median steps_per_sec window ms/step after the first step, the whole:
+    every step over the passes over the loader)."""
+    rates = [r["steps_per_sec"] for r in rows if "steps_per_sec" in r and r["micro_step"] > 1]
+    return (1e3 / float(np.median(rates)),
+            1e3 * sum(timings["train_s"]) / len(timings["loader_wait_s"]))
+
+
+def phase_dp(torch):
+    """Path Q, data parallelism through the training entry point on phase J's
+    synthetic tree (hybrid+ base, full width, B=128, bf16, the prefetch
+    thread), each leg `run_task` in a process of its own. Q1: a leg without a
+    process group over DP_TOTAL steps (validation and a save at step 6 and at
+    the end), a leg under NCCL at world size 1 (torchrun's variables) over
+    DP_FIRST steps, and a leg resumed from it to DP_TOTAL: the logged losses
+    and the step-6 state of the NCCL leg, and the final state of the resumed
+    one, against the group-less leg bit for bit (model state_dict and Adam
+    state); ms/step of both legs, the all-reduce's seconds and bytes, and
+    the launch counts against phase J's plan. Q2 (two ranks under NCCL) where
+    the machine has two GPUs. Returns the launch counts by leg."""
+    import shutil
+    import tempfile
+
+    free_cuda(torch)  # the legs are processes of their own on the same card
+    free, total = torch.cuda.mem_get_info()
+    print(f"[path Q] the card: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free for the legs "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this process)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        tree = os.path.join(tmp, "flickr")
+        t0 = time.perf_counter()
+        made = make_synthetic_tree(tree, FIT_TREE)
+        print(f"[path Q] {made} in {time.perf_counter() - t0:.1f} s")
+        saves = {name: os.path.join(tmp, name) for name in ("alone", "nccl", "resumed")}
+
+        def leg(name, max_steps, env, argv=()):
+            return run_leg(name, {"mode": "--dp-leg", "tree": tree, "save": saves[name],
+                                  "max_steps": max_steps, "argv": list(argv),
+                                  "out": os.path.join(tmp, name + ".json")}, env)
+
+        alone = leg("alone", DP_TOTAL, bare_env())
+        nccl = leg("nccl", DP_FIRST, rank_env())
+        resumed = leg("resumed", DP_TOTAL, rank_env(),
+                      ("--resume", os.path.join(saves["nccl"], "checkpoints", "last")))
+        require(alone["world"] is None and nccl["world"] == 1 and resumed["world"] == 1,
+                f"Q1: process groups {alone['world']}, {nccl['world']}, {resumed['world']}")
+        require((alone["steps"], nccl["steps"], resumed["steps"])
+                == (DP_TOTAL, DP_FIRST, DP_TOTAL), "Q1: steps taken")
+
+        # launches: phase J's plan of a step, an eval batch and an image-cache batch
+        from speechclip_plus_tpu_torch.config import load_config
+
+        base = load_config(FIT_CONFIG)
+        dev_batches = -(-FIT_TREE["dev"] * FIT_TREE["caps"] // int(base.data.dev_batch_size))
+        cache_batches = -(-FIT_TREE["train"] // 64) + -(-FIT_TREE["dev"] // 64)
+        step_plan, eval_plan, cache_plan = fit_plans()
+        by_path = {}
+        for name, res, steps in (("alone", alone, DP_TOTAL), ("nccl", nccl, DP_FIRST),
+                                 ("resumed", resumed, DP_TOTAL - DP_FIRST)):
+            expect = {}
+            add_counts(expect, step_plan, steps)
+            add_counts(expect, eval_plan, len(res["timings"]["validate_s"]) * dev_batches)
+            add_counts(expect, cache_plan, cache_batches)
+            by_path[f"Q1_{name}"] = compare_counts(f"Q1 {name} ({steps} steps)", res["counts"],
+                                                   expect)
+        print(f"[path Q] launches per training step, as phase J's plan (K1 / K1a / K2 / K3 / "
+              f"K3b): " + " / ".join(str(step_plan.get(k, 0)) for k in (
+                  "fused_attention_block", "projection_gemm", "fused_attention_block_bwd",
+                  "fused_cosine_vq", "fused_cosine_vq_bwd")))
+
+        # the NCCL legs against the leg without a group
+        rows = {name: leg_rows(save) for name, save in saves.items()}
+        first = {r["micro_step"]: r for r in rows["alone"]
+                 if "train_loss" in r and r["micro_step"] <= DP_FIRST}
+        got = {r["micro_step"]: r for r in rows["nccl"] if "train_loss" in r}
+        require(got.keys() == first.keys(), f"Q1: logged steps {sorted(got)} vs {sorted(first)}")
+        worst_loss, differ = 0.0, []
+        for step, want in first.items():
+            for key, value in want.items():
+                if key.startswith("train_") or key == "grad_norm":
+                    if got[step][key] != value:
+                        differ.append(f"{key}@{step}")
+                    if key == "train_loss":
+                        worst_loss = max(worst_loss, abs(got[step][key] - value) / abs(value))
+        val = {name: [r for r in rows[name] if "val_loss" in r] for name in saves}
+        same_val = val["nccl"][0] == {**val["alone"][0], "time": val["nccl"][0]["time"]}
+        print(f"[path Q] Q1 logged train metrics at micro-steps {sorted(first)}, NCCL world 1 "
+              f"against no group: " + ("bit-identical" if not differ else
+                                       f"{len(differ)} differ ({differ[:6]}), loss by at most "
+                                       f"{worst_loss:.3e} relative")
+              + f"; validation at step {DP_FIRST}: "
+              + ("bit-identical" if same_val else f"{val['nccl'][0]} vs {val['alone'][0]}"))
+        require(worst_loss <= 1e-6, f"Q1: losses differ by {worst_loss:.3e} relative")
+        for label, a, b in (
+                (f"NCCL leg at step {DP_FIRST} vs no group", saved_state(torch, saves["nccl"],
+                                                                   DP_FIRST),
+                 saved_state(torch, saves["alone"], DP_FIRST)),
+                (f"resumed NCCL leg at step {DP_TOTAL} vs the unbroken run without a group",
+                 saved_state(torch, saves["resumed"], DP_TOTAL),
+                 saved_state(torch, saves["alone"], DP_TOTAL))):
+            worst, names = state_difference(torch, a, b)
+            print(f"[path Q] Q1 {label}: " + (
+                "bit-identical (model state_dict and Adam state)" if not names else
+                f"{len(names)} tensors differ, max |diff| {worst:.3e}: {names[:8]}"))
+            require(not names, f"Q1: {label} differs")
+
+        print(card_line())
+        for name in ("alone", "nccl"):
+            median, whole = loop_ms(rows[name], (alone if name == "alone" else nccl)["timings"])
+            print(f"[path Q] Q1 loop ms/step, B={int(base.data.batch_size)}, "
+                  f"{'no process group' if name == 'alone' else 'NCCL world size 1'}: median "
+                  f"window {median:.2f}, whole {whole:.2f}")
+        reduce_ms = np.array(nccl["timings"]["allreduce_s"] + resumed["timings"]["allreduce_s"]
+                             ) * 1e3
+        require(len(reduce_ms) == DP_TOTAL, f"Q1: {len(reduce_ms)} all-reduce times")
+        print(f"[path Q] Q1 gradient all-reduce (NCCL, world size 1, one flat fp32 buffer of "
+              f"{nccl['reduce_bytes']} bytes = {nccl['reduce_bytes'] / 4e6:.3f} M parameters): "
+              f"median {np.median(reduce_ms):.4f} ms, max {reduce_ms.max():.4f} ms per optimizer "
+              f"step over {len(reduce_ms)} steps (CUDA events)")
+
+        # Q2: two ranks under NCCL, where the machine has two GPUs
+        gpus = torch.cuda.device_count()
+        if gpus < 2:
+            print(f"[path Q] Q2 (two ranks under NCCL, B=128 as 2 x 64) did not run: this "
+                  f"machine shows {gpus} GPU; not a pass")
+        else:
+            from speechclip_plus_tpu_torch.tasks.base_task import free_port
+
+            legs = {world: run_leg(f"Q2 world {world}", {
+                "mode": "--dp-q2", "world": world, "port": free_port(),
+                "out": os.path.join(tmp, f"q2_{world}.json")}, bare_env()) for world in (1, 2)}
+            for key, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+                a, b = np.array(legs[2][key]), np.array(legs[1][key])
+                rel = np.abs(a - b) / np.abs(b)
+                print(f"[path Q] Q2 {key} over {DP_Q2_STEPS} steps, two ranks vs one process: "
+                      f"{a.tolist()} vs {b.tolist()}, relative {rel.max():.3e} (tolerance {rtol})")
+                require(rel.max() <= rtol, f"Q2: {key} differs by {rel.max():.3e}")
+        return by_path
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dp_q2_rank(rank, spec):
+    """One rank of path Q2: hybrid+ base on cuda:rank, DP_Q2_STEPS steps with
+    dropout off on its rows of one B=128 batch (cached image features), the
+    whole batch in one process when spec["world"] is 1."""
+    import torch
+    from speechclip_plus_tpu_torch.optim.optimizer import build_optimizer_from_config
+    from speechclip_plus_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from speechclip_plus_tpu_torch.parallel.multihost import maybe_initialize_distributed
+    from speechclip_plus_tpu_torch.parallel.train_step import (
+        create_train_state, make_train_step)
+
+    world = spec["world"]
+    if world > 1:
+        os.environ.update(rank_env(spec["port"], rank, world))
+        require(maybe_initialize_distributed(device="cuda"), "Q2: no process group")
+    torch.cuda.set_device(rank)
+    try:
+        group = make_mesh()
+        cfg, model, model_cfg = build(torch, CONFIG, device=f"cuda:{rank}")
+        optimizer = build_optimizer_from_config(model, cfg)
+        state = create_train_state(optimizer)
+        step_fn = make_train_step(model, optimizer, 1, group=group)
+        batch = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, model_cfg.clip.image_resolution,
+                            seed=0)
+        with torch.no_grad():
+            batch["image_feat"] = model.encode_image_raw(batch.pop("image"))
+        batch = shard_batch(batch, group)
+        out = {"loss": [], "grad_norm": []}
+        for _ in range(DP_Q2_STEPS):
+            metrics = step_fn(state, batch, None)
+            out["loss"].append(float(metrics["train_loss"]))
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+        if rank == 0:
+            with open(spec["out"], "w") as f:
+                json.dump(out, f)
+    finally:
+        if world > 1:
+            torch.distributed.destroy_process_group()
+
+
+def dp_q2(spec):
+    if spec["world"] == 1:
+        dp_q2_rank(0, spec)
+        return
+    import torch.multiprocessing as mp
+
+    mp.start_processes(dp_q2_rank, args=(spec,), nprocs=spec["world"], join=True,
+                       start_method="spawn")
+
+
 # ------------------------------------------------------------ path K ----
 
 class OrderedNamespace:
@@ -3269,13 +3578,28 @@ def print_kernels_line(rows, by_path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit", "large",
-                                        "large_fixed", "mel", "variants"), default="all")
+                                        "large_fixed", "mel", "variants", "dp"), default="all")
+    # one leg of path Q in a process of its own (the script starts these itself)
+    ap.add_argument("--dp-leg", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-q2", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.dp_leg or args.dp_q2:
+        os.chdir(os.path.dirname(os.path.abspath(__file__)))
+        try:
+            dp_leg(json.loads(args.dp_leg)) if args.dp_leg else dp_q2(json.loads(args.dp_q2))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
+    return smoke(args, torch)
+
+
+def smoke(args, torch) -> int:
     major, minor = torch.cuda.get_device_capability(0)
     if major != 9:
         print(f"chip_smoke: compute capability {major}.{minor}, need 9.x", file=sys.stderr)
@@ -3319,6 +3643,11 @@ def main() -> int:
             print(f"[time] chip_smoke --phase variants: {time.perf_counter() - started:.1f} s")
             print_kernels_line(rows, by_path)
             return 0
+        if args.phase == "dp":
+            by_path = phase_dp(torch)
+            print(f"[time] chip_smoke --phase dp: {time.perf_counter() - started:.1f} s")
+            print_kernels_line(rows, by_path)
+            return 0
         if args.phase == "mel":
             add_modes(rows, phase_kernels_mel(torch))
             by_path = phase_mel(torch)
@@ -3359,6 +3688,7 @@ def main() -> int:
             by_path.update(phase_large_fixed(torch))
             by_path.update(phase_mel(torch))
             by_path.update(phase_variants(torch))
+            by_path.update(phase_dp(torch))
             print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s")
             print_kernels_line(rows, by_path)
     except SmokeFailure as e:

@@ -17,6 +17,10 @@ Retention follows orbax's policies: `last` keeps the latest step; a monitor
 keeps its best `top_k` steps, ranked by a stable sort of the metric in step
 order, so of equal values the later step wins; a save at a step no later
 than the manager's latest kept step is skipped.
+
+Under data parallelism every rank holds the same state: only rank 0 writes
+(`writer=False` elsewhere makes `save` and the config a no-op), and every
+rank restores.
 """
 from __future__ import annotations
 
@@ -39,15 +43,19 @@ class CheckpointManager:
     metric retention."""
 
     def __init__(self, root: str, config: Optional[dict] = None,
-                 monitors: Dict[str, str] = None, top_k: Dict[str, int] = None):
+                 monitors: Dict[str, str] = None, top_k: Dict[str, int] = None,
+                 writer: bool = True):
         """monitors: {"val_loss": "min", "val_recall_mean_10": "max"}
-        (the reference's two callbacks); top_k per monitor (1 and 3)."""
+        (the reference's two callbacks); top_k per monitor (1 and 3); `writer`
+        False: a rank that restores and never writes."""
         self.root = os.path.abspath(root)
-        os.makedirs(self.root, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.root, exist_ok=True)
         self.config = config
         self.monitors = monitors or {"val_loss": "min", "val_recall_mean_10": "max"}
         self.top_k = top_k or {"val_loss": 1, "val_recall_mean_10": 3}
-        if config is not None:
+        if config is not None and writer:
             with open(os.path.join(self.root, "config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
 
@@ -77,6 +85,8 @@ class CheckpointManager:
         """Save at an optimizer-step boundary (`state.grad_acc` empty)."""
         if state.grad_acc is not None:
             raise ValueError("a checkpoint is taken only between optimizer steps")
+        if not self.writer:
+            return
         metrics = {
             k: float(v) for k, v in (metrics or {}).items()
             if isinstance(v, (int, float, np.floating, np.integer))

@@ -19,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["load_wav", "waveform_layer_norm", "random_crop_max_length"]
+__all__ = ["load_wav", "wav_length", "waveform_layer_norm", "random_crop_max_length"]
 
 TARGET_SR = 16000
 
@@ -50,6 +50,20 @@ def load_wav(path: str, target_sr: int = TARGET_SR) -> np.ndarray:
         g = gcd(sr, target_sr)
         data = resample_poly(data, target_sr // g, sr // g).astype(np.float32)
     return data
+
+
+def wav_length(path: str, target_sr: int = TARGET_SR) -> int:
+    """The number of samples `load_wav(path, target_sr)` returns, from the
+    header: scipy's polyphase resampling gives ceil(n · up / down)."""
+    with wave.open(path, "rb") as w:
+        sr, n = w.getframerate(), w.getnframes()
+    if sr == target_sr:
+        return n
+    from math import gcd
+
+    g = gcd(sr, target_sr)
+    up, down = target_sr // g, sr // g
+    return -(-n * up // down)
 
 
 def waveform_layer_norm(wav: np.ndarray, eps: float = 1e-5) -> np.ndarray:

@@ -18,7 +18,13 @@ shapes keep the kernels' shapes few, so here:
     equivalent), each producing whole collated batches into a result queue;
     batch order is preserved with a reorder buffer so training is
     worker-count-invariant. `num_workers=0` runs one background
-    prefetch thread (fine for cached/synthetic data and tests).
+    prefetch thread (fine for cached/synthetic data and tests);
+  - under data parallelism (`set_shard(rank, world)`) every rank walks the
+    same shuffle and crop seeds and decodes only its rows of each global
+    batch (padded to a multiple of the ranks with `valid=False` rows); the
+    other rows' lengths, which the crop stream and the bucket need, come from
+    the wav headers (`dataset.wav_length`). Concatenated over the ranks the
+    batches are the single-process batches, row for row.
 """
 from __future__ import annotations
 
@@ -49,13 +55,16 @@ def collate_batch(
     samples: List[Dict],
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     pad_to_size: Optional[int] = None,
+    longest: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
-    """Stack a list of dataset items into one padded numpy batch."""
+    """Stack a list of dataset items into one padded numpy batch. `longest`
+    (a rank's shard) is the global batch's longest wav, whose bucket every
+    shard takes."""
     n = len(samples)
     out: Dict[str, np.ndarray] = {}
     if "wav" in samples[0]:
         lens = np.array([min(len(s["wav"]), buckets[-1]) for s in samples], np.int32)
-        t = pad_to_bucket(int(lens.max()), buckets)
+        t = pad_to_bucket(int(lens.max()) if longest is None else longest, buckets)
         wav = np.zeros((n, t), np.float32)
         for i, s in enumerate(samples):
             w = s["wav"][: lens[i]]
@@ -84,24 +93,51 @@ def collate_batch(
     return out
 
 
+def _wav_length(dataset, index: int) -> int:
+    """A row's wav length at the dataset's rate, from its header where the
+    dataset can read one."""
+    if hasattr(dataset, "wav_length"):
+        return int(dataset.wav_length(int(index)))
+    return len(dataset[int(index)]["wav"])
+
+
 def _decode_batch(
     dataset, indices, crop_seed: int, *, batch_size, drop_last, buckets,
-    max_audio_len, train,
+    max_audio_len, train, shard=(0, 1),
 ) -> Dict[str, np.ndarray]:
     """Pure batch decode+collate; module-level so worker processes can run
     it. One crop-rng per batch keyed on `crop_seed` makes the result
-    identical whatever worker (or thread) executes it."""
+    identical whatever worker (or thread) executes it. `shard` (rank, world)
+    decodes rank's rows of the global batch (padded to a multiple of world),
+    drawing the other rows' crops from their lengths alone."""
     from .audio import random_crop_max_length
 
     rng = np.random.RandomState(crop_seed & 0x7FFFFFFF)
-    samples = []
-    for i in indices:
-        s = dict(dataset[int(i)])
-        if train and "wav" in s and max_audio_len > 0:
-            s["wav"] = random_crop_max_length(s["wav"], max_audio_len, rng=rng)
-        samples.append(s)
+    crop = train and max_audio_len > 0
     pad_to = batch_size if not drop_last else None
-    return collate_batch(samples, buckets, pad_to_size=pad_to)
+    rank, world = shard
+    total = max(len(indices), pad_to or 0)
+    per = (total + (-total) % world) // world
+    lo, hi = rank * per, (rank + 1) * per
+    samples, longest = [], 0
+    for j, i in enumerate(indices):
+        if lo <= j < hi:
+            s = dict(dataset[int(i)])
+            if crop and "wav" in s:
+                s["wav"] = random_crop_max_length(s["wav"], max_audio_len, rng=rng)
+            samples.append(s)
+            length = len(s["wav"]) if "wav" in s else 0
+        else:  # another rank's row: advance the crop stream as its decode would
+            length = _wav_length(dataset, i)
+            if crop and length > max_audio_len:
+                rng.randint(0, length - max_audio_len + 1)
+                length = max_audio_len
+        longest = max(longest, min(length, buckets[-1]))
+    if not samples:  # a shard of padding alone: the keys and shapes of a row, zeroed
+        out = collate_batch([dict(dataset[int(indices[0])])], buckets, pad_to_size=per,
+                            longest=longest)
+        return {k: np.zeros_like(v) for k, v in out.items()}
+    return collate_batch(samples, buckets, pad_to_size=per, longest=longest)
 
 
 def _worker_main(dataset, decode_kw, task_q, result_q):
@@ -167,6 +203,7 @@ class BucketedLoader:
         self.sort_by_length = sort_by_length
         self.num_workers = max(int(num_workers), 0)
         self._epoch = 0
+        self._shard = (0, 1)  # (rank, world): this process decodes rank's rows
         self._pool = None  # (ctx, procs, task_q, result_q), lazily started
         self._gen = 0  # iteration generation, for dropping stale results
 
@@ -182,6 +219,13 @@ class BucketedLoader:
         continues the interrupted stream instead of replaying epoch 0."""
         self._epoch = int(epoch)
 
+    def set_shard(self, rank: int, world: int) -> None:
+        """Decode only rank's rows of each global batch (data parallelism;
+        the module docstring). The worker pool restarts with the new shard."""
+        if (rank, world) != self._shard:
+            self.close()
+            self._shard = (int(rank), int(world))
+
     def _index_order(self, rng: np.random.RandomState) -> np.ndarray:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
@@ -193,7 +237,7 @@ class BucketedLoader:
         return dict(
             batch_size=self.batch_size, drop_last=self.drop_last,
             buckets=self.buckets, max_audio_len=self.max_audio_len,
-            train=self.train,
+            train=self.train, shard=self._shard,
         )
 
     def _make_batch(self, indices, crop_seed: int) -> Dict[str, np.ndarray]:
@@ -259,7 +303,12 @@ class BucketedLoader:
                     break
                 yield item
         finally:
+            # the producer ends within one decode and one 0.1 s wait: join it,
+            # so that no thread of the loader outlives the iteration (a daemon
+            # thread still running at interpreter exit is killed wherever it
+            # stands)
             abandoned.set()
+            t.join()
 
     # ---- persistent worker-process pool (the reference's njobs) ----
 

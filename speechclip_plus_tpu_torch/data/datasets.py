@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from .audio import load_wav, waveform_layer_norm
+from .audio import load_wav, wav_length, waveform_layer_norm
 from .image import clip_image_transform
 
 logger = logging.getLogger(__name__)
@@ -76,6 +76,12 @@ class BaseDataset:
 
     def __len__(self) -> int:
         return len(self.data)
+
+    def wav_length(self, index: int) -> int:
+        """The length `__getitem__`'s wav has, from the file's header alone
+        (a data-parallel rank's loader needs the other ranks' lengths)."""
+        path = self.data[index].wav_path
+        return 0 if path is None else wav_length(path, self.target_sr)
 
     def __getitem__(self, index: int) -> Dict:
         s = self.data[index]

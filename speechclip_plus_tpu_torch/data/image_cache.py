@@ -68,6 +68,9 @@ class CachedImageDataset:
     def __len__(self) -> int:
         return len(self.dataset)
 
+    def wav_length(self, index: int) -> int:
+        return self.dataset.wav_length(index)
+
     def __getitem__(self, index: int):
         s = self.dataset.data[index]
         item = dict(self.dataset[index])

@@ -198,13 +198,14 @@ class SimpleVectorQuantizer(nn.Module):
 
     def forward(self, xn: torch.Tensor, emb: torch.Tensor, compute_dtype: torch.dtype,
                 training: bool = False, global_step=None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, group=None
+                ) -> Dict[str, torch.Tensor]:
         c = self.cfg
         temp = self.temperature(global_step, xn.device)
         st_compatible = not training or (c.hard and not c.use_gumbel)
         if self.fused_score_kernel and st_compatible and c.time_first:
             res = fused_cosine_vq(xn, emb, temp, prob_msk=c.prob_msk, dtype=compute_dtype,
-                                  training=training)
+                                  training=training, group=group)
             gt = c.ground_truth_perplexity
             if gt is not None:
                 v = res["num_vars"]
@@ -221,7 +222,7 @@ class SimpleVectorQuantizer(nn.Module):
             use_gumbel=c.use_gumbel, hard=c.hard,
             generator=generator if training and c.use_gumbel else None,
             ground_truth_perplexity=c.ground_truth_perplexity, time_first=c.time_first,
-            codebook=embf, fused_st=c.fused_st)
+            codebook=embf, fused_st=c.fused_st, group=group)
 
 
 class KwBatchNorm(nn.Module):
@@ -245,14 +246,18 @@ class KwBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(shape))
         self.register_buffer("running_var", torch.ones(shape))
 
-    def forward(self, keywords: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def forward(self, keywords: torch.Tensor, training: bool = False,
+                group=None) -> torch.Tensor:
+        """`group`: the data-parallel group whose global batch gives the
+        training statistics (``parallel/mesh.py``)."""
         args = (keywords, self.weight, self.bias, self.running_mean, self.running_var)
         if self.variant == "fixed":
             y, stats = kw_bn_fixed(*args, batchnorm_type=self.cfg.type,
                                    parallel=self.cfg.parallel, training=training,
-                                   momentum=self.momentum)
+                                   momentum=self.momentum, group=group)
         else:
-            y, stats = kw_bn_dynamic(*args, training=training, momentum=self.momentum)
+            y, stats = kw_bn_dynamic(*args, training=training, momentum=self.momentum,
+                                     group=group)
         if stats is not None:
             with torch.no_grad():
                 self.running_mean.copy_(stats[0])
@@ -278,18 +283,18 @@ class KeywordHead(nn.Module):
 
     def forward(self, feats: torch.Tensor, token_embedding: torch.Tensor,
                 training: bool = False, generator: Optional[torch.Generator] = None,
-                global_step=None):
+                global_step=None, group=None):
         cd, lp = self.cfg.compute_dtype, self.linear_proj
         if isinstance(lp, MLPLayers):
             x = lp(feats, generator)
         else:
             x = F.linear(feats.to(cd), lp.weight.to(cd), lp.bias.to(cd))
         if self.cfg.bn.enabled:
-            x = self.bn_layer(x, training)
+            x = self.bn_layer(x, training, group)
         xf = x.float()
         xn = xf / xf.norm(dim=-1, keepdim=True).clamp_min(1e-8)
         vq = self.vector_quantizer(xn, token_embedding.float(), cd, training, global_step,
-                                   generator)
+                                   generator, group)
         keywords = vq.pop("keywords")
         return vq, keywords
 
@@ -340,12 +345,13 @@ class CascadedBranch(nn.Module):
 
     def forward(self, audio_feat: torch.Tensor, audio_len: torch.Tensor,
                 token_embedding: torch.Tensor, *, training: bool = False, global_step=None,
-                generator: Optional[torch.Generator] = None, **_) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, group=None,
+                **_) -> Dict[str, torch.Tensor]:
         k = self.head.cfg.keyword_num
         src, mask = _prepend(self.cls, audio_feat, audio_len)
         out = self.self_att(src, key_padding_mask=mask, generator=generator)
         vq_results, keywords = self.head(out[:, :k, :], token_embedding, training, generator,
-                                         global_step)
+                                         global_step, group)
         return {"vq_results": vq_results, "keywords": keywords, "keyword_num": k}
 
     def extract_hidden_states(self, audio_feat, audio_len) -> Tuple[torch.Tensor, ...]:
@@ -398,11 +404,12 @@ class HybridBranch(nn.Module):
 
     def forward(self, audio_feat: torch.Tensor, audio_len: torch.Tensor,
                 token_embedding: torch.Tensor, *, training: bool = False, global_step=None,
-                generator: Optional[torch.Generator] = None, **_) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None, group=None,
+                **_) -> Dict[str, torch.Tensor]:
         k = self.head.cfg.keyword_num
         out = self._attend(audio_feat, audio_len, generator)
         vq_results, keywords = self.head(out[:, 1: 1 + k, :], token_embedding, training,
-                                         generator, global_step)
+                                         generator, global_step, group)
         return {"parallel_audio_feat": self._project(out[:, 0, :]),
                 "vq_results": vq_results, "keywords": keywords, "keyword_num": k}
 
@@ -414,14 +421,15 @@ class HybridBranch(nn.Module):
 
 
 def _downsample_head(branch, frames, pad_mask, token_embedding, target_len, global_step,
-                     training, generator):
+                     training, generator, group):
     """CIF, then the dynamic keyword head: the tail of both plus branches."""
     dsample = branch.downsampling(frames, pad_mask, target_len if training else None,
-                                  global_step, training=training, generator=generator)
+                                  global_step, training=training, generator=generator,
+                                  group=group)
     if target_len is not None:
         dsample["target_len"] = target_len
     vq_results, keywords = branch.head(dsample["dsample_feats"], token_embedding, training,
-                                       generator, global_step)
+                                       generator, global_step, group)
     return {"vq_results": vq_results, "keywords": keywords, "dsample_results": dsample,
             "keywords_len": dsample["dsample_feats_length"]}
 
@@ -440,11 +448,12 @@ class CascadedBranchPlus(nn.Module):
     def forward(self, audio_feat: torch.Tensor, audio_len: torch.Tensor,
                 token_embedding: torch.Tensor, *, target_len: Optional[torch.Tensor] = None,
                 global_step=None, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                group=None) -> Dict[str, torch.Tensor]:
         pad_mask = get_keypadding_mask(audio_feat.shape[1], audio_len)
         x = self.self_att(audio_feat, key_padding_mask=pad_mask, generator=generator)
         return _downsample_head(self, x, pad_mask, token_embedding, target_len, global_step,
-                                training, generator)
+                                training, generator, group)
 
     def extract_hidden_states(self, audio_feat, audio_len) -> Tuple[torch.Tensor, ...]:
         pad_mask = get_keypadding_mask(audio_feat.shape[1], audio_len)
@@ -478,12 +487,14 @@ class HybridBranchPlus(nn.Module):
     def forward(self, audio_feat: torch.Tensor, audio_len: torch.Tensor,
                 token_embedding: torch.Tensor, *, target_len: Optional[torch.Tensor] = None,
                 global_step=None, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                group=None) -> Dict[str, torch.Tensor]:
         """`target_len` and `global_step` drive CIF's train-time scaling;
-        `generator` turns the dropouts on."""
+        `generator` turns the dropouts on; `group` takes the keyword-BN and VQ
+        statistics over the data-parallel global batch."""
         out, mask = self._attend(audio_feat, audio_len, generator)
         result = _downsample_head(self, out[:, 1:, :], mask[:, 1:], token_embedding,
-                                  target_len, global_step, training, generator)
+                                  target_len, global_step, training, generator, group)
         result["parallel_audio_feat"] = self.parallel_proj(out[:, 0, :].float())
         return result
 

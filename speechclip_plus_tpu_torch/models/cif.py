@@ -31,6 +31,7 @@ from torch import nn
 
 from ..nn.dropout import dropout
 from ..ops.cif import MAX_FEAT_LEN, integrate_and_fire, scale_alpha
+from ..parallel.mesh import global_mean
 
 __all__ = ["CifConfig", "CIF"]
 
@@ -107,10 +108,12 @@ class CIF(nn.Module):
     def forward(self, audio_feat: torch.Tensor, pad_mask: torch.Tensor,
                 target_lengths: Optional[torch.Tensor] = None, global_step=None, *,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                group=None) -> Dict[str, torch.Tensor]:
         """audio_feat (B, S, D), pad_mask (B, S) bool (True = pad);
         target_lengths (B,) and the optimizer step drive the train-time
-        scaling; `generator` turns the dropouts on."""
+        scaling; `generator` turns the dropouts on; `group` takes the logged
+        `dsample_len_diff` over the data-parallel global batch."""
         c, cd = self.cfg, self.cfg.compute_dtype
         if c.produce_weight_type == "dense":
             lin = self.dense_proj
@@ -141,6 +144,7 @@ class CIF(nn.Module):
                 result["dsample_feats_pad_mask"][:, :, None], 0.0)
         if target_lengths is not None:
             result["target_len"] = target_lengths
-            result["dsample_len_diff"] = (result["dsample_feats_length"].float()
-                                          - target_lengths.float()).abs().mean()
+            result["dsample_len_diff"] = global_mean(
+                (result["dsample_feats_length"].float() - target_lengths.float()).abs().mean(),
+                group)
         return result

@@ -442,12 +442,17 @@ class HubertModel(nn.Module):
                 layer_weights: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 return_hidden_states: bool = False,
-                normalize_contrib: bool = False) -> dict:
+                normalize_contrib: bool = False,
+                layer_drop_generator: Optional[torch.Generator] = None) -> dict:
         """wav (B, T), wav_padding_mask (B, T) bool (True = pad), layer_weights
         (L+1,) fp32 softmax weights, or None for no weighted sum; `generator`
-        turns the dropouts (and LayerDrop) on. Returns the last hidden state
+        turns the dropouts (and LayerDrop) on. LayerDrop's one draw for the
+        whole batch comes from `layer_drop_generator` where given (data
+        parallelism: a generator every rank shares, JAX's one global draw),
+        else from `generator`. Returns the last hidden state
         `x`, the fp32 `weighted_sum` (B, T', D) and the frame `padding_mask`
-        (B, T'); with `return_hidden_states` also `hidden_states`, the
+        (B, T'), with LayerDrop the (L,) bool `layer_keep`; with
+        `return_hidden_states` also `hidden_states`, the
         (L+1, B, T', D) stack of the encoder input and every layer's output in
         the tower's dtype. `normalize_contrib` layer-norms each hidden state in
         fp32 (no parameters, eps 1e-5) before its weight (s3prl's normalized
@@ -472,7 +477,8 @@ class HubertModel(nn.Module):
         keep = None
         if c.layer_drop > 0.0 and g is not None:
             keep = torch.empty(len(self.layers), device=x.device).bernoulli_(
-                1.0 - c.layer_drop, generator=g).bool()
+                1.0 - c.layer_drop,
+                generator=g if layer_drop_generator is None else layer_drop_generator).bool()
 
         def contrib(h):
             h = h.float()
@@ -491,6 +497,8 @@ class HubertModel(nn.Module):
             if hidden is not None:
                 hidden[i + 1] = x
         out = {"x": x, "weighted_sum": acc, "padding_mask": pad}
+        if keep is not None:
+            out["layer_keep"] = keep
         if hidden is not None:
             out["hidden_states"] = hidden
         return out

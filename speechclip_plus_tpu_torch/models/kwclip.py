@@ -419,7 +419,8 @@ class KWClip(nn.Module):
 
     def forward_audio(self, wav: torch.Tensor, wav_len: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      return_hidden_states: bool = False):
+                      return_hidden_states: bool = False,
+                      layer_drop_generator: Optional[torch.Generator] = None):
         """Frozen tower + the feature `feat_select_idx` names -> (feat
         (B, T', D) fp32, or (n, B, T', D) for n > 1 indices, feat_len (B,)),
         and with `return_hidden_states` the tower's (L+1, B, T', D) stack
@@ -433,7 +434,8 @@ class KWClip(nn.Module):
         fused = c.feat_select_idx == "weighted_sum" and (s3prl or not c.normalize_hiddenstates)
         out = self.audio_encoder(wav, pad, layer_weights(self.weightedsum) if fused else None,
                                  generator, return_hidden_states=return_hidden_states or not fused,
-                                 normalize_contrib=s3prl)
+                                 normalize_contrib=s3prl,
+                                 layer_drop_generator=layer_drop_generator)
         hidden = out.get("hidden_states")
         if fused:
             feat = out["weighted_sum"]
@@ -525,25 +527,33 @@ class KWClip(nn.Module):
         return self.cascaded_branch.get_attention_map(*self.forward_audio(wav, wav_len))
 
     def forward(self, batch: Dict[str, torch.Tensor], *, training: bool = False,
-                global_step=None,
-                generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict, Dict]:
+                global_step=None, generator: Optional[torch.Generator] = None,
+                group=None, layer_drop_generator: Optional[torch.Generator] = None
+                ) -> Tuple[Dict, Dict, Dict]:
         """JAX `KWClip.__call__`: (loss_feats, log_metrics, others) for a batch
         with `wav`, `wav_len`, `id` and `image` or a cached `image_feat`.
         Dropout draws from `generator`; None runs without dropout (flax's
         `deterministic=True`). `global_step` is the optimizer step (CIF
-        scaling)."""
+        scaling). Under data parallelism `batch` holds this rank's rows,
+        `group` (``parallel/mesh.py``) takes the keyword-BN and VQ statistics
+        over the global batch and `layer_drop_generator` is the generator
+        every rank shares for LayerDrop; the loss features stay per rank (the
+        step gathers them)."""
         idx = self.cfg.feat_select_idx
         if isinstance(idx, tuple) and len(idx) > 1:
             raise NotImplementedError(
                 "a multi-layer feat_select_idx is a feature-extraction surface (forward_audio, "
                 "feature_extractor): the branches take one (B, T, D) feature, as in JAX")
-        feat, feat_len = self.forward_audio(batch["wav"], batch["wav_len"], generator)
+        feat, feat_len = self.forward_audio(batch["wav"], batch["wav_len"], generator,
+                                            layer_drop_generator=layer_drop_generator)
         return self.forward_from_audio(feat, feat_len, batch, training=training,
-                                       global_step=global_step, generator=generator)
+                                       global_step=global_step, generator=generator,
+                                       group=group)
 
     def forward_from_audio(self, audio_feat: torch.Tensor, audio_feat_len: torch.Tensor,
                            batch: Dict[str, torch.Tensor], *, training: bool = False,
-                           global_step=None, generator: Optional[torch.Generator] = None):
+                           global_step=None, generator: Optional[torch.Generator] = None,
+                           group=None):
         """Everything downstream of the acoustic tower (JAX ``:859-992``)."""
         c = self.cfg
         if batch.get("image_feat") is not None:
@@ -568,7 +578,7 @@ class KWClip(nn.Module):
             out = self.cascaded_branch(
                 audio_feat, audio_feat_len, self.clip.text.token_embedding.weight,
                 target_len=target_len, global_step=global_step, training=training,
-                generator=generator)
+                generator=generator, group=group)
         else:
             out = self.parallel_branch(audio_feat, audio_feat_len, generator)
         ids = batch["id"]

@@ -130,10 +130,12 @@ class MelUpstream(nn.Module):
                 layer_weights: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 return_hidden_states: bool = False,
-                normalize_contrib: bool = False) -> dict:
+                normalize_contrib: bool = False,
+                layer_drop_generator: Optional[torch.Generator] = None) -> dict:
         """As `HubertModel.forward`: wav (B, T), wav_padding_mask (B, T) bool
         (True = pad), layer_weights (L,) fp32 softmax weights or None;
-        `generator` turns the dropouts on. Returns `x` (the last hidden state),
+        `generator` turns the dropouts on (no LayerDrop: `layer_drop_generator`
+        is accepted and unused). Returns `x` (the last hidden state),
         the fp32 `weighted_sum` (B, T', D) or None, the frame `padding_mask`
         (B, T'), and with `return_hidden_states` the (L, B, T', D)
         `hidden_states` in the tower's dtype. `normalize_contrib` layer-norms

@@ -33,6 +33,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from ..parallel.mesh import global_mean
+
 __all__ = ["cosine_vq_stats", "plain_cosine_vq_stats", "st_backward", "plain_st_backward",
            "fused_cosine_vq", "LAUNCHES", "BWD_LAUNCHES", "D768_LAUNCHES",
            "BWD_D768_LAUNCHES"]
@@ -350,6 +352,7 @@ def fused_cosine_vq(
     prob_msk: Sequence[int] = (0, 2, 3),
     dtype: torch.dtype = torch.bfloat16,
     training: bool = False,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """Cosine score + SimpleVectorQuantizer, hard form.
 
@@ -359,7 +362,9 @@ def fused_cosine_vq(
     `training` gives the keywords the straight-through gradient (K3b).
     Returns the JAX `fused_cosine_vq` result dict without `subword_prob`
     (the (B, K, V) one-hot nothing reads). Nothing in it waits for the card
-    once the column mask of (V, prob_msk) is on the device."""
+    once the column mask of (V, prob_msk) is on the device. With a
+    data-parallel `group` the column sums, the code counts and the entropy
+    are taken over the global batch (logs: the loss never reads them)."""
     if emb.requires_grad:
         raise ValueError("fused_cosine_vq: the codebook must be frozen (no codebook gradient)")
     b, kk, d = xn.shape
@@ -372,11 +377,11 @@ def fused_cosine_vq(
     flat = xn.reshape(n, d).to(dtype).contiguous()
     k, ent, psum = cosine_vq_stats(flat, en, mask)
     k = k.long()
-    avg_probs = psum / n
+    avg_probs = global_mean(psum / n, group)
     # the counts by index_add_, exact in fp32: bincount reads its size back to
     # the host
-    hard_probs = torch.zeros(v, device=xn.device).index_add_(
-        0, k, torch.ones(n, device=xn.device)) / n
+    hard_probs = global_mean(torch.zeros(v, device=xn.device).index_add_(
+        0, k, torch.ones(n, device=xn.device)) / n, group)
     perplexity = lambda p: torch.exp(-(p * torch.log(p + 1e-7)).sum())
     if not torch.is_tensor(temp):
         temp = torch.full((), float(temp), dtype=torch.float32, device=xn.device)
@@ -388,7 +393,7 @@ def fused_cosine_vq(
         "num_vars": v,
         "prob_perplexity": perplexity(avg_probs),
         "code_perplexity": perplexity(hard_probs),
-        "ent_per_t": ent.reshape(b, kk).mean(dim=0),
+        "ent_per_t": global_mean(ent.reshape(b, kk).mean(dim=0), group),
         "temp": temp.detach(),
         "targets": k.reshape(b, kk, 1),
         "keywords": keywords.reshape(b, kk, d),

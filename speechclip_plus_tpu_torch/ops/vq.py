@@ -15,12 +15,19 @@ text tower turns it off, since K3 and K3b give no codebook gradient), or a
 training form that is not straight-through (Gumbel, `hard: false`), or
 `time_first: false`. Otherwise the head takes K3 / K3b
 (``ops/fused_keyword.py``), which never builds the (B, T, V) tensor.
+
+The batch-reduced statistics (the code and prob perplexities, `ent_per_t`,
+`diversity_loss`) are logs, never trained on; with a data-parallel `group`
+(``parallel/mesh.py``) they are taken over the global batch, as JAX's
+global-view step takes them.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from ..parallel.mesh import global_mean
 
 __all__ = ["simple_vector_quantizer", "scheduled_temperature", "st_codebook_matmul"]
 
@@ -89,12 +96,14 @@ def simple_vector_quantizer(
     time_first: bool = True,
     codebook: Optional[torch.Tensor] = None,
     fused_st: bool = True,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """x: (B, T, V) cosine scores ((B, V, T) with `time_first=False`); temp a
     float or a 0-d tensor (which may take a gradient). Returns code/prob
     perplexity, ent_per_t (T,), diversity_loss, temp, targets (B, T, 1),
     subword_prob (B, T, V) and, with a (V, D) `codebook`, keywords (fp32).
-    Gumbel noise comes from `generator`, which it then requires."""
+    Gumbel noise comes from `generator`, which it then requires; `group`
+    takes the statistics over the data-parallel global batch."""
     if not time_first:
         x = x.transpose(1, 2)
     b, t, v = x.shape
@@ -116,10 +125,10 @@ def simple_vector_quantizer(
     soft_all = torch.softmax(flat_sg, dim=-1)
     result = {
         "num_vars": v,
-        "code_perplexity": perplexity(hard_probs),
-        "prob_perplexity": perplexity(soft_all.mean(dim=0)),
-        "ent_per_t": (-(soft_all * torch.log(soft_all + 1e-9)).sum(dim=-1)).reshape(b, t)
-        .mean(dim=0),
+        "code_perplexity": perplexity(global_mean(hard_probs, group)),
+        "prob_perplexity": perplexity(global_mean(soft_all.mean(dim=0), group)),
+        "ent_per_t": global_mean((-(soft_all * torch.log(soft_all + 1e-9)).sum(dim=-1))
+                                 .reshape(b, t).mean(dim=0), group),
         "temp": temp.detach(),
     }
     out_k = k

@@ -1,8 +1,8 @@
 """Optimizer and schedule wiring.
 
 Port of ``speechclip_plus_tpu/optim/optimizer.py`` (reference
-``avssl/model/kwClip.py:646-674``): one Adam over the trainable parameters
-only, with the trainer's global-norm clip and the LR schedule stepped per
+``avssl/model/kwClip.py:646-674``): one Adam (or AdamW) over the trainable
+parameters only, with the trainer's global-norm clip and the LR schedule stepped per
 optimizer step. The trainable set is JAX's (`trainable_mask`,
 `audio_subset_mask`, ``:43-130``), which `KWClip` applies as `requires_grad`:
 the branches, projections and temperatures; the acoustic tower when it
@@ -16,7 +16,10 @@ clip_by_global_norm -> add_decayed_weights (torch Adam's coupled L2) ->
 scale_by_adam -> lr schedule; here:
 
   - `torch.optim.Adam` (β 0.9/0.999, eps 1e-8) with `weight_decay` as its
-    coupled L2, which adds wd·p to the gradient before the moments;
+    coupled L2, which adds wd·p to the gradient before the moments; or, for
+    `adamw`, `torch.optim.AdamW`, whose decay acts after the moments and is
+    scaled by the scheduled learning rate, p ← p − lr (m̂/(√v̂+ε) + wd·p), as
+    JAX's scale_by_adam -> add_decayed_weights -> lr schedule (``:151-157``);
   - the clip uses optax's formula g·min(1, c/‖g‖) over the trainable
     gradients, not torch's `clip_grad_norm_` (c/(‖g‖+1e-6));
   - the learning rate is set from the schedule before each Adam step, at the
@@ -84,17 +87,19 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """Adam with coupled L2 over `params`, global-norm clip and an LR
-    schedule. `apply(grads, step)` takes the (mean) gradient of one
-    optimizer step, aligned with `params`."""
+    """Adam with coupled L2 (or AdamW's decoupled decay, `decoupled=True`)
+    over `params`, global-norm clip and an LR schedule. `apply(grads, step)`
+    takes the (mean) gradient of one optimizer step, aligned with `params`."""
 
     def __init__(self, params: Sequence[nn.Parameter], *, lr: float, weight_decay: float,
-                 schedule: Callable[[int], float], gradient_clip_val: float = 0.0):
+                 schedule: Callable[[int], float], gradient_clip_val: float = 0.0,
+                 decoupled: bool = False):
         self.params: List[nn.Parameter] = list(params)
         self.schedule = schedule
         self.gradient_clip_val = float(gradient_clip_val or 0.0)
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                     weight_decay=weight_decay)
+        adam = torch.optim.AdamW if decoupled else torch.optim.Adam
+        self.adam = adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=weight_decay)
 
     @torch.no_grad()
     def apply(self, grads: Sequence[torch.Tensor], step: int) -> None:
@@ -115,13 +120,15 @@ def build_optimizer(model: nn.Module, *, optim_name: str = "Adam", lr: float = 1
                     weight_decay: float = 1e-6, scheduler_name: str = "linear_warmup_decay",
                     scheduler_args: Optional[dict] = None,
                     gradient_clip_val: float = 4.0) -> Optimizer:
-    """Adam over the model's trainable parameters (reference trainer settings)."""
-    if optim_name.lower() != "adam":
-        raise NotImplementedError(f"optimizer {optim_name!r} (the port has Adam)")
+    """Adam or AdamW over the model's trainable parameters (reference
+    trainer settings)."""
+    if optim_name.lower() not in ("adam", "adamw"):
+        raise NotImplementedError(f"optimizer {optim_name!r} (the port has Adam and AdamW)")
     schedule = get_schedule(scheduler_name, lr, **(scheduler_args or {}))
     return Optimizer([p for _, p in trainable_parameters(model)], lr=lr,
                      weight_decay=weight_decay, schedule=schedule,
-                     gradient_clip_val=gradient_clip_val)
+                     gradient_clip_val=gradient_clip_val,
+                     decoupled=optim_name.lower() == "adamw")
 
 
 def build_optimizer_from_config(model: nn.Module, cfg_node) -> Optimizer:

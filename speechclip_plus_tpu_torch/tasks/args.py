@@ -27,7 +27,10 @@ def add_general_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentP
                         help="torch device the model trains on (default the GPU; "
                              "`cpu` runs the kernels' plain twins)")
     parser.add_argument("--devices", type=int, default=-1,
-                        help="number of devices (-1 = one; the port trains on one GPU)")
+                        help="data-parallel ranks, one process each: -1 = every visible GPU "
+                             "(one on the CPU), N = the first N; without a launcher N > 1 "
+                             "spawns the ranks on this host, under torchrun or the "
+                             "SPEECHCLIP_* variables it must equal the world size")
     parser.add_argument("--gpus", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--seed", type=int, default=7122, help="random seed")
     parser.add_argument("--dataset_root", type=str, default=None,

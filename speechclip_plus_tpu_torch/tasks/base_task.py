@@ -7,6 +7,15 @@ asks for the CPU), construct split datasets + loaders, two metric-monitored
 checkpoints, logger, then fit and/or validate. The frozen image tower's
 features are cached once by default (`data.cache_image_embeddings`), as in
 the JAX task.
+
+`--devices` follows JAX: -1 is every visible GPU (one on the CPU), N the
+first N. Data parallelism runs one process per device: under a process group
+(torchrun, or the SPEECHCLIP_* variables, ``parallel/multihost.py``) the
+task runs on `cuda:LOCAL_RANK` (gloo ranks on the CPU with `--device cpu`)
+and `--devices` must equal the world size; without one, N > 1 spawns N ranks
+on this host (`torch.multiprocessing`, a free local port), each running the
+task, and `run` returns None. One device and no process group is the
+single-process path.
 """
 from __future__ import annotations
 
@@ -14,14 +23,17 @@ import argparse
 import logging
 import os
 import random
+import socket
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ConfigNode, load_config
 from ..data import BucketedLoader, CoCoDataset, FlickrDataset
+from ..parallel.multihost import local_device, maybe_initialize_distributed
 from ..utils.log import set_logging, set_metrics_logger
 from .args import add_general_arguments
 from .builder import build_model_from_config
@@ -77,6 +89,39 @@ def _build_dataset(cfg: ConfigNode, split: str, tokenizer=None, image_size: int 
     raise NotImplementedError(d.name)
 
 
+def requested_ranks(devices: Optional[int], device: str) -> int:
+    """The data-parallel ranks `--devices` asks for on `device`: on the GPU
+    at most the visible ones; on the CPU any number of gloo ranks."""
+    if torch.device(device).type != "cuda":
+        return 1 if devices is None or devices < 0 else max(int(devices), 1)
+    visible = torch.cuda.device_count()
+    if devices is None or devices < 0:
+        return max(visible, 1)
+    if devices > max(visible, 1):
+        raise ValueError(f"--devices {devices}: {visible} GPU(s) visible")
+    return max(int(devices), 1)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(rank: int, task_cls, args, config, world: int, port: int) -> None:
+    """One rank `run` spawned: the environment torchrun would give it, the
+    process group, the task, and the group's shutdown."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    maybe_initialize_distributed(device=args.device)
+    try:
+        task = task_cls()
+        task.args = args
+        task.run(config)
+    finally:
+        dist.destroy_process_group()
+
+
 class TrainSpeechClipBaseTask(BaseTask):
     """Reference `TrainSpeechClipBaseTask.run` (`base_task.py:55-215`);
     the image cache's seconds join `Trainer.timings["image_cache_s"]`."""
@@ -86,10 +131,22 @@ class TrainSpeechClipBaseTask(BaseTask):
         args = self.args
         set_logging(args.log_level)
         seed_everything(args.seed)
-        if args.devices is not None and args.devices > 1:
-            raise NotImplementedError(
-                f"--devices {args.devices}: the port trains on one GPU "
-                "(ROADMAP.md queue A item 8)")
+        device, rank = args.device, 0
+        if dist.is_initialized():
+            world = dist.get_world_size()
+            if args.devices is not None and args.devices > 0 and args.devices != world:
+                raise ValueError(f"--devices {args.devices} under a process group of {world}")
+            device, rank = local_device(), dist.get_rank()
+            if rank:
+                set_logging("WARNING")  # only rank 0 logs
+        else:
+            n = requested_ranks(args.devices, args.device)
+            if n > 1:
+                import torch.multiprocessing as mp
+
+                mp.start_processes(_spawned_rank, args=(type(self), args, config, n, free_port()),
+                                   nprocs=n, join=True, start_method="spawn")
+                return None
         lightning_sd = None
         if args.ckpt and not args.ckpt.endswith(".ckpt"):
             raise NotImplementedError(
@@ -122,7 +179,7 @@ class TrainSpeechClipBaseTask(BaseTask):
 
             tokenizer = SimpleTokenizer(bpe_path)
 
-        model, model_cfg, vocab = build_model_from_config(cfg, device=args.device, seed=args.seed)
+        model, model_cfg, vocab = build_model_from_config(cfg, device=device, seed=args.seed)
         if lightning_sd is not None:
             from ..checkpoint import lightning_to_kwclip
 
@@ -149,7 +206,7 @@ class TrainSpeechClipBaseTask(BaseTask):
 
         save_path = args.save_path
         metrics_logger = set_metrics_logger(save_path, getattr(cfg, "logger", None),
-                                            config=cfg.to_dict())
+                                            config=cfg.to_dict(), rank=rank)
         trainer = Trainer(model, cfg, save_path, seed=args.seed,
                           metrics_logger=metrics_logger, tokenizer_decoder=decoder,
                           text_processor=text_processor)
@@ -209,5 +266,6 @@ class TrainSpeechClipBaseTask(BaseTask):
                 metrics = trainer.validate(eval_loader)
             finally:
                 eval_loader.close()
-            print({k: round(v, 4) for k, v in metrics.items()})
+            if rank == 0:
+                print({k: round(v, 4) for k, v in metrics.items()})
         return trainer

@@ -10,15 +10,24 @@ save_last, top-3 val_recall_mean_10, `base_task.py:174-195`), keyword
 detokenization JSON + PCA artifacts every N epochs (`kwClip.py:295-445`),
 full-state resume and the preemption save at an optimizer-step boundary.
 
-The JAX package's mesh and sharding become one `.to(device)` of each batch
-array; the dropout generator of every micro-step is `training_key(seed,
-step)`, so a resumed run repeats an unbroken one. `timings` keeps the loop's
-own clock: the host's wait on the loader (and the copy to the device) per
-micro-step, the seconds of each pass over the training loader (from its
-start to the end of its last step on the device, so each epoch's loader
-restart is in it and no validation or save is), of each validation (keyword
-artifacts included, and also kept apart), checkpoint save and image-cache
-build (the task appends those).
+Alone, each batch array makes one `.to(device)`. Under a process group
+(``parallel/multihost.py``) the JAX package's 1-D data mesh becomes a
+`DataGroup` of W ranks (``parallel/mesh.py``): a `BucketedLoader` decodes
+only this rank's rows of each global batch (`set_shard`), any other loader's
+global batch is padded to a multiple of W with `valid=False` rows and sliced
+(JAX ``:140-163``); the steps take the loss and the statistics over the
+global batch; only rank 0 writes checkpoints, `fit_state.json`, metrics and
+keyword artifacts, and a barrier follows; every rank reads a resume; a
+preemption flag is all-reduced at each optimizer-step boundary, so every rank
+stops at the same step. The generators of every micro-step are
+`step_generators(seed, step, ...)`, so a resumed run repeats an unbroken one.
+`timings` keeps the loop's own clock: the host's wait on the loader (and the
+copy to the device) per micro-step, the seconds of each pass over the
+training loader (from its start to the end of its last step on the device,
+so each epoch's loader restart is in it and no validation or save is), of
+each validation (keyword artifacts included, and also kept apart), checkpoint
+save and image-cache build (the task appends those), and under a group the
+gradient all-reduce's seconds per optimizer step (`allreduce_s`).
 """
 from __future__ import annotations
 
@@ -35,8 +44,10 @@ from ..checkpoint import CheckpointManager
 from ..models.kwclip import KWClip
 from ..ops.retrieval import mutual_retrieval
 from ..optim.optimizer import build_optimizer_from_config
+from ..parallel.mesh import any_rank, barrier, make_mesh, pad_batch, shard_batch
+from ..parallel.multihost import make_global_batch
 from ..parallel.train_step import (create_train_state, make_eval_step, make_train_step,
-                                   training_key)
+                                   step_generators)
 from ..utils.keyword_extraction import KeywordDecoder, extract_keyword_neighbors
 from ..utils.log import MetricsLogger
 from ..utils.visualization import draw_embedding_space_pca
@@ -68,15 +79,19 @@ class Trainer:
         tp = int(getattr(cfg_node.trainer, "tensor_parallel", 1) or 1)
         if tp > 1:
             raise NotImplementedError(
-                f"trainer.tensor_parallel={tp}: the port trains on one GPU "
-                "(ROADMAP.md queue A item 8)")
+                f"trainer.tensor_parallel={tp}: the port has data parallelism only; "
+                "tensor parallelism is ROADMAP.md queue A item 8b")
+        # the data group of the process group, None alone (JAX :63-81)
+        self.group = make_mesh(self.device)
+        self.writer = self.group is None or self.group.rank == 0
 
         self.optimizer = build_optimizer_from_config(model, cfg_node)
         self.accum = max(
             int(getattr(cfg_node.trainer, "accumulate_grad_batches", 1) or 1), 1)
         self.state = create_train_state(self.optimizer)
-        self.train_step = make_train_step(model, self.optimizer, self.accum)
-        self.eval_step = make_eval_step(model)
+        self.train_step = make_train_step(model, self.optimizer, self.accum, group=self.group)
+        self.eval_step = make_eval_step(model, group=self.group)
+        self._allreduce_timer = self.train_step.timer
 
         trainer_cfg = cfg_node.trainer
         # max_steps counts *optimizer* steps (Lightning semantics): with
@@ -91,34 +106,43 @@ class Trainer:
             getattr(log_setting, "log_detokenize_results_every_n_epoch", 10) or 10)
         self.pca_every = int(getattr(log_setting, "log_draw_pca_every_n_epoch", 0) or 0)
         self.recall_at = tuple(getattr(cfg_node.retrieval, "recall_at", [1, 5, 10]))
-        self.metrics_logger = metrics_logger or MetricsLogger(save_path)
+        self.metrics_logger = metrics_logger or MetricsLogger(save_path, enabled=self.writer)
         self.tokenizer_decoder = tokenizer_decoder
         self.text_processor = text_processor
 
         self.ckpt = CheckpointManager(
             os.path.join(save_path, "checkpoints"),
             config=cfg_node.to_dict() if hasattr(cfg_node, "to_dict") else None,
+            writer=self.writer,
         )
         self.epoch = 0
         # preemption: fit() installs SIGTERM/SIGINT handlers that set this
         # flag; the loop checkpoints and returns at the next optimizer-step
         # boundary
         self._preempt_signum: Optional[int] = None
+        self._stop_flag = None  # reads the flags all-reduced at the last boundary
         self._skip_batches = 0
         self.timings: Dict[str, list] = {"loader_wait_s": [], "train_s": [], "validate_s": [],
-                                         "save_s": [], "artifacts_s": [], "image_cache_s": []}
+                                         "save_s": [], "artifacts_s": [], "image_cache_s": [],
+                                         "allreduce_s": []}
 
     # ------------------------------------------------------------- fit ----
 
-    def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """numpy batch -> tensors on the model's device (one copy each)."""
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+    def _shard(self, loader) -> bool:
+        """Under a group, have a loader that can decode only this rank's rows
+        of each global batch do so; returns whether its batches are local."""
+        if self.group is None or not hasattr(loader, "set_shard"):
+            return False
+        loader.set_shard(self.group.rank, self.group.world)
+        return True
+
+    def _device_batch(self, batch: Dict, local: bool = False) -> Dict[str, torch.Tensor]:
+        """numpy batch -> tensors on the model's device (one copy each); under
+        a group a global batch (`local` False) is padded and sliced to this
+        rank's rows first."""
+        if self.group is not None and not local:
+            batch = shard_batch(pad_batch(batch, self.group.world), self.group)
+        return make_global_batch(batch, self.group, self.device)
 
     @property
     def _fit_state_path(self) -> str:
@@ -128,10 +152,13 @@ class Trainer:
         """Persist the loop state the checkpoint doesn't carry (epoch, and for
         a mid-epoch preemption save the batches already consumed this epoch),
         so resume continues the shuffle order, validation cadence and
-        artifact numbering instead of replaying epoch 0."""
-        with open(self._fit_state_path, "w") as f:
-            json.dump({"epoch": self.epoch, "opt_step": self.opt_step,
-                       "batches_done": batches_done}, f)
+        artifact numbering instead of replaying epoch 0. It follows every
+        save; under a group rank 0 writes and the ranks meet at a barrier."""
+        if self.writer:
+            with open(self._fit_state_path, "w") as f:
+                json.dump({"epoch": self.epoch, "opt_step": self.opt_step,
+                           "batches_done": batches_done}, f)
+        barrier(self.group)
 
     def _save(self, metrics: Optional[Dict[str, float]] = None) -> None:
         t0 = time.perf_counter()
@@ -192,9 +219,25 @@ class Trainer:
                 pass  # not the main thread (e.g. under a test runner)
         return prev
 
+    def _stop_at_boundary(self) -> bool:
+        """Whether to stop for a preemption at this optimizer-step boundary.
+        Under a group: the max over the ranks of the flags of the previous
+        boundary, all-reduced there and read here, so that reading it waits
+        only for the step before last and every rank stops at the same step."""
+        if self.group is None:
+            return self._preempt_signum is not None
+        pending = self._stop_flag
+        self._stop_flag = any_rank(self._preempt_signum is not None, self.group)
+        return pending is not None and pending()
+
+    def _stop_now(self) -> bool:
+        """The same, read at once (after a pass, validation and save)."""
+        if self.group is None:
+            return self._preempt_signum is not None
+        return any_rank(self._preempt_signum is not None, self.group)()
+
     def _preempt_save(self, batches_done: int) -> None:
-        if self.ckpt.latest_step() != self.opt_step:
-            self._save()
+        self._save()  # the manager skips a step it holds
         self._save_fit_state(batches_done=batches_done)
         logger.warning(
             "preempted (signal %s): checkpointed at opt_step %d, epoch %d, "
@@ -217,6 +260,8 @@ class Trainer:
         # off (the loader seeds each epoch's order on seed+epoch)
         if hasattr(train_loader, "set_epoch"):
             train_loader.set_epoch(self.epoch)
+        local = self._shard(train_loader)
+        self._stop_flag = None
         prev_handlers = self._install_preempt_handlers()
         try:
             while self.opt_step < self.max_steps:
@@ -234,8 +279,7 @@ class Trainer:
                     i += 1
                     if i < skip:
                         continue
-                    if (self._preempt_signum is not None
-                            and int(self.state.step) % self.accum == 0):
+                    if int(self.state.step) % self.accum == 0 and self._stop_at_boundary():
                         # optimizer-step boundary: the grad accumulator is
                         # empty, so the saved state is exact and resume can
                         # re-enter the shuffle stream at batch i
@@ -248,10 +292,12 @@ class Trainer:
                         epoch_complete = False
                         break
                     micro_step = int(self.state.step)
-                    dev_batch = self._device_batch(batch)
+                    dev_batch = self._device_batch(batch, local)
                     self.timings["loader_wait_s"].append(time.perf_counter() - t0)
-                    metrics = self.train_step(
-                        self.state, dev_batch, training_key(self.seed, micro_step, self.device))
+                    gen, layer_drop_gen = step_generators(self.seed, micro_step, self.device,
+                                                          self.group)
+                    extra = () if layer_drop_gen is None else (layer_drop_gen,)
+                    metrics = self.train_step(self.state, dev_batch, gen, *extra)
                     if micro_step % self.log_every == 0:
                         names = [k for k, v in metrics.items() if torch.as_tensor(v).ndim == 0]
                         values = torch.stack([torch.as_tensor(metrics[k]).float()
@@ -268,6 +314,7 @@ class Trainer:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.timings["train_s"].append(time.perf_counter() - t_pass)
+                self.timings["allreduce_s"] += self._allreduce_timer.collect()
                 if not epoch_complete:
                     break
                 self.epoch += 1
@@ -275,7 +322,7 @@ class Trainer:
                     self._validate_and_save(val_loader)
                     last_log_time = time.time()  # don't bill val time to steps/sec
                     last_log_step = int(self.state.step)
-                if self._preempt_signum is not None:
+                if self._stop_now():
                     # arrived during validation/checkpointing: the epoch-end
                     # save above already persisted a clean boundary
                     self._preempt_save(batches_done=0)
@@ -291,8 +338,9 @@ class Trainer:
     def validate(self, val_loader: Iterable) -> Dict[str, float]:
         all_out = []
         agg: Dict[str, list] = {}
+        local = self._shard(val_loader)
         for batch in val_loader:
-            metrics, out = self.eval_step(self.state, self._device_batch(batch))
+            metrics, out = self.eval_step(self.state, self._device_batch(batch, local))
             valid = out.get("valid")
             # scalar metrics are per-batch means over *valid* rows; weight
             # the cross-batch aggregate by valid count so a final padded
@@ -342,7 +390,8 @@ class Trainer:
 
         # ---- keyword artifacts (reference kwClip.py:295-445) ----
         has_keywords = any("keywords" in o for o in all_out)
-        if has_keywords and self.log_detok and self.epoch % self.detok_every == 0:
+        if (has_keywords and self.log_detok and self.epoch % self.detok_every == 0
+                and self.writer):
             t0 = time.perf_counter()
             self._dump_keyword_artifacts(all_out)
             self.timings["artifacts_s"].append(time.perf_counter() - t0)

@@ -9,8 +9,9 @@ metrics are logged through Lightning's `log_dict` with `sync_dist=True`
 
 Here: the same stdlib setup, plus a dependency-free `MetricsLogger` that
 writes JSONL (always) and mirrors to W&B / TensorBoard when those packages
-exist. One device computes the loss on the whole batch, so there is no
-separate sync step.
+exist. The loss is taken on the whole batch (under data parallelism every
+rank computes the same global loss), so there is no separate sync step, and
+only rank 0 writes (`enabled=False` elsewhere).
 """
 from __future__ import annotations
 
@@ -48,12 +49,16 @@ class MetricsLogger:
         project: Optional[str] = None,
         run_name: Optional[str] = None,
         config: Optional[dict] = None,
+        enabled: bool = True,
     ):
-        os.makedirs(save_dir, exist_ok=True)
         self.path = os.path.join(save_dir, "metrics.jsonl")
-        self._fh = open(self.path, "a", buffering=1)
+        self._fh = None
         self._wandb = None
         self._tb = None
+        if not enabled:
+            return
+        os.makedirs(save_dir, exist_ok=True)
+        self._fh = open(self.path, "a", buffering=1)
         if backend == "wandb":
             try:
                 import wandb
@@ -79,6 +84,8 @@ class MetricsLogger:
                 )
 
     def log(self, metrics: Dict, step: int) -> None:
+        if self._fh is None:
+            return
         row = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
             try:
@@ -94,17 +101,18 @@ class MetricsLogger:
                     self._tb.add_scalar(k, v, int(step))
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
         if self._tb is not None:
             self._tb.close()
 
 
-def set_metrics_logger(save_dir: str, logger_cfg, config: Optional[dict] = None
-                       ) -> MetricsLogger:
+def set_metrics_logger(save_dir: str, logger_cfg, config: Optional[dict] = None,
+                       rank: int = 0) -> MetricsLogger:
     """Build from the reference config schema (`trainer.logger` +
-    `logger.project`)."""
+    `logger.project`); a silent logger on a rank other than 0."""
     backend = None
     project = None
     if logger_cfg is not None:
@@ -112,4 +120,5 @@ def set_metrics_logger(save_dir: str, logger_cfg, config: Optional[dict] = None
             logger_cfg, "name", None
         )
         project = getattr(logger_cfg, "project", None)
-    return MetricsLogger(save_dir, backend=backend, project=project, config=config)
+    return MetricsLogger(save_dir, backend=backend, project=project, config=config,
+                         enabled=rank == 0)

@@ -6,7 +6,7 @@ tree (datasets -> worker loader -> image cache -> fit with validation,
 retrieval, keyword artifacts, checkpoints), then `--test --resume` from its
 checkpoints, as `tests/test_task_cli.py` drives the JAX package's CLI. Also:
 the entry points run on the card unless asked for the CPU, and what the port
-does not implement raises by name.
+does not implement, or the machine cannot give, raises by name.
 """
 import json
 import math
@@ -85,10 +85,16 @@ def test_cli_defaults_to_the_card():
                   "--eval"])
 
 
-@pytest.mark.parametrize("argv,match", [(["--devices", "2"], "queue A item 8"),
-                                        (["--ckpt", "exp/run/checkpoints"], "Lightning .ckpt")])
-def test_unported_options_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("argv,error,match", [
+    pytest.param(["--devices", "MORE", "--device", "cuda"], ValueError, "GPU", id="argv0-GPU"),
+    pytest.param(["--ckpt", "exp/run/checkpoints"], NotImplementedError, "Lightning .ckpt",
+                 id="argv1-Lightning .ckpt")])
+def test_unported_options_raise(argv, error, match):
+    # MORE: more GPUs than the machine shows, which raises before anything is
+    # built (data parallelism itself runs: tests/test_torch_multihost.py)
+    more = str(max(torch.cuda.device_count(), 1) + 1)
+    argv = [more if a == "MORE" else a for a in argv]
+    with pytest.raises(error, match=match):
         _run(["--config", os.path.join(REPO, TINY), "--device", "cpu", *argv])
 
 
