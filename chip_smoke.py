@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phase mel      # phase 2 at the base and path O shapes, then path O
     python3 chip_smoke.py --phase variants # phase 2 at the base shapes, then path P
     python3 chip_smoke.py --phase dp       # phase 2 at the base shapes, then path Q
+    python3 chip_smoke.py --phase tp       # phase 2 at the base shapes and R0, then path R
 
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -159,7 +160,7 @@ Phases, each fatal on failure:
   Q. data parallelism through the training entry point (`run_task` with
      synthetic_fit.yaml on phase J's synthetic tree, hybrid+ base, B=128,
      bf16, the prefetch thread), each leg in a process of its own (this
-     script with `--dp-leg`): Q1 a leg without a process group over 8 steps,
+     script with `--leg`): Q1 a leg without a process group over 8 steps,
      a leg under NCCL at world size 1 (torchrun's variables) over 6 steps and
      one resumed from it to 8; the NCCL legs' logged losses, validation and
      saved model and Adam state against the group-less leg's, bit for bit
@@ -168,6 +169,32 @@ Phases, each fatal on failure:
      against phase J's plan; Q2, where the machine shows two GPUs, two ranks
      (B=128 as 2 x 64, dropout off, 3 steps) against one process (loss rtol
      1e-4, `grad_norm` 1e-3), and otherwise a line that says it did not run.
+  R. tensor parallelism (`parallel/tp.py`). R0, in phase 2: the shard entry
+     points at the paths' shapes, tp = 2 and 4 (K1 on a range of heads:
+     HuBERT base B=128 T=320 and 319, p=0.1 and 0, WavLM's gated bias,
+     HuBERT-Large's 16 heads; K5 on a range of heads; K3 and K3b on a
+     vocabulary shard at N=9600 and 1024, V=8112): K1's and K5's contexts bit
+     for bit the whole kernels' heads, K1's fp32 partial out-projections
+     summed with the bias within the whole block's check, K3's merged shards
+     the whole kernel's k bit for bit (ent, psum to rtol 1e-3), K3b's summed
+     shards within its tolerances; each shard against its twin; times beside
+     the whole kernel's; one rank's row-parallel partial product (bf16
+     operands, fp32 out) timed beside the upcast fp32 product it replaced.
+     R1: `run_task` with `trainer.tensor_parallel: 2`, two ranks of one
+     model group sharing the one card under gloo (this script with
+     `--leg`), hybrid+ base at full width, B=128, bf16, cached images,
+     crops of 2 s, on a tree of one step an epoch: a pair of rank processes
+     for 3 steps (each step and collective timed) and a resume to 4, another
+     for 4 steps unbroken, and one process without a group over 4, side by
+     side (each fit validating and saving at its end); the resumed fit
+     bit for bit the unbroken one, the checkpoint (whole tensors) loaded at
+     tp=1 into exactly its tensors, step 1's loss and `grad_norm` and each
+     trainable tensor's Adam first moment after 4 steps against the one
+     process (rtol TP_LOSS_RTOL, TP_GRAD_NORM_RTOL, TP_MOMENT_RTOL), each
+     rank's launches (K1 on a head range, K3 and K3b shards) against the plan, the
+     share of step 1's keyword ids that agree; R2, two ranks under NCCL on
+     two cards, where the machine shows two GPUs, and otherwise a line that
+     says it did not run.
 Phase 2 also holds the pieces those paths add against their twins: K2 with
 the causal bias at the text shape (128, 77, 512, H=8) and K1 context-only
 there, K1 and K2 at (128, 328, 768) with one head (p=0.1 and 0), each against
@@ -197,12 +224,14 @@ fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -317,6 +346,12 @@ KERNEL_COUNTERS = {  # kernel name -> (module under speechclip_plus_tpu_torch, c
     # the fixed-K large branches: K1 and K2 at one head of 1024
     "fused_attention_block_dh1024": ("nn.fused_attention_block", "DH1024_LAUNCHES"),
     "fused_attention_block_bwd_dh1024": ("nn.fused_attention_block_vjp", "DH1024_LAUNCHES"),
+    # tensor parallelism (path R): K1 on a range of heads (a subset of the K1
+    # count), K3 and K3b on a vocabulary shard (their halves around the group's
+    # gather: one a wrapper call)
+    "fused_attention_block_shard": ("nn.fused_attention_block", "SHARD_LAUNCHES"),
+    "fused_cosine_vq_shard": ("ops.fused_keyword", "SHARD_LAUNCHES"),
+    "fused_cosine_vq_bwd_shard": ("ops.fused_keyword", "BWD_SHARD_LAUNCHES"),
 }
 
 
@@ -1906,12 +1941,7 @@ def build(torch, config, device="cuda", precision=None, clip_keys=None, **audio_
 
     path, overrides = (config, {}) if isinstance(config, str) else config
     cfg = load_config(path)
-    for dotted, value in overrides.items():
-        node = cfg
-        *parents, leaf = dotted.split(".")
-        for key in parents:
-            node = getattr(node, key)
-        setattr(node, leaf, value)
+    set_keys(cfg, overrides)
     for key, value in audio_keys.items():
         setattr(cfg.audio_encoder, key, value)
     for key, value in (clip_keys or {}).items():
@@ -2680,6 +2710,34 @@ def state_difference(torch, a, b):
     return worst, names
 
 
+_TREES = {}  # synthetic trees by size, written once a run (phase J and path Q share one)
+
+
+def synthetic_tree(label, sizes):
+    """The Flickr-shaped tree of `sizes` that `make_synthetic_tree` writes,
+    once a run, under a temporary directory that `remove_trees` deletes."""
+    key = tuple(sorted(sizes.items()))
+    if key in _TREES:
+        print(f"[{label}] the synthetic tree written earlier in this run, {sizes}")
+    else:
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+        t0 = time.perf_counter()
+        made = make_synthetic_tree(os.path.join(tmp, "flickr"), sizes)
+        print(f"[{label}] {made} in {time.perf_counter() - t0:.1f} s")
+        _TREES[key] = tmp
+    return os.path.join(_TREES[key], "flickr")
+
+
+def remove_trees():
+    import shutil
+
+    for tmp in _TREES.values():
+        shutil.rmtree(tmp, ignore_errors=True)
+    _TREES.clear()
+
+
 def make_synthetic_tree(root, sizes):
     out = subprocess.run(
         [sys.executable, "scripts/make_synthetic_dataset.py", "--root", root,
@@ -2709,10 +2767,7 @@ def phase_fit(torch, bare_ms):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
     try:
-        tree = os.path.join(tmp, "flickr")
-        t0 = time.perf_counter()
-        made = make_synthetic_tree(tree, FIT_TREE)
-        print(f"[fit] {made} in {time.perf_counter() - t0:.1f} s")
+        tree = synthetic_tree("fit", FIT_TREE)
 
         def cfg_for(max_steps, artifacts):
             cfg = load_config(FIT_CONFIG)  # the YAML stays as it is; overrides in memory
@@ -2875,57 +2930,224 @@ def bare_env():
     return {k: v for k, v in os.environ.items() if k not in drop}
 
 
-def dp_leg(spec):
-    """One leg of path Q1, in a process of its own: `run_task
-    TrainKWClip_GeneralTransformer --train` on the card with synthetic_fit.yaml
-    (overridden in memory: `max_steps`, a log row every 2 steps, no keyword
-    artifacts) and the prefetch thread, under the process group the
-    environment names (torchrun's variables) or none; writes the launch
-    counts (from 0 at the start of the run), the Trainer's timings, the
-    group's world size and the all-reduce's bytes to spec["out"]."""
+def set_keys(cfg, overrides):
+    """Sets {dotted key: value} on a loaded config, as a YAML would."""
+    for dotted, value in overrides.items():
+        node = cfg
+        *parents, leaf = dotted.split(".")
+        for key in parents:
+            node = getattr(node, key)
+        setattr(node, leaf, value)
+
+
+class _TimedStep:
+    """A train step that appends (seconds, collective seconds, collective
+    calls) of each call to `log`, the card synchronized before and after."""
+
+    def __init__(self, step_fn, log, tally, torch):
+        self.__dict__.update(_fn=step_fn, _log=log, _tally=tally, _torch=torch)
+
+    def __call__(self, *args, **kw):
+        sync = self._torch.cuda.synchronize
+        sync()
+        before, t = dict(self._tally), time.perf_counter()
+        out = self._fn(*args, **kw)
+        sync()
+        self._log.append((time.perf_counter() - t, self._tally["s"] - before["s"],
+                          self._tally["n"] - before["n"]))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+@contextlib.contextmanager
+def timed_steps(torch, log):
+    """Within: each training step a Trainer makes is timed into `log`
+    (`_TimedStep`), and so is every collective of torch.distributed, from a
+    synchronized card to a synchronized card (the step's compute is the rest
+    of its time)."""
+    import torch.distributed as dist
+    from speechclip_plus_tpu_torch.tasks import trainer as trainer_module
+
+    tally = {"s": 0.0, "n": 0}
+
+    def timed(fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            tally["s"] += time.perf_counter() - t
+            tally["n"] += 1
+            return out
+        return call
+
+    names = [n for n in ("all_reduce", "all_gather", "broadcast", "all_gather_into_tensor",
+                         "reduce_scatter_tensor") if hasattr(dist, n)]
+    saved = {n: getattr(dist, n) for n in names}
+    make = trainer_module.make_train_step
+    trainer_module.make_train_step = lambda *a, **kw: _TimedStep(make(*a, **kw), log, tally,
+                                                                  torch)
+    for n in names:
+        setattr(dist, n, timed(saved[n]))
+    try:
+        yield
+    finally:
+        trainer_module.make_train_step = make
+        for n in names:
+            setattr(dist, n, saved[n])
+
+
+def fit_leg(rank, spec):
+    """A leg of path Q1, R1 or R2 (rank `rank` of it): the fits spec["runs"]
+    names, in turn in this process, each `run_task
+    TrainKWClip_GeneralTransformer --train` on the card with
+    synthetic_fit.yaml overridden in memory (the run's "cfg", dotted keys; no
+    keyword artifacts) and the prefetch thread, under spec["group"]: None (no
+    process group), "nccl" (torchrun's variables, rank `rank` of
+    spec["world"] on cuda:rank) or "gloo" (every rank on cuda:0: NCCL refuses
+    two ranks on one device). Each fit writes <its "out">.<rank>.json: the
+    launch counts from 0 at its start, the steps taken, the Trainer's
+    timings, the data group's world size (None without a group), the model
+    group's, the gradient all-reduce's bytes, the fit's seconds and the
+    process's start and group before the first fit; with spec["ids"] the
+    first training step's keyword ids, and with the run's "profile" each
+    training step's seconds beside its collectives' (`timed_steps`)."""
+    t0 = time.perf_counter()
+    import gc
+
     import torch
     from speechclip_plus_tpu_torch.config import load_config
+    from speechclip_plus_tpu_torch.models import branches
+    from speechclip_plus_tpu_torch.parallel.multihost import maybe_initialize_distributed
     from speechclip_plus_tpu_torch.run_task import main as run_task
 
-    cfg = load_config(FIT_CONFIG)
-    cfg.trainer.max_steps = spec["max_steps"]
-    cfg.trainer.log_every_n_steps = 2
-    cfg.log_setting.log_detokenize_results = False
-    reset_counts()
-    trainer = run_task(["TrainKWClip_GeneralTransformer", "--train", "--device", "cuda",
-                        "--dataset_root", spec["tree"], "--save_path", spec["save"],
-                        "--seed", "0", "--njobs", "0", "--log_level", "WARNING", *spec["argv"]],
-                       config=cfg)
-    torch.cuda.synchronize()
-    # a thread still running at the interpreter's exit is killed wherever it
-    # stands: run_task leaves none (the leg then exits through the normal
-    # teardown, and run_leg holds its exit code)
-    alive = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
-    require(not alive, f"Q1: threads alive after run_task: {alive}")
-    with open(spec["out"], "w") as f:
-        json.dump({"counts": {name: getattr(*_counter(name)) for name in KERNEL_COUNTERS},
-                   "timings": trainer.timings, "steps": trainer.state.step,
-                   "world": None if trainer.group is None else trainer.group.world,
-                   "reduce_bytes": trainer.train_step.reduce_bytes}, f)
+    label, backend = spec["label"], spec["group"]
+    if backend is not None:
+        os.environ.update(rank_env(spec["port"], rank, spec["world"]))
+        if backend == "gloo":  # every rank drives cuda:0 (the rank modulo the one GPU)
+            os.environ.pop("LOCAL_RANK")
+        require(maybe_initialize_distributed(device="cuda",
+                                             backend=None if backend == "nccl" else backend),
+                f"{label}: no process group")
+    ids, steps = [], []
+    if spec.get("ids"):
+        fused = branches.fused_cosine_vq
+
+        def recording(*args, **kw):  # the first training step's keyword ids
+            res = fused(*args, **kw)
+            if kw.get("training") and not ids:
+                ids.append(res["targets"].reshape(-1).cpu().tolist())
+            return res
+
+        branches.fused_cosine_vq = recording
+    start_s = time.perf_counter() - t0
+    try:
+        for run in spec["runs"]:
+            t = time.perf_counter()
+            cfg = load_config(FIT_CONFIG)
+            cfg.log_setting.log_detokenize_results = False
+            set_keys(cfg, run["cfg"])
+            ids.clear()
+            steps.clear()
+            reset_counts()
+            with timed_steps(torch, steps) if run.get("profile") else contextlib.nullcontext():
+                trainer = run_task(["TrainKWClip_GeneralTransformer", "--train", "--device",
+                                    "cuda", "--dataset_root", spec["tree"], "--save_path",
+                                    run["save"], "--seed", "0", "--njobs", "0", "--log_level",
+                                    "WARNING", *run["argv"]], config=cfg)
+                torch.cuda.synchronize()
+            # a thread still running at the interpreter's exit is killed wherever it
+            # stands: run_task leaves none (the leg then exits through the normal
+            # teardown, and finish_leg holds its exit code)
+            alive = [th.name for th in threading.enumerate()
+                     if th is not threading.main_thread()]
+            require(not alive, f"{label}: threads alive after run_task: {alive}")
+            with open(f"{run['out']}.{rank}.json", "w") as f:
+                json.dump({"counts": {k: getattr(*_counter(k)) for k in KERNEL_COUNTERS},
+                           "timings": trainer.timings, "steps": trainer.state.step,
+                           "world": None if trainer.group is None else trainer.group.world,
+                           "tp": 1 if trainer.model_group is None
+                           else trainer.model_group.model_world,
+                           "reduce_bytes": trainer.train_step.reduce_bytes,
+                           "run_s": time.perf_counter() - t, "start_s": start_s,
+                           "targets": ids[0] if ids else None, "profile": list(steps)}, f)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if backend is not None:
+            torch.distributed.destroy_process_group()
 
 
-def run_leg(label, spec, env):
-    """`dp_leg` (or `dp_q2`) in a subprocess of this script (with Python's
-    fault handler, which prints every thread's stack on a fatal signal); its
-    result."""
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
-                          spec.pop("mode"), json.dumps(spec)], env=env, capture_output=True,
-                         text=True, timeout=600)
-    require(out.returncode == 0,
-            f"{label}: exit {out.returncode} after {time.perf_counter() - t0:.1f} s, result "
-            f"{'written' if os.path.exists(spec['out']) else 'not written'}; stdout: "
-            f"{out.stdout[-2000:]}; stderr: {out.stderr[-8000:]}")
-    with open(spec["out"]) as f:
-        res = json.load(f)
-    print(f"[path Q] {label}: exit {out.returncode}, {time.perf_counter() - t0:.1f} s with "
-          f"the process's start")
-    return res
+def leg_main(spec):
+    """`--leg`: a leg's ranks, each a process of its own where there are
+    several (spawned here), or this process."""
+    if spec["world"] == 1:
+        fit_leg(0, spec)
+        return
+    import torch.multiprocessing as mp
+
+    mp.start_processes(fit_leg, args=(spec,), nprocs=spec["world"], join=True,
+                       start_method="spawn")
+
+
+def start_leg(spec, mode="--leg"):
+    """A leg (`leg_main`, or `dp_q2` for mode "--dp-q2") in a subprocess of
+    this script without process-group variables, under Python's fault handler
+    (which prints every thread's stack on a fatal signal), its output to
+    files: a handle for `finish_leg`. A leg under a group gets a free port."""
+    from speechclip_plus_tpu_torch.tasks.base_task import free_port
+
+    if spec.get("group") or mode != "--leg":
+        spec = dict(spec, port=free_port())
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    proc = subprocess.Popen([sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+                             mode, json.dumps(spec)], env=bare_env(), stdout=logs[0],
+                            stderr=logs[1], text=True)
+    return spec, proc, logs, time.perf_counter()
+
+
+def finish_leg(leg, timeout=600):
+    """Waits for a leg; fails unless it exits 0. Returns {fit: [rank 0's
+    result, ...]} (`fit_leg`), or the result at spec["out"] (`dp_q2`)."""
+    spec, proc, logs, t = leg
+    label = spec["label"]
+    try:
+        code = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        code = proc.wait()
+    text = []
+    for log in logs:
+        log.seek(0)
+        text.append(log.read())
+        log.close()
+    require(code == 0, f"{label}: exit {code} after {time.perf_counter() - t:.1f} s; stdout: "
+                       f"{text[0][-2000:]}; stderr: {text[1][-8000:]}")
+    if "runs" not in spec:
+        with open(spec["out"]) as f:
+            out = json.load(f)
+    else:
+        out = {}
+        for run in spec["runs"]:
+            out[run["name"]] = []
+            for r in range(spec["world"]):
+                with open(f"{run['out']}.{r}.json") as f:
+                    out[run["name"]].append(json.load(f))
+    print(f"[path {label[0]}] {label} ({spec['world']} rank{'s' if spec['world'] > 1 else ''}): "
+          f"exit 0, {time.perf_counter() - t:.1f} s with the process's start")
+    return out
+
+
+def fit_run_spec(tmp, name, cfg, argv=(), profile=False):
+    """A fit of a leg: `run_task` saving under <tmp>/<name>."""
+    return {"name": name, "save": os.path.join(tmp, name), "out": os.path.join(tmp, name),
+            "cfg": cfg, "argv": list(argv), "profile": profile}
 
 
 def leg_rows(save):
@@ -2959,17 +3181,17 @@ def loop_ms(rows, timings):
 def phase_dp(torch):
     """Path Q, data parallelism through the training entry point on phase J's
     synthetic tree (hybrid+ base, full width, B=128, bf16, the prefetch
-    thread), each leg `run_task` in a process of its own. Q1: a leg without a
-    process group over DP_TOTAL steps (validation and a save at step 6 and at
-    the end), a leg under NCCL at world size 1 (torchrun's variables) over
-    DP_FIRST steps, and a leg resumed from it to DP_TOTAL: the logged losses
-    and the step-6 state of the NCCL leg, and the final state of the resumed
-    one, against the group-less leg bit for bit (model state_dict and Adam
-    state); ms/step of both legs, the all-reduce's seconds and bytes, and
-    the launch counts against phase J's plan. Q2 (two ranks under NCCL) where
-    the machine has two GPUs. Returns the launch counts by leg."""
+    thread), each leg `run_task` in a process of its own (`start_leg`). Q1:
+    a leg without a process group over DP_TOTAL steps (validation and a save
+    at step 6 and at the end), a leg under NCCL at world size 1 (torchrun's
+    variables) over DP_FIRST steps, and a leg resumed from it to DP_TOTAL:
+    the logged losses and the step-6 state of the NCCL leg, and the final
+    state of the resumed one, against the group-less leg bit for bit (model
+    state_dict and Adam state); ms/step of both legs, the all-reduce's
+    seconds and bytes, and the launch counts against phase J's plan. Q2 (two
+    ranks under NCCL) where the machine has two GPUs. Returns the launch
+    counts by leg."""
     import shutil
-    import tempfile
 
     free_cuda(torch)  # the legs are processes of their own on the same card
     free, total = torch.cuda.mem_get_info()
@@ -2977,20 +3199,18 @@ def phase_dp(torch):
           f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this process)")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
-        tree = os.path.join(tmp, "flickr")
-        t0 = time.perf_counter()
-        made = make_synthetic_tree(tree, FIT_TREE)
-        print(f"[path Q] {made} in {time.perf_counter() - t0:.1f} s")
+        tree = synthetic_tree("path Q", FIT_TREE)
         saves = {name: os.path.join(tmp, name) for name in ("alone", "nccl", "resumed")}
 
-        def leg(name, max_steps, env, argv=()):
-            return run_leg(name, {"mode": "--dp-leg", "tree": tree, "save": saves[name],
-                                  "max_steps": max_steps, "argv": list(argv),
-                                  "out": os.path.join(tmp, name + ".json")}, env)
+        def leg(name, max_steps, group, argv=()):
+            run = fit_run_spec(tmp, name, {"trainer.max_steps": max_steps,
+                                           "trainer.log_every_n_steps": 2}, argv)
+            return finish_leg(start_leg({"label": f"Q1 {name}", "tree": tree, "world": 1,
+                                         "group": group, "runs": [run]}))[name][0]
 
-        alone = leg("alone", DP_TOTAL, bare_env())
-        nccl = leg("nccl", DP_FIRST, rank_env())
-        resumed = leg("resumed", DP_TOTAL, rank_env(),
+        alone = leg("alone", DP_TOTAL, None)
+        nccl = leg("nccl", DP_FIRST, "nccl")
+        resumed = leg("resumed", DP_TOTAL, "nccl",
                       ("--resume", os.path.join(saves["nccl"], "checkpoints", "last")))
         require(alone["world"] is None and nccl["world"] == 1 and resumed["world"] == 1,
                 f"Q1: process groups {alone['world']}, {nccl['world']}, {resumed['world']}")
@@ -3074,11 +3294,10 @@ def phase_dp(torch):
             print(f"[path Q] Q2 (two ranks under NCCL, B=128 as 2 x 64) did not run: this "
                   f"machine shows {gpus} GPU; not a pass")
         else:
-            from speechclip_plus_tpu_torch.tasks.base_task import free_port
-
-            legs = {world: run_leg(f"Q2 world {world}", {
-                "mode": "--dp-q2", "world": world, "port": free_port(),
-                "out": os.path.join(tmp, f"q2_{world}.json")}, bare_env()) for world in (1, 2)}
+            legs = {world: finish_leg(start_leg({
+                "label": f"Q2 world {world}", "world": world,
+                "out": os.path.join(tmp, f"q2_{world}.json")}, mode="--dp-q2"))
+                for world in (1, 2)}
             for key, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
                 a, b = np.array(legs[2][key]), np.array(legs[1][key])
                 rel = np.abs(a - b) / np.abs(b)
@@ -3138,6 +3357,596 @@ def dp_q2(spec):
 
     mp.start_processes(dp_q2_rank, args=(spec,), nprocs=spec["world"], join=True,
                        start_method="spawn")
+
+
+# ------------------------------------------------------------ path R ----
+
+TP_SIZES = (2, 4)  # R0: the model groups the shard checks stand in for
+TP_FIRST, TP_TOTAL = 3, 4  # R1: optimizer steps of the first leg, and with the resumed one
+# R1's tree: 26 train images x 5 captions (one B=128 step an epoch, so that
+# each fit ends on an epoch boundary), 12 dev images (one dev batch of 64);
+# the fits validate (and save) only at their end, on crops of 2 s
+# (`audio_encoder.max_audio_len`), so that the five processes of its three
+# legs fit on the card side by side
+TP_TREE = dict(train=26, dev=12, test=1, caps=5)
+TP_AUDIO = 32000
+# R1's limits against the one-process fit, set between the readings of the
+# sound fit and of planted faults on an H100 (PERF.md, path R): step 1's loss
+# 1.2e-4 sound (7.1e-4 at step 2 of tests/test_torch_cuda_dp.py's B=8), 5.7e-3
+# with CLIP's c_proj partial not summed; grad_norm 4.4e-5 (8.3e-5) and 2.1e-4;
+# Adam's first moment after 4 steps, the worst tensor, 8.5e-2 sound (the
+# keyword head's, where 0.1 % of the keyword ids differ), 0.53 with K3b's shard
+# dx not summed and 0.69 with CLIP's MLP input gradient not summed, two faults
+# that leave the loss and grad_norm at their sound values
+TP_LOSS_RTOL, TP_GRAD_NORM_RTOL, TP_MOMENT_RTOL = 2e-3, 1.5e-4, 0.2
+# a trainable tensor whose moment is below this share of the largest holds
+# rounding noise alone (the keyword projection's last bias, which has no
+# gradient in exact arithmetic: 1.3e-8 of the largest)
+TP_MOMENT_FLOOR = 1e-6
+
+
+def tp_against_one(torch, tp_save, one_save, steps=TP_TOTAL, names=None):
+    """A tensor-parallel fit against the one process's: step 1's relative
+    differences of the logged loss and grad_norm, and of Adam's first moment
+    after `steps` (whole tensors: a weighted sum of every step's clipped
+    gradient) the largest relative difference ||m - m_one|| / ||m_one|| over
+    the trainable tensors whose moment is at least TP_MOMENT_FLOOR of the
+    largest one's. Returns ({"train_loss", "grad_norm", "moment"}, the
+    tensor at the largest moment difference, how many tensors were held,
+    and (name, ||m_one||, relative difference) of every tensor)."""
+    got, want = ({r["micro_step"]: r for r in leg_rows(save) if "train_loss" in r}
+                 for save in (tp_save, one_save))
+    require(1.0 in got and 1.0 in want, "R1: step 1 was not logged")
+    rels = {k: abs(got[1.0][k] - want[1.0][k]) / abs(want[1.0][k])
+            for k in ("train_loss", "grad_norm")}
+    m_tp, m_one = (saved_state(torch, save, steps)[1] for save in (tp_save, one_save))
+    require(m_tp.keys() == m_one.keys(), "R1: the Adam states hold other tensors")
+    norms = {i: float(m_one[i]["exp_avg"].float().norm()) for i in m_one}
+    held = [i for i in norms if norms[i] >= TP_MOMENT_FLOOR * max(norms.values())]
+    diff = {i: float((m_tp[i]["exp_avg"].float() - m_one[i]["exp_avg"].float()).norm())
+            / max(norms[i], 1e-30) for i in norms}
+    worst = max(held, key=diff.get)
+    rels["moment"] = diff[worst]
+    name = (lambda i: names[int(i)] if names else f"tensor {i}")
+    return (rels, f"{name(worst)} {tuple(m_one[worst]['exp_avg'].shape)}", len(held),
+            [(name(i), norms[i], diff[i]) for i in norms])
+
+
+def shard_block(torch, x, w_in, b_in, w_out, r, tp):
+    """Rank r's weights of a block sharded by head (`parallel/tp.py`)."""
+    from speechclip_plus_tpu_torch.parallel.tp import shard_tensor
+
+    return (shard_tensor("in_proj_weight", w_in, 0, r, tp).contiguous(),
+            shard_tensor("in_proj_bias", b_in, 0, r, tp).contiguous(),
+            shard_tensor("out_proj.weight", w_out, 1, r, tp).contiguous())
+
+
+def library_shard_block(torch, x, w_in, b_in, w_out, bias, heads, p=0.0, ab=None, gate=None):
+    """A head shard's block as library calls: cuBLAS linear + SDPA, and the
+    partial out-projection in fp32 (what the kernel returns)."""
+    F = torch.nn.functional
+    b, t, _ = x.shape
+    dr = w_out.shape[1]
+    q, k, v = (a.reshape(b, t, heads, -1).transpose(1, 2)
+               for a in F.linear(x, w_in, b_in.to(x.dtype)).split(dr, dim=-1))
+    mask = None if bias is None else bias[:, None, None, :]
+    if ab is not None:
+        full = ab[None] if gate is None else gate[..., None] * ab[None]
+        mask = full if mask is None else mask + full
+    if mask is not None:
+        mask = mask.to(x.dtype)
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p)
+    return F.linear(ctx.transpose(1, 2).reshape(b, t, dr).float(), w_out.float())
+
+
+def partial_error(torch, fab, part, x, wi, bi, wo, bias, h, dtype, sl):
+    """(max abs error, ok, tolerance text) of a shard's fp32 partial
+    out-projection against its twin. fp32: abs <= 1e-4 x max(1, RMS); bf16:
+    both round the context to bf16 before the product, so the error beyond
+    what one ulp of each context element explains (Σ_k |Wo[i, k]| ulp(ctx_k))
+    <= 2e-2 x RMS, as `compare` allows half an ulp of a bf16 output."""
+    F = torch.nn.functional
+    args = (x.float(), wi.float(), bi.float())
+    twin = fab.plain_fused_attention_block(*args, wo.float(), None, bias, h, True, partial=True,
+                                           **sl)
+    err = (part - twin).abs()
+    rms = twin.pow(2).mean().sqrt().item()
+    if dtype == torch.float32:
+        limit = 1e-4 * max(1.0, rms)
+        return err.max().item(), err.max().item() <= limit, f"abs <= {limit:.2e}"
+    ctx = fab.plain_fused_attention_block(*args, None, None, bias, h, False, **sl).to(dtype)
+    _, exp = torch.frexp(ctx.float())
+    explained = F.linear(torch.ldexp(torch.ones_like(ctx, dtype=torch.float32), exp - 8),
+                         wo.float().abs())
+    excess = (err - explained).clamp_min(0).max().item()
+    return (err.max().item(), excess <= 2e-2 * rms,
+            f"beyond one bf16 ulp of the context {excess / rms:.3e} x RMS <= 2e-2")
+
+
+def check_head_shards(torch, fab, name, b, t, d, heads, p, dtype, gen, gated=False):
+    """R0, K1 on each range of heads of tp = 2 and 4 ranks: the context bit
+    for bit the whole kernel's columns for those heads (dropout, bias and
+    gate included); each shard's fp32 partial out-projection against its twin
+    (`partial_error`); the partials summed with the bias added once within
+    the whole block's check against the twin. Times: rank 0's shard call (the
+    fused-out partial) beside the whole block's."""
+    from speechclip_plus_tpu_torch.ops.random import draw_seed
+
+    x, w_in, b_in, w_out, b_out, bias = block_inputs(torch, b, t, d, dtype, gen)
+    kw = {}
+    if p:
+        kw = dict(seeds=draw_seed(torch.Generator(device="cuda").manual_seed(11)),
+                  keep_prob=1.0 - p)
+    ab = gate = None
+    if gated:
+        ab = torch.randn(heads, t, t, generator=gen, device="cuda")
+        gate = 1.0 + torch.rand(b, heads, t, generator=gen, device="cuda")
+    whole_kw = dict(attn_bias=ab, attn_gate=gate, **kw)
+    whole_ctx = fab._run(x, w_in, b_in, None, None, bias, heads, False, **whole_kw)
+    whole_ms = median_ms(torch, lambda: fab._run(x, w_in, b_in, w_out, b_out, bias, heads, True,
+                                                 **whole_kw))
+    want = fab.plain_fused_attention_block(*[a.float() for a in (x, w_in, b_in, w_out, b_out)],
+                                           bias, heads, True, **whole_kw)
+    rows, dh = {}, d // heads
+    for tp in TP_SIZES:
+        h = heads // tp
+        parts, twin_err, timed = [], 0.0, None
+        for r in range(tp):
+            wi, bi, wo = shard_block(torch, x, w_in, b_in, w_out, r, tp)
+            sl = dict(attn_bias=None if ab is None else ab[r * h:(r + 1) * h].contiguous(),
+                      attn_gate=None if gate is None else gate[:, r * h:(r + 1) * h].contiguous(),
+                      head_offset=r * h, total_heads=heads, **kw)
+            ctx = fab._run(x, wi, bi, None, None, bias, h, False, **sl)
+            require(torch.equal(ctx, whole_ctx[..., r * h * dh:(r + 1) * h * dh]),
+                    f"R0 {name} tp={tp}: shard {r}'s context is not the whole kernel's heads")
+            kern = lambda: fab._run(x, wi, bi, wo, b_out, bias, h, True, partial=True, **sl)
+            part = kern()
+            e, ok, tol = partial_error(torch, fab, part, x, wi, bi, wo, bias, h, dtype, sl)
+            require(ok, f"R0 {name} tp={tp} shard {r}: partial vs its twin {e:.3e} ({tol})")
+            twin_err = max(twin_err, e)
+            parts.append(part)
+            if r == 0:
+                plain = lambda: fab.plain_fused_attention_block(
+                    x, wi, bi, wo, None, bias, h, True, partial=True, **sl)
+                lib = lambda: library_shard_block(torch, x, wi, bi, wo, bias, h, p,
+                                                  sl["attn_bias"], sl["attn_gate"])
+                moved = nbytes(x, wi, bi, wo, bias, sl["attn_bias"], sl["attn_gate"], part)
+                dr = h * dh
+                flops = 2 * b * t * d * 3 * dr + 4 * b * t * t * dr + 2 * b * t * dr * d
+                timed = {"ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+                         **bound(flops, moved, dtype), "library_ms": median_ms(torch, lib)}
+        summed = (sum(parts) + b_out.float()).to(dtype)
+        err, ok, tol = compare(torch, summed, want, dtype)
+        require(ok, f"R0 {name} tp={tp}: the summed partials miss the whole block ({tol})")
+        rows[tp] = {"shape": f"{name}, tp={tp} ({h} of {heads} heads), dropout {p}, "
+                             f"{str(dtype)[6:]}", "max_abs_err": err,
+                    "shard_twin_max_abs_err": twin_err, **timed, "whole_ms": whole_ms,
+                    "library": "composite: cuBLAS linear + SDPA + cuBLAS linear to fp32, "
+                               "on the shard"}
+        print(f"[R0] K1 head shard {name} tp={tp} ({h} heads) p={p} {str(dtype)[6:]}: context "
+              f"bit-identical to the whole kernel's heads on all {tp} shards; summed partials "
+              f"max_abs_err={err:.3e} ({tol}); partial vs twin {twin_err:.3e}; rank 0's shard "
+              f"{timing_text(rows[tp])}; the whole block {whole_ms:.4f} ms")
+        del parts, summed
+    del want, whole_ctx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_k5_shards(torch, b, t, p, dtype, gen):
+    """R0, K5 on each range of heads: bit for bit the whole kernel's heads,
+    and against its twin; times of rank 0's shard beside the whole call."""
+    from speechclip_plus_tpu_torch.nn import fused_attention as fa
+    from speechclip_plus_tpu_torch.ops.random import draw_seed
+
+    heads, dh = 12, 64
+    q, k, v, kb = packed_qkv(torch, b, heads, t, dh, dtype, gen)
+    seeds = draw_seed(torch.Generator(device="cuda").manual_seed(17)) if p else None
+    whole = fa._run(q, k, v, kb, seeds, 1.0 - p)
+    whole_ms = median_ms(torch, lambda: fa._run(q, k, v, kb, seeds, 1.0 - p))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = kb[:, None, None, :].to(dtype)
+    rows = {}
+    for tp in TP_SIZES:
+        h = heads // tp
+        for r in range(tp):
+            sl = slice(r * h, (r + 1) * h)
+            got = fa._run(q[:, sl], k[:, sl], v[:, sl], kb, seeds, 1.0 - p, r * h, heads)
+            require(torch.equal(got, whole[:, sl]),
+                    f"R0 K5 tp={tp}: shard {r} is not the whole kernel's heads")
+        qs, ks, vs = q[:, :h], k[:, :h], v[:, :h]
+        kern = lambda: fa._run(qs, ks, vs, kb, seeds, 1.0 - p, 0, heads)
+        plain = lambda: fa.plain_fused_attention_dropout(qs, ks, vs, kb, seeds, 1.0 - p, 0, heads)
+        got = kern()
+        err, ok, tol = compare(torch, got, fa.plain_fused_attention_dropout(
+            qs.float(), ks.float(), vs.float(), kb, seeds, 1.0 - p, 0, heads), dtype)
+        require(ok, f"R0 K5 tp={tp}: shard vs twin ({tol})")
+        rows[tp] = {"shape": f"K5 B={b} H={h} of {heads} (tp={tp}) T={t} dh={dh}, dropout {p}, "
+                             f"{str(dtype)[6:]}", "max_abs_err": err,
+                    "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+                    **bound(4 * b * h * t * t * dh, nbytes(qs, ks, vs, kb, got), dtype),
+                    "library_ms": median_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                                                                dropout_p=p)),
+                    "library": "scaled_dot_product_attention on the shard's heads",
+                    "whole_ms": whole_ms}
+        print(f"[R0] K5 head shard B={b} T={t} tp={tp} ({h} heads) p={p}: bit-identical to the "
+              f"whole kernel's heads on all {tp} shards; vs twin {err:.3e} ({tol}); rank 0's "
+              f"shard {timing_text(rows[tp])}; the whole call {whole_ms:.4f} ms")
+    return rows
+
+
+def vq_inputs(torch, vocab, n, d, dtype, gen):
+    v = len(vocab)
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    x = (x / x.norm(dim=-1, keepdim=True)).to(dtype).contiguous()
+    emb = torch.randn(v, d, generator=gen, device="cuda") * 0.1
+    norms = emb.norm(dim=-1).clamp_min(1e-8).contiguous()
+    en = (emb / norms[:, None]).to(dtype).contiguous()
+    return x, en, norms
+
+
+def check_vq_shards(torch, fk, vocab, n, dtype, gen, d=512):
+    """R0, K3 on tp vocabulary shards merged as a model group merges them
+    (`vq_rows` on each shard, `vq_combine` of the rows in column order,
+    `vq_cols` from the global m and z): k bit for bit the whole kernel's,
+    ent and psum to rtol 1e-3 of it. Times: one rank's part (its rows, the
+    merge, its columns) beside the whole kernel."""
+    v = len(vocab)
+    x, en, _ = vq_inputs(torch, vocab, n, d, dtype, gen)
+    mask = fk.column_mask(v, (0, vocab.sot_reduced, vocab.eot_reduced), "cuda")
+    k1, e1, p1 = fk.cosine_vq_stats(x, en, mask)
+    whole_ms = median_ms(torch, lambda: fk.cosine_vq_stats(x, en, mask))
+    rows = {}
+    for tp in TP_SIZES:
+        v_r = v // tp
+        cut = lambda a, r: a[r * v_r:(r + 1) * v_r].contiguous()
+        shards = [(cut(en, r), cut(mask, r)) for r in range(tp)]
+        parts = [fk.vq_rows(x, e_r, m_r, r * v_r) for r, (e_r, m_r) in enumerate(shards)]
+        stats = torch.stack([s for s, _ in parts], dim=1)
+        best = torch.stack([bi for _, bi in parts], dim=0)
+        k, ent, m, z = fk.vq_combine(stats, best)
+        psum = torch.cat([fk.vq_cols(x, e_r, m_r, m, z) for e_r, m_r in shards])
+        require(torch.equal(k, k1), f"R0 K3 N={n} tp={tp}: k differs from the whole kernel's")
+        require(torch.allclose(ent, e1, rtol=1e-3, atol=0), f"R0 K3 N={n} tp={tp}: ent")
+        require(torch.allclose(psum, p1, rtol=1e-3, atol=0), f"R0 K3 N={n} tp={tp}: psum")
+        err = max((ent - e1).abs().max().item(), (psum - p1).abs().max().item())
+        (e0, m0) = shards[0]
+        kern = lambda: (fk.vq_rows(x, e0, m0, 0), fk.vq_combine(stats, best),
+                        fk.vq_cols(x, e0, m0, m, z))
+        plain = lambda: (fk.plain_vq_rows(x, e0, m0, 0), fk.plain_vq_combine(stats, best),
+                         fk.plain_vq_cols(x, e0, m0, m, z))
+        rows[tp] = {"shape": f"N={n} D={d} V={v_r} of {v} (tp={tp}) {str(dtype)[6:]}",
+                    "max_abs_err": err, "max_abs_err_of": "ent, psum (vs the whole kernel)",
+                    "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+                    **bound(2 * n * d * v_r, nbytes(x, e0, m0, k, ent, psum[:v_r]), dtype),
+                    "library_ms": None, "whole_ms": whole_ms}
+        print(f"[R0] K3 vocabulary shards N={n} tp={tp} (V={v_r} each): k bit-identical to the "
+              f"whole kernel's, ent/psum max_abs_err={err:.3e} (rtol 1e-3); one rank's part "
+              f"{timing_text(rows[tp])}; the whole kernel {whole_ms:.4f} ms")
+    return rows
+
+
+def check_vq_bwd_shards(torch, fk, vocab, n, dtype, gen, d=512):
+    """R0, K3b on tp vocabulary shards: the statistics of every shard
+    gathered in column order, the shards' dx and dt summed, within K3b's
+    tolerances of its twin (dx 1e-2 x RMS in bf16, dt 1e-4 x the sum of its
+    terms' sizes). Times: one rank's halves beside the whole kernel."""
+    v = len(vocab)
+    x, en, norms = vq_inputs(torch, vocab, n, d, dtype, gen)
+    g = (torch.randn(n, d, generator=gen, device="cuda") * 1e-3).to(dtype).contiguous()
+    mask = fk.column_mask(v, (0, vocab.sot_reduced, vocab.eot_reduced), "cuda")
+    temp = torch.full((), 0.1, device="cuda")
+    whole_ms = median_ms(torch, lambda: fk.st_backward(x, g, en, norms, mask, temp))
+    dx0, dt0 = fk.plain_st_backward(x, g, en, norms, mask, temp)
+    s = x.float() @ en.float().T
+    pr = torch.softmax(torch.where(mask.bool()[None], -torch.inf, s / 0.1), dim=-1)
+    u = (g.float() @ en.float().T) * norms
+    dt_scale = (pr * (u - (pr * u).sum(-1, keepdim=True)) * s).abs().sum().item() / 0.01
+    del s, pr, u
+    rms = dx0.pow(2).mean().sqrt().item()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    rows = {}
+    for tp in TP_SIZES:
+        v_r = v // tp
+        cut = lambda a, r: a[r * v_r:(r + 1) * v_r].contiguous()
+        shards = [(cut(en, r), cut(norms, r), cut(mask, r)) for r in range(tp)]
+        stats = torch.cat([fk.st_backward_stats(x, g, *sh, temp) for sh in shards], dim=1)
+        halves = [fk.st_backward_apply(x, g, *sh, temp, stats) for sh in shards]
+        dx, dt = sum(hv[0] for hv in halves), sum(hv[1] for hv in halves)
+        err, dt_err = (dx - dx0).abs().max().item(), abs(dt.item() - dt0.item())
+        require(err <= tol * rms, f"R0 K3b N={n} tp={tp}: dx error {err:.3e} > {tol} x RMS")
+        require(dt_err <= 1e-4 * dt_scale, f"R0 K3b N={n} tp={tp}: dt error {dt_err:.3e}")
+        sh0 = shards[0]
+        kern = lambda: fk.st_backward_apply(x, g, *sh0, temp, torch.cat(
+            [fk.st_backward_stats(x, g, *sh0, temp)] + [stats[:, stats.shape[1] // tp:]], dim=1))
+        plain = lambda: fk.plain_st_backward_apply(x, g, *sh0, temp, torch.cat(
+            [fk.plain_st_backward_stats(x, g, *sh0, temp)] * tp, dim=1))
+        rows[tp] = {"shape": f"N={n} D={d} V={v_r} of {v} (tp={tp}) {str(dtype)[6:]}",
+                    "max_abs_err": err, "max_abs_err_of": "dx summed over the shards",
+                    "dt_abs_err": dt_err, "ms": median_ms(torch, kern),
+                    "plain_ms": median_ms(torch, plain),
+                    **bound(6 * n * d * v_r, nbytes(x, g, *sh0, halves[0][0], halves[0][1]),
+                            dtype),
+                    "library_ms": None, "whole_ms": whole_ms}
+        print(f"[R0] K3b vocabulary shards N={n} tp={tp}: summed dx max_abs_err={err:.3e} "
+              f"(<= {tol:g} x RMS {rms:.3e}), dt err {dt_err:.3e} (<= 1e-4 x {dt_scale:.3e}); "
+              f"one rank's halves {timing_text(rows[tp])}; the whole kernel {whole_ms:.4f} ms")
+        del halves, stats
+    del dx0
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_row_parallel(torch, gen, m=128 * 320, d=768):
+    """One rank's row-parallel partial product at the tower's shapes
+    (HuBERT base fc2 and out_proj over B=128 x T=320 rows, tp 2 and 4):
+    `tp.partial_product` (bf16 operands, fp32 out) against the product of
+    the operands upcast to fp32 that it replaced, both beside the whole
+    bf16 F.linear; their largest difference over the RMS within 1e-4 (fp32
+    sums of the same exact products in another order)."""
+    from speechclip_plus_tpu_torch.parallel.tp import partial_product
+
+    F, bf = torch.nn.functional, torch.bfloat16
+    for name, k in (("fc2", 4 * d), ("out_proj", d)):
+        x = torch.randn(m, k, device="cuda", generator=gen).to(bf)
+        w = (torch.randn(d, k, device="cuda", generator=gen) * k ** -0.5).to(bf)
+        whole = median_ms(torch, lambda: F.linear(x, w))
+        for tp in TP_SIZES:
+            xs, ws = x[:, :k // tp].contiguous(), w[:, :k // tp].contiguous()
+            new, old = partial_product(xs, ws), F.linear(xs.float(), ws.float())
+            err = float((new - old).abs().max() / old.pow(2).mean().sqrt())
+            print(f"[R0] row-parallel {name} partial, M={m} N={d} K={k // tp} (tp={tp}): bf16 "
+                  f"operands to fp32 {median_ms(torch, lambda: partial_product(xs, ws)):.4f} ms, "
+                  f"the operands upcast to fp32 "
+                  f"{median_ms(torch, lambda: F.linear(xs.float(), ws.float())):.4f} ms (the "
+                  f"whole K={k} in bf16 {whole:.4f} ms); difference {err:.3e} x RMS")
+            require(new.dtype == torch.float32 and err <= 1e-4,
+                    f"R0: the {name} partial product differs by {err:.3e} x RMS")
+
+
+def phase_kernels_tp(torch):
+    """R0, in phase 2: the shard entry points at the paths' shapes (the
+    HuBERT base and large towers' blocks, WavLM's gate mode, K5 at the
+    tower's shape, K3 and K3b at N = 9600 and 1024 on V = 8112), tp = 2 and
+    4, each held against the unsharded kernel and against its twin. Returns
+    the kernel rows of the shard entries and the K5 shard modes."""
+    from speechclip_plus_tpu_torch.data.tokenizer import ReducedVocab
+    from speechclip_plus_tpu_torch.nn import fused_attention_block as fab
+    from speechclip_plus_tpu_torch.ops import fused_keyword as fk
+
+    t0 = time.perf_counter()
+    vocab = ReducedVocab.from_npy(VOCAB_FILES[0])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+    k1 = check_head_shards(torch, fab, "HuBERT B=128 T=320 D=768 H=12", 128, 320, 768, 12,
+                           0.1, bf, gen)
+    k1_modes = list(check_head_shards(torch, fab, "HuBERT B=128 T=320 D=768 H=12", 128, 320,
+                                      768, 12, 0.0, bf, gen).values())
+    k1_modes += list(check_head_shards(torch, fab, "HuBERT B=128 T=319 D=768 H=12", 128, 319,
+                                       768, 12, 0.1, bf, gen).values())
+    k1_modes += list(check_head_shards(torch, fab, "WavLM gated bias B=128 T=320 D=768 H=12",
+                                       128, 320, 768, 12, 0.1, bf, gen, gated=True).values())
+    k1_modes += list(check_head_shards(torch, fab, "HuBERT-Large B=128 T=320 D=1024 H=16",
+                                       128, 320, 1024, 16, 0.1, bf, gen).values())
+    k1_modes += list(check_head_shards(torch, fab, "HuBERT B=8 T=37 D=768 H=12 fp32", 8, 37,
+                                       768, 12, 0.1, torch.float32, gen).values())
+    k5_modes = []
+    for p in (0.1, 0.0):
+        k5_modes += list(check_k5_shards(torch, 128, 320, p, bf, gen).values())
+    k3 = {n: check_vq_shards(torch, fk, vocab, n, bf, gen) for n in (9600, 1024)}
+    k3b = {n: check_vq_bwd_shards(torch, fk, vocab, n, bf, gen) for n in (9600, 1024)}
+    time_row_parallel(torch, gen)
+    print(f"[time] R0 shard checks: {time.perf_counter() - t0:.1f} s")
+    csrc, jax_pkg = "speechclip_plus_tpu_torch/csrc/", "speechclip_plus_tpu/"
+    rows = [
+        {"name": "fused_attention_block_shard", "route": "cuda",
+         "source": csrc + "fused_attention_block_attn.cu",
+         "replaces": jax_pkg + "nn/fused_attention_block.py:118", **k1[2],
+         "modes": [k1[4]] + k1_modes},
+        {"name": "fused_cosine_vq_shard", "route": "cuda", "source": csrc + "fused_keyword.cu",
+         "replaces": jax_pkg + "ops/fused_keyword.py:92", **k3[9600][2],
+         "modes": [k3[9600][4], k3[1024][2], k3[1024][4]]},
+        {"name": "fused_cosine_vq_bwd_shard", "route": "cuda",
+         "source": csrc + "fused_keyword.cu", "replaces": jax_pkg + "ops/fused_keyword.py:123",
+         **k3b[9600][2], "modes": [k3b[9600][4], k3b[1024][2], k3b[1024][4]]},
+    ]
+    return rows, {"fused_attention_dropout": [{"shape": "head shard: " + m["shape"], **m}
+                                              for m in k5_modes]}
+
+
+def tp_plan(plan, tower_layers=12):
+    """A launch plan under tensor parallelism: the tower's K1 blocks run on a
+    range of heads (also counted as K1 launches), one a layer for each speech
+    forward (one K3 each), and K3 / K3b run as their shard halves."""
+    plan = dict(plan)
+    forwards = plan.pop("fused_cosine_vq", 0)
+    plan["fused_cosine_vq_shard"] = forwards
+    plan["fused_cosine_vq_bwd_shard"] = plan.pop("fused_cosine_vq_bwd", 0)
+    plan["fused_attention_block_shard"] = tower_layers * forwards
+    return {k: v for k, v in plan.items() if v}
+
+
+def phase_tp(torch):
+    """Path R1, tensor parallelism through the training entry point: two
+    ranks of one model group (`trainer.tensor_parallel: 2`) sharing the one
+    card under gloo, each `run_task` of hybrid+ base at full width (bf16,
+    B=128 crops of TP_AUDIO samples, cached images) on a synthetic tree of
+    one step an epoch, three legs side by side (`start_leg`): a pair of rank
+    processes for a fit of TP_FIRST steps (its steps and collectives timed,
+    `timed_steps`) and one resumed from its checkpoint to TP_TOTAL, a pair
+    for an unbroken fit of TP_TOTAL, and one process without a group. Held:
+    the resumed leg equals the unbroken one bit for bit (logged losses, model
+    state_dict and Adam state, whole tensors); the checkpoint loads at tp=1
+    into exactly its tensors; step 1's loss and grad_norm against the one
+    process within TP_LOSS_RTOL and TP_GRAD_NORM_RTOL, and each trainable
+    tensor's Adam moment at the end within TP_MOMENT_RTOL (`tp_against_one`);
+    each rank's launches against the plan. Prints the share of step 1's keyword ids that agree,
+    the timed steps' split between the collectives and the rest, and the
+    ms/step of two processes time-slicing one card (no measure of
+    tensor-parallel speed). R2 (two cards under NCCL) where the machine shows
+    two GPUs. Returns the launch counts by leg and rank."""
+    import shutil
+
+    from speechclip_plus_tpu_torch.checkpoint import CheckpointManager
+    from speechclip_plus_tpu_torch.config import load_config
+    from speechclip_plus_tpu_torch.tasks.builder import build_model_from_config
+
+    t_start = time.perf_counter()
+    free_cuda(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        tree = synthetic_tree("path R", TP_TREE)
+        saves = {n: os.path.join(tmp, n) for n in ("alone", "tp2", "first", "resumed")}
+
+        def run(name, max_steps, tp, argv=(), profile=False):
+            # validation and a save at the fit's end alone
+            return fit_run_spec(tmp, name, {
+                "trainer.max_steps": max_steps, "trainer.log_every_n_steps": 1,
+                "trainer.check_val_every_n_epoch": 1000, "trainer.tensor_parallel": tp,
+                "audio_encoder.max_audio_len": TP_AUDIO}, argv, profile)
+
+        def start(label, world, runs, group="gloo"):
+            return start_leg({"label": f"R1 {label}", "tree": tree, "world": world,
+                              "group": group if world > 1 else None, "runs": runs, "ids": True})
+
+        def finish(leg):
+            out = finish_leg(leg)
+            for name, ranks in out.items():
+                tm = ranks[0]["timings"]
+                parts = {k: sum(tm[k]) for k in ("image_cache_s", "train_s", "validate_s",
+                                                  "save_s")}
+                print(f"[path R] {leg[0]['label']}, {name}: rank 0's run_task "
+                      f"{ranks[0]['run_s']:.1f} s (the process's start and group "
+                      f"{ranks[0]['start_s']:.1f} s before its first fit), of it "
+                      + ", ".join(f"{k[:-2]} {v:.1f} s" for k, v in parts.items()))
+            return out
+
+        # three legs side by side (the pairs of ranks spend much of their time in
+        # gloo's host copies): one process; a pair of ranks for the first fit
+        # and the one resumed from it; a pair for the unbroken fit
+        started = [start("one process", 1, [run("alone", TP_TOTAL, 1)]),
+                   start("tp=2, first and resumed", 2, [
+                       run("first", TP_FIRST, 2, profile=True),
+                       run("resumed", TP_TOTAL, 2, ["--resume", os.path.join(
+                           saves["first"], "checkpoints", "last")])]),
+                   start("tp=2, unbroken", 2, [run("tp2", TP_TOTAL, 2)])]
+        done = [finish(leg) for leg in started]
+        alone, (first, resumed), tp2 = (done[0]["alone"], (done[1]["first"], done[1]["resumed"]),
+                                        done[2]["tp2"])
+        require(alone[0]["tp"] == 1 and all(r["tp"] == 2 for r in tp2 + first + resumed),
+                "R1: model-group sizes")
+        require([r["steps"] for r in tp2 + first + resumed]
+                == [TP_TOTAL] * 2 + [TP_FIRST] * 2 + [TP_TOTAL] * 2, "R1: steps taken")
+
+        # launches: phase J's units, the tower's blocks and K3 / K3b as shards
+        base = load_config(FIT_CONFIG)
+        dev_batches = -(-TP_TREE["dev"] * TP_TREE["caps"] // int(base.data.dev_batch_size))
+        cache_batches = -(-TP_TREE["train"] // 64) + -(-TP_TREE["dev"] // 64)
+        step_plan, eval_plan, cache_plan = fit_plans()
+        by_path = {}
+        for name, res, steps in (("alone", alone, TP_TOTAL), ("tp2", tp2, TP_TOTAL),
+                                 ("first", first, TP_FIRST),
+                                 ("resumed", resumed, TP_TOTAL - TP_FIRST)):
+            for r, rank in enumerate(res):
+                shard = (lambda p: p) if name == "alone" else tp_plan
+                expect = {}
+                add_counts(expect, shard(step_plan), steps)
+                add_counts(expect, shard(eval_plan),
+                           len(rank["timings"]["validate_s"]) * dev_batches)
+                add_counts(expect, cache_plan, cache_batches)
+                label = f"R1_{name}" + (f"_rank{r}" if name != "alone" else "")
+                by_path[label] = compare_counts(f"R1 {name} rank {r} ({steps} steps)",
+                                                rank["counts"], expect)
+        print("[path R] R1 launches per training step on each rank (K1 / of them on a head "
+              "range / K1a / K2 / K3 shard / K3b shard): " + " / ".join(
+                  str(tp_plan(step_plan).get(k, 0)) for k in (
+                      "fused_attention_block", "fused_attention_block_shard", "projection_gemm",
+                      "fused_attention_block_bwd", "fused_cosine_vq_shard",
+                      "fused_cosine_vq_bwd_shard")))
+
+        # the resumed leg against the unbroken one, bit for bit
+        rows = {name: leg_rows(save) for name, save in saves.items()}
+        unbroken = {r["micro_step"]: r for r in rows["tp2"] if "train_loss" in r}
+        again = {r["micro_step"]: r for r in rows["resumed"] if "train_loss" in r}
+        require(again and set(again) <= set(unbroken), "R1: the resumed leg's logged steps")
+        differ = [f"{k}@{s}" for s, r in again.items() for k, v in r.items()
+                  if (k.startswith("train_") or k == "grad_norm") and unbroken[s][k] != v]
+        worst, names = state_difference(torch, saved_state(torch, saves["resumed"], TP_TOTAL),
+                                        saved_state(torch, saves["tp2"], TP_TOTAL))
+        print(f"[path R] R1 resumed tp=2 leg at step {TP_TOTAL} against the unbroken tp=2 leg: "
+              + ("bit-identical (logged train metrics, model state_dict and Adam state, whole "
+                 "tensors)" if not (differ or names) else
+                 f"{len(differ)} metrics and {len(names)} tensors differ, max |diff| {worst:.3e}: "
+                 f"{(differ + names)[:8]}"))
+        require(not differ and not names, "R1: the resumed tp=2 leg differs from the unbroken one")
+
+        # the tp=2 checkpoint at tp=1: exactly its tensors
+        free_cuda(torch)
+        model, _, _ = build_model_from_config(base, device="cuda", seed=0)
+        ck = os.path.join(saves["tp2"], "checkpoints")
+        CheckpointManager(ck).restore(model)
+        saved = saved_state(torch, saves["tp2"], TP_TOTAL)[0]
+        loaded = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        require(loaded.keys() == saved.keys(), "R1: the checkpoint's tensors at tp=1")
+        unequal = [k for k in saved if not torch.equal(loaded[k], saved[k])]
+        print(f"[path R] R1 the tp=2 checkpoint loaded at tp=1: {len(saved)} tensors, "
+              + ("all equal to the gathered tensors" if not unequal else f"{unequal[:6]} differ"))
+        require(not unequal, "R1: the checkpoint loads at tp=1 into other tensors")
+        del model
+        free_cuda(torch)
+
+        # step 1, and Adam's first moment at the end, against the one process
+        from speechclip_plus_tpu_torch.optim.optimizer import trainable_parameters
+
+        names = [n for n, _ in trainable_parameters(build_model_from_config(
+            base, device="meta", seed=0)[0])]
+
+        def against_one(label, save):
+            rels, worst, held, _ = tp_against_one(torch, save, saves["alone"], names=names)
+            limits = {"train_loss": TP_LOSS_RTOL, "grad_norm": TP_GRAD_NORM_RTOL,
+                      "moment": TP_MOMENT_RTOL}
+            print(f"[path R] {label} against one process: step 1 " + ", ".join(
+                f"{k} {rels[k]:.3e} relative (limit {limits[k]:g})" for k in rels)
+                  + f"; the moment's worst of {held} tensors {worst}")
+            for key, limit in limits.items():
+                require(rels[key] <= limit, f"{label}: {key} differs by {rels[key]:.3e}")
+
+        against_one("R1 tp=2", saves["tp2"])
+        ka, kb = np.array(tp2[0]["targets"]), np.array(alone[0]["targets"])
+        require(ka.shape == kb.shape and tp2[0]["targets"] == tp2[1]["targets"],
+                "R1: step 1's keyword ids")
+        print(f"[path R] R1 step 1 keyword ids: {float((ka == kb).mean()):.6f} of {ka.size} "
+              f"agree between tp=2 and one process (both ranks of the group hold the same ids)")
+        print(card_line())
+        for r, rank in enumerate(first):
+            prof = rank["profile"]  # (seconds, collective seconds, collectives) a step
+            require(len(prof) == TP_FIRST, f"R1: {len(prof)} timed steps")
+            print(f"[path R] R1 first fit, rank {r}, each step from a synchronized card to a "
+                  f"synchronized card, every collective the same way: " + "; ".join(
+                      f"step {s + 1} {1e3 * sec:.2f} ms, of it {1e3 * coll:.2f} ms in {n} "
+                      f"collectives (gloo) and {1e3 * (sec - coll):.2f} ms the rest"
+                      for s, (sec, coll, n) in enumerate(prof)))
+        for name, res in (("alone", alone), ("tp2", tp2)):
+            median, whole = loop_ms(rows[name], res[0]["timings"])
+            print(f"[path R] R1 loop ms/step, B={int(base.data.batch_size)}, "
+                  + ("one process, no group" if name == "alone" else
+                     "two ranks time-slicing one card, gloo collectives through the host (no "
+                     "measure of tensor-parallel speed)")
+                  + f", beside the other legs: median window {median:.2f}, whole {whole:.2f}")
+
+        gpus = torch.cuda.device_count()
+        if gpus < 2:
+            print(f"[path R] R2 (two ranks under NCCL on two cards) did not run: this machine "
+                  f"shows {gpus} GPU; not a pass")
+        else:
+            saves["r2"] = os.path.join(tmp, "r2")
+            finish_leg(start_leg({"label": "R2", "tree": tree, "world": 2, "group": "nccl",
+                                  "runs": [run("r2", TP_TOTAL, 2)]}))
+            against_one("R2 two cards under NCCL", saves["r2"])
+        print(f"[time] path R: {time.perf_counter() - t_start:.1f} s")
+        return by_path
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------------ path K ----
@@ -3206,6 +4015,11 @@ def reference_state_dict(torch, state):
     return out
 
 
+# path K times each checkpoint load as the median of this many (5 before path
+# R joined the smoke; each load is a seeded build and a full read, 4-5 s)
+CHECKPOINT_LOADS = 3
+
+
 def seconds_median(torch, fn, n=5):
     """(median seconds over n calls, last result), each call timed with
     `utils.profiling.StepTimer`, which synchronizes the card."""
@@ -3252,7 +4066,7 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
         shape_sets.append(shapes)
         hooks.extend(h)
 
-    load_s, sc = seconds_median(torch, lambda: load_from_checkpoint(ck))
+    load_s, sc = seconds_median(torch, lambda: load_from_checkpoint(ck), n=CHECKPOINT_LOADS)
     bad = differing(sc.model, final_state)
     require(not bad, f"{label}: load_from_checkpoint(last) differs from the trainer: {bad[:5]}")
     record(sc.model)
@@ -3271,8 +4085,9 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
     del by_monitor, saved
     free_cuda(torch)
     print(f"[K] load_from_checkpoint({ck}): last (step of fit_state.json) in {load_s:.2f} s "
-          f"(median of 5), val_recall_mean_10's best step {best} in {monitor_s:.2f} s: both the "
-          f"saved state_dict bit for bit; encode_speech B=8 equals the trainer's model bit for bit")
+          f"(median of {CHECKPOINT_LOADS}), val_recall_mean_10's best step {best} in "
+          f"{monitor_s:.2f} s: both the saved state_dict bit for bit; encode_speech B=8 "
+          "equals the trainer's model bit for bit")
 
     # where the directory route's time goes, step by step as load_from_checkpoint
     # takes it: the seeded build on the host, reading the file, filling the
@@ -3377,7 +4192,8 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
                 "hyper_parameters": {"config": OrderedNamespace(config)},
                 "epoch": FIT_EPOCHS, "global_step": 0}, path)
     write_s = time.perf_counter() - t0
-    ckpt_s, from_ckpt = seconds_median(torch, lambda: load_from_checkpoint(path))
+    ckpt_s, from_ckpt = seconds_median(torch, lambda: load_from_checkpoint(path),
+                                       n=CHECKPOINT_LOADS)
     pos = "audio_encoder.pos_conv.conv.weight"
     bad = differing(from_ckpt.model, final_state, skip=(pos,))
     a, b = from_ckpt.model.state_dict()[pos].float().cpu(), final_state[pos].float().cpu()
@@ -3389,7 +4205,8 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
     del from_ckpt
     free_cuda(torch)
     print(f"[K] Lightning .ckpt ({os.path.getsize(path) / 2 ** 20:.0f} MiB, written in "
-          f"{write_s:.1f} s): load_from_checkpoint in {ckpt_s:.2f} s (median of 5); every "
+          f"{write_s:.1f} s): load_from_checkpoint in {ckpt_s:.2f} s (median of "
+          f"{CHECKPOINT_LOADS}); every "
           f"tensor equal to the trainer's bit for bit but pos_conv, within {pos_rel:.1e} "
           f"relative (the weight-norm round trip)")
 
@@ -3578,9 +4395,10 @@ def print_kernels_line(rows, by_path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "families", "profile", "fit", "large",
-                                        "large_fixed", "mel", "variants", "dp"), default="all")
-    # one leg of path Q in a process of its own (the script starts these itself)
-    ap.add_argument("--dp-leg", default=None, help=argparse.SUPPRESS)
+                                        "large_fixed", "mel", "variants", "dp", "tp"),
+                    default="all")
+    # one leg of path Q or R in a process of its own (the script starts these itself)
+    ap.add_argument("--leg", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-q2", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -3588,10 +4406,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if args.dp_leg or args.dp_q2:
+    if args.leg or args.dp_q2:
         os.chdir(os.path.dirname(os.path.abspath(__file__)))
         try:
-            dp_leg(json.loads(args.dp_leg)) if args.dp_leg else dp_q2(json.loads(args.dp_q2))
+            leg_main(json.loads(args.leg)) if args.leg else dp_q2(json.loads(args.dp_q2))
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -3638,6 +4456,15 @@ def smoke(args, torch) -> int:
             print_kernels_line(rows, by_path)
             return 0
         rows = phase_kernels(torch)
+        if args.phase in ("all", "kernels", "tp"):
+            tp_rows, tp_modes = phase_kernels_tp(torch)  # R0, the shard entry points
+            rows += tp_rows
+            add_modes(rows, tp_modes)
+        if args.phase == "tp":
+            by_path = phase_tp(torch)
+            print(f"[time] chip_smoke --phase tp: {time.perf_counter() - started:.1f} s")
+            print_kernels_line(rows, by_path)
+            return 0
         if args.phase == "variants":
             by_path = phase_variants(torch)
             print(f"[time] chip_smoke --phase variants: {time.perf_counter() - started:.1f} s")
@@ -3660,12 +4487,22 @@ def smoke(args, torch) -> int:
         add_modes(rows, extra, fixed_extra, phase_kernels_mel(torch))
         if args.phase == "all":
             by_path, ms = {}, {}
+            lap = [started]
+
+            def timed(label):  # each path's seconds, for the smoke's budget
+                now = time.perf_counter()
+                print(f"[time] {label}: {now - lap[0]:.1f} s")
+                lap[0] = now
+
+            timed("the build, phase 2 and the kernel checks at the large, mel and shard shapes")
             hubert, wavlm = "HuBERT (K1 route)", "path A WavLM"
             by_path["serve"] = phase_model(torch, hubert, CONFIG)
             by_path["train"], ms["hubert"] = phase_train(torch, hubert, CONFIG)
             phase_parity(torch, hubert, CONFIG)
             phase_train_parity(torch, hubert, CONFIG)
+            timed("phases 3-7")
             by_path["fit"], by_path["K"] = phase_fit(torch, ms["hubert"]["cached"])
+            timed("phase J and path K")
             by_path["A_serve"] = phase_model(torch, wavlm, WAVLM_CONFIG, wires=(False,),
                                              n_img=256, stream=False)
             by_path["A_train"], ms["wavlm"] = phase_train(torch, wavlm, WAVLM_CONFIG,
@@ -3683,17 +4520,27 @@ def smoke(args, torch) -> int:
                   f"WavLM through K1's gate mode {ms['wavlm']['cached']:.2f}")
             by_path["C_tower"] = phase_tower_flash(torch)
             by_path["D_conv0"] = phase_conv0(torch)
+            timed("paths A-D")
             by_path.update(phase_families(torch))
+            timed("paths E-I and L")
             by_path.update(phase_large(torch))
+            timed("path M")
             by_path.update(phase_large_fixed(torch))
+            timed("path N")
             by_path.update(phase_mel(torch))
+            timed("path O")
             by_path.update(phase_variants(torch))
+            timed("path P")
             by_path.update(phase_dp(torch))
+            timed("path Q")
+            by_path.update(phase_tp(torch))  # prints its own seconds
             print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s")
             print_kernels_line(rows, by_path)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        remove_trees()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

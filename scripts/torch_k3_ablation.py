@@ -141,8 +141,9 @@ def main() -> int:
     real_rows = fk._fwd_rows
     for name, so in libs.items():
         lib = ctypes.CDLL(so)
-        lib.sc_vq_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
-        lib.sc_vq_fwd.restype = i
+        lib.sc_vq_fwd_rows.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, i, p]
+        lib.sc_vq_fwd_cols.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+        lib.sc_vq_fwd_rows.restype = lib.sc_vq_fwd_cols.restype = i
         cuda_build._lib = lib
         fk._fwd_rows = (lambda d_, dtype: 64) if name == "rows64" else real_rows
         fk._fwd_plan.cache_clear()

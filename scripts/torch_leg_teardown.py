@@ -1,8 +1,9 @@
 """Path Q's group-less leg again and again, each exiting through the
 interpreter's normal teardown (PyTorch/CUDA port, on the card).
 
-Each leg is `chip_smoke.dp_leg` (`run_task --train` on the synthetic tree,
-8 steps, the prefetch thread) in a process of its own, under Python's fault
+Each leg is path Q1's group-less leg (`chip_smoke.fit_leg`, or `dp_leg` in
+a checkout from before it: `run_task --train` on the synthetic tree, 8
+steps, the prefetch thread) in a process of its own, under Python's fault
 handler and a `std::terminate` handler (`scripts/terminate_probe.cpp`, built
 with g++) that names the aborting thread and prints its native stack. One
 line per leg: the exit code, whether the result was written, the seconds,
@@ -36,7 +37,14 @@ def leg(root, probe, spec):
     import chip_smoke
 
     try:
-        chip_smoke.dp_leg(spec)
+        if hasattr(chip_smoke, "fit_leg"):
+            chip_smoke.fit_leg(0, {"label": "leg", "tree": spec["tree"], "world": 1,
+                                   "group": None, "runs": [{
+                                       "name": "leg", "save": spec["save"], "out": spec["out"],
+                                       "argv": [], "cfg": {"trainer.max_steps": spec["max_steps"],
+                                                           "trainer.log_every_n_steps": 2}}]})
+        else:
+            chip_smoke.dp_leg(spec)
     except chip_smoke.SmokeFailure as e:  # the leg's own check of the threads left
         print(f"leg check: {e}", file=sys.stderr)
     alive = [t.name for t in threading.enumerate() if t is not threading.main_thread()]
@@ -74,8 +82,9 @@ def main():
                              capture_output=True, text=True, env=chip_smoke.bare_env(),
                              timeout=600)
         tail = out.stderr.strip().splitlines()[-1:] if out.returncode == 0 else out.stderr[-8000:]
+        written = any(os.path.exists(spec["out"] + end) for end in ("", ".0.json"))
         return (f"leg {i}: exit {out.returncode}, result "
-                f"{'written' if os.path.exists(spec['out']) else 'not written'}, "
+                f"{'written' if written else 'not written'}, "
                 f"{time.perf_counter() - t0:.1f} s; {tail}")
 
     print(run(0), flush=True)

@@ -20,7 +20,11 @@ than the manager's latest kept step is skipped.
 
 Under data parallelism every rank holds the same state: only rank 0 writes
 (`writer=False` elsewhere makes `save` and the config a no-op), and every
-rank restores.
+rank restores. Under tensor parallelism (``parallel/tp.py``) the state holds
+whole tensors, the sharded parameters and their Adam moments gathered over
+each model group (every rank takes part in a save), so a checkpoint is
+independent of `tensor_parallel`: each rank restores its shards of it, at
+the `tp` it saved with or at another.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import tp
 
 __all__ = ["CheckpointManager"]
 
@@ -85,6 +91,11 @@ class CheckpointManager:
         """Save at an optimizer-step boundary (`state.grad_acc` empty)."""
         if state.grad_acc is not None:
             raise ValueError("a checkpoint is taken only between optimizer steps")
+        sharded = tp.model_group_of(model) is not None
+        if sharded:  # a collective over each model group: every rank gathers
+            payload = {"model": tp.gather_state_dict(model),
+                       "optimizer": tp.gather_optimizer_state(
+                           state.optimizer.adam.state_dict(), model)}
         if not self.writer:
             return
         metrics = {
@@ -96,8 +107,10 @@ class CheckpointManager:
                    and (self.latest_step(m) is None or self.latest_step(m) < step)]
         if not targets:
             return
-        payload = {"model": model.state_dict(), "optimizer": state.optimizer.adam.state_dict(),
-                   "step": int(state.step)}
+        if not sharded:
+            payload = {"model": model.state_dict(),
+                       "optimizer": state.optimizer.adam.state_dict()}
+        payload["step"] = int(state.step)
         first = None
         for m in targets:
             d = os.path.join(self._dir(m), str(step))
@@ -146,10 +159,10 @@ class CheckpointManager:
             raise FileNotFoundError(f"No checkpoint found under {self.root}")
         payload = torch.load(os.path.join(self._dir(manager), str(step), STATE_FILE),
                              map_location="cpu", weights_only=True)
-        model.load_state_dict(payload["model"])
+        tp.load_full_state_dict(model, payload["model"])
         if state is None:
             return step
-        state.optimizer.adam.load_state_dict(payload["optimizer"])
+        state.optimizer.adam.load_state_dict(tp.shard_optimizer_state(payload["optimizer"], model))
         state.step = int(payload["step"])
         state.grad_acc = None
         return step

@@ -66,7 +66,8 @@
 // online softmax over key tiles; key_bias[b, j] and, when `ab` is given,
 // gate[b, h, i] * ab[h, i, j] (fp32 (H | 1, T, T), read from L2); the counter
 // dropout mask of dropout_mask.cuh keyed by (row, column) with
-// row = (b * H + h) * T + i, so every kernel of the family draws the same mask
+// row = (b * H + h) * T + i (H and h of the whole layer: `head_offset` and
+// `drop_heads` place a tensor-parallel shard's heads), so every kernel of the family draws the same mask
 // from one (seed, offset); o accumulates (mask * e / keep) v while l sums e
 // unmasked; lse = m + log(l). q, k, v and the output are addressed by
 // (batch, head, row) strides in elements with a contiguous head dim and read
@@ -362,6 +363,10 @@ struct AttnParams {
   float* lse;               // (B, H, T) log-sum-exp output, or null
   float q_scale;            // on q k^T, applied to the fp32 sums (bf16 q stays exact in TF32)
   int T, H;
+  // the dropout row key's heads: these H heads are [head_offset, head_offset + H)
+  // of a layer of drop_heads (0: H) heads, so that a tensor-parallel shard
+  // draws exactly the whole layer's mask rows for its heads
+  int head_offset, drop_heads;
   int vec;                  // q, k and v take 16-byte loads (set by the launcher)
 };
 
@@ -418,6 +423,7 @@ attention_kernel(const AttnParams p) {
   const TI* vbase = static_cast<const TI*>(p.v) + b * p.sv.b + h * p.sv.h;
   const float* kb = p.key_bias + (size_t)b * Tn;
   const size_t bh = ((size_t)b * H + h) * Tn;
+  const size_t dbh = ((size_t)b * (p.drop_heads > 0 ? p.drop_heads : H) + p.head_offset + h) * Tn;
 
   fill_tile<NQ, DH, LD, S3, N_THREADS>(Qs, qb, p.sq.t, q0, Tn, p.vec);
 
@@ -429,7 +435,7 @@ attention_kernel(const AttnParams p) {
     const uint32_t sd = (uint32_t)p.seed[0];
     offset = (uint32_t)p.seed[1];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) row_key[i] = sc_row_key(sd, (int64_t)bh + q0 + r0 + 8 * i);
+    for (int i = 0; i < 2; ++i) row_key[i] = sc_row_key(sd, (int64_t)dbh + q0 + r0 + 8 * i);
   }
   // per-head bias rows of this thread's queries, and their gates
   const float* ab_row[2];
@@ -617,6 +623,7 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
   const TI* vbase = static_cast<const TI*>(p.v) + b * p.sv.b + h * p.sv.h;
   const float* kb = p.key_bias + (size_t)b * Tn;
   const size_t bh = ((size_t)b * H + h) * Tn;
+  const size_t dbh = ((size_t)b * (p.drop_heads > 0 ? p.drop_heads : H) + p.head_offset + h) * Tn;
 
   fill_tile<WQ, DH, LD, S3, W_THREADS>(Qs, qb, p.sq.t, q0, Tn, p.vec);
 
@@ -630,7 +637,7 @@ __global__ void __launch_bounds__(W_THREADS, 1) attention_wide_kernel(const Attn
   uint32_t offset = 0, row_key = 0;
   if (drop) {
     offset = (uint32_t)p.seed[1];
-    row_key = sc_row_key((uint32_t)p.seed[0], (int64_t)bh + q0 + srow);
+    row_key = sc_row_key((uint32_t)p.seed[0], (int64_t)dbh + q0 + srow);
   }
   const float* ab_row = HAS_AB ? p.ab + h * p.ab_head_stride + (size_t)srow_t * Tn : nullptr;
   const float gate = HAS_AB && p.gate != nullptr ? p.gate[bh + srow_t] : 1.f;
@@ -826,6 +833,9 @@ template <typename TI, typename TO, int DH, bool HAS_AB>
 cudaError_t launch_attention(AttnParams p, int B, cudaStream_t stream) {
   if (B <= 0 || p.T <= 0 || p.H <= 0 || HAS_AB != (p.ab != nullptr))
     return cudaErrorInvalidValue;
+  if (p.head_offset < 0 || (p.drop_heads > 0 && p.head_offset + p.H > p.drop_heads) ||
+      (p.drop_heads == 0 && p.head_offset != 0))
+    return cudaErrorInvalidValue;
   if (p.sq.t < 0 || p.sk.t < 0 || p.sv.t < 0 || p.so.t < 0) return cudaErrorInvalidValue;
   p.vec = rows_take_vector_loads<TI>(p.q, p.sq.b, p.sq.h, p.sq.t) &&
           rows_take_vector_loads<TI>(p.k, p.sk.b, p.sk.h, p.sk.t) &&
@@ -844,8 +854,10 @@ cudaError_t launch_bhtd_attention(
     const void* q, const void* k, const void* v, void* o, const int64_t* strides,
     const float* key_bias, int B, int H, int T, int dh, int is_bf16, float q_scale,
     const int64_t* seed, uint32_t keep_thresh, float inv_keep, float* lse,
-    cudaStream_t stream) {
+    cudaStream_t stream, int head_offset = 0, int drop_heads = 0) {
   AttnParams p = {};
+  p.head_offset = head_offset;
+  p.drop_heads = drop_heads;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.sq = {strides[0], strides[1], strides[2]};
   p.sk = {strides[3], strides[4], strides[5]};

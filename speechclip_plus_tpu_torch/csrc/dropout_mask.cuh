@@ -5,6 +5,11 @@
 //   mix32(mix32(row ^ seed) ^ mix32(j + offset)) < thresh,
 //   row = (b * H + h) * T + i,   thresh = round(keep_prob * 2^32),
 //
+// with H the heads of the whole layer and h a head's index among them: a
+// tensor-parallel shard of heads [h0, h0 + H_r) keys its rows by h0 + its own
+// head index and the layer's H (AttnParams::head_offset, drop_heads), so it
+// draws exactly the whole layer's mask rows for those heads.
+//
 // with mix32 the "lowbias32" integer finalizer (a bijection on 32 bits).
 // The mask is a pure function of (seed, offset, b, h, i, j), so it does not
 // depend on tiling: the backward regenerates the forward's mask without a

@@ -29,14 +29,17 @@ extern "C" {
 // q, k, v, o: (B, H, T, dh) in one dtype (fp32, or bf16 when is_bf16), given
 // by 12 element strides (b, h, t of q, k, v, o; dh contiguous). key_bias
 // (B, T) fp32. `seed` is the device int64 [seed, offset] pair (null: no
-// dropout). Returns a cudaError_t.
+// dropout). The H heads are heads [head_offset, head_offset + H) of a layer
+// of drop_heads (0: H) heads in the mask's row key (a tensor-parallel
+// shard). Returns a cudaError_t.
 int sc_fused_attention(const void* q, const void* k, const void* v, void* o,
                        const int64_t* strides, const float* key_bias,
                        int B, int H, int T, int dh, int is_bf16, float q_scale,
                        const int64_t* seed, unsigned int keep_thresh, float inv_keep,
-                       cudaStream_t stream) {
+                       int head_offset, int drop_heads, cudaStream_t stream) {
   return (int)launch_bhtd_attention<>(q, k, v, o, strides, key_bias, B, H, T, dh, is_bf16,
-                                    q_scale, seed, keep_thresh, inv_keep, nullptr, stream);
+                                    q_scale, seed, keep_thresh, inv_keep, nullptr, stream,
+                                    head_offset, drop_heads);
 }
 
 }  // extern "C"

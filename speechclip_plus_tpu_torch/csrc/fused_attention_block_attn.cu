@@ -20,12 +20,15 @@ int sc_fab_attention_dh1024(SC_FAB_ATTN_PARAMS, int ctx_bf16);
 // (device int64 [seed, offset]; null for none) the weights go through the
 // dropout mask of dropout_mask.cuh with `keep_thresh`, kept ones scaled by
 // `inv_keep`. `lse` (B, H, T) fp32 receives the per-row log-sum-exp when
-// not null. dh is 64, 96, 128, 768 or 1024.
+// not null. dh is 64, 96, 128, 768 or 1024. The H heads are heads
+// [head_offset, head_offset + H) of a layer of drop_heads (0: H) heads, in
+// the dropout mask's row key alone (a tensor-parallel shard's heads; `ab`
+// and `gate` are the shard's own).
 int sc_fab_attention(const float* qkv, const float* key_bias, void* ctx,
                      int B, int Tn, int H, int dh, int ctx_bf16,
                      const float* ab, int ab_heads, const float* gate,
                      const int64_t* seed, unsigned int keep_thresh, float inv_keep,
-                     float* lse, cudaStream_t stream) {
+                     float* lse, int head_offset, int drop_heads, cudaStream_t stream) {
   switch (dh) {
     case 64: return sc_fab_attention_dh64(SC_FAB_ATTN_ARGS, ctx_bf16);
     case 96: return sc_fab_attention_dh96(SC_FAB_ATTN_ARGS, ctx_bf16);

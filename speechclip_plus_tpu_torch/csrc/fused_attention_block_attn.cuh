@@ -10,9 +10,11 @@
 #define SC_FAB_ATTN_PARAMS                                                              \
   const float *qkv, const float *key_bias, void *ctx, int B, int Tn, int H,             \
       const float *ab, int ab_heads, const float *gate, const int64_t *seed,            \
-      unsigned int keep_thresh, float inv_keep, float *lse, cudaStream_t stream
-#define SC_FAB_ATTN_ARGS \
-  qkv, key_bias, ctx, B, Tn, H, ab, ab_heads, gate, seed, keep_thresh, inv_keep, lse, stream
+      unsigned int keep_thresh, float inv_keep, float *lse, int head_offset, int drop_heads, \
+      cudaStream_t stream
+#define SC_FAB_ATTN_ARGS                                                                \
+  qkv, key_bias, ctx, B, Tn, H, ab, ab_heads, gate, seed, keep_thresh, inv_keep, lse, \
+      head_offset, drop_heads, stream
 
 namespace {
 
@@ -39,6 +41,8 @@ cudaError_t block_attention(SC_FAB_ATTN_PARAMS) {
   p.q_scale = 1.f;
   p.T = Tn;
   p.H = H;
+  p.head_offset = head_offset;
+  p.drop_heads = drop_heads;
   return ab != nullptr ? launch_attention<float, TO, DH, true>(p, B, stream)
                        : launch_attention<float, TO, DH, false>(p, B, stream);
 }

@@ -27,6 +27,14 @@
 //      partial per (row tile, column);
 //   4. vq_reduce_kernel sums the partials in row-tile order.
 //
+// Steps 1-2 are one entry point (sc_vq_fwd_rows) and steps 3-4 another
+// (sc_vq_fwd_cols). Under tensor parallelism each rank holds a vocabulary
+// shard: step 2 writes the shard's merged row statistics instead of k, the
+// ranks gather them in column order, vq_combine_kernel merges them again
+// with one "split" a shard (sc_vq_combine; its strict > keeps the lowest
+// global index, as the unsharded argmax does), and steps 3-4 run on the
+// shard's columns from the global (m, z): psum stays the shard's.
+//
 // No (N, V) tensor reaches device memory and no float atomics are used, so
 // reruns give identical statistics. In bf16 the scores run on the tensor
 // cores (`mma.sync` m16n8k16, bf16 operands, fp32 accumulators: the products
@@ -520,17 +528,23 @@ __global__ void __launch_bounds__(ROWS * 4, 1) vq_fwd_tc_kernel(
 }
 
 // the splits merged in column order: strict > keeps the lowest index. The
-// loads of 8 splits are issued together ahead of their merges.
+// loads of 8 splits are issued together ahead of their merges. Writes k, ent,
+// m and z where k is given, and where row_stats is given the merged row
+// [4][N] (m, z, w, best value) with its best index + index_offset in row_best
+// (-1 where no split had a live column): a tensor-parallel vocabulary shard's
+// statistics, which this kernel merges again across the shards (splits = tp).
 __global__ void vq_combine_kernel(const float* __restrict__ stats, const int* __restrict__ best_i,
                                   int N, int splits, int* __restrict__ k,
                                   float* __restrict__ ent, float* __restrict__ m_out,
-                                  float* __restrict__ z_out) {
+                                  float* __restrict__ z_out, float* __restrict__ row_stats,
+                                  int* __restrict__ row_best, int index_offset) {
   constexpr int B = 8;
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
   const size_t sn = (size_t)splits * N;
   float m = INIT_MAX, z = 0.f, w = 0.f, bv = INIT_MAX;
   int bi = 0;
+  bool found = false;
   for (int s0 = 0; s0 < splits; s0 += B) {
     float pm[B], pz[B], pw[B], pb[B];
     int pi[B];
@@ -550,13 +564,23 @@ __global__ void vq_combine_kernel(const float* __restrict__ stats, const int* __
       if (pi[q] >= 0 && pb[q] > bv) {
         bv = pb[q];
         bi = pi[q];
+        found = true;
       }
     }
   }
-  k[row] = bi;
-  ent[row] = logf(z) + m - w / z;
-  m_out[row] = m;
-  z_out[row] = z;
+  if (k != nullptr) {
+    k[row] = bi;
+    ent[row] = logf(z) + m - w / z;
+    m_out[row] = m;
+    z_out[row] = z;
+  }
+  if (row_stats != nullptr) {
+    row_stats[row] = m;
+    row_stats[N + row] = z;
+    row_stats[2 * (size_t)N + row] = w;
+    row_stats[3 * (size_t)N + row] = bv;
+    row_best[row] = found ? bi + index_offset : -1;
+  }
 }
 
 // psum = the (row tile, column) partials summed in row-tile order
@@ -678,7 +702,7 @@ template <bool DX>
 __global__ void __launch_bounds__(V_THREADS) vq_bwd_fma_kernel(
     const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ en,
     const float* __restrict__ norms, const int* __restrict__ mask, int N, int V, int D,
-    int splits, int cols_per_split, const float* __restrict__ temp,
+    int splits, int n_stats, int cols_per_split, const float* __restrict__ temp,
     float* __restrict__ stats, float* __restrict__ dx_out, float* __restrict__ dt_part) {
   const float inv_t = inverse_temperature(temp);
   __shared__ float xs[VR][VD + 1];
@@ -745,7 +769,7 @@ __global__ void __launch_bounds__(V_THREADS) vq_bwd_fma_kernel(
   }
 
   for (int e = tid; e < VR * D; e += V_THREADS) dxs[e] = 0.f;
-  if (tid < VR) merged_row(stats, splits, N, r0 + tid, rowst[tid]);
+  if (tid < VR) merged_row(stats, n_stats, N, r0 + tid, rowst[tid]);
   __syncthreads();
   float mr[2], iz[2], rho[2];
 #pragma unroll
@@ -920,7 +944,7 @@ template <int ROWS, bool DX>
 __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ en,
     const float* __restrict__ norms, const int* __restrict__ mask, int N, int V, int D,
-    int splits, int cols_per_split, const float* __restrict__ temp,
+    int splits, int n_stats, int cols_per_split, const float* __restrict__ temp,
     float* __restrict__ stats, float* __restrict__ dx_out, float* __restrict__ dt_part) {
   const float inv_t = inverse_temperature(temp);
   using Tile = TcTile<ROWS>;
@@ -1021,7 +1045,7 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
     return;
   }
 
-  if (tid < ROWS) merged_row(stats, splits, N, r0 + tid, rowst + tid * 3);  // read after a barrier
+  if (tid < ROWS) merged_row(stats, n_stats, N, r0 + tid, rowst + tid * 3);  // read after a barrier
   float acc[RG][DC / 8][4];  // dx: rows 16 mi + .., columns DC warp + 8 n + ..
 #pragma unroll
   for (int mi = 0; mi < RG; ++mi)
@@ -1112,11 +1136,12 @@ __global__ void __launch_bounds__(T_THREADS, 1) vq_bwd_tc_kernel(
   }
 }
 
+// passes: 1 = pass 1, 2 = pass 2, 3 = both
 template <int ROWS>
 cudaError_t launch_vq_bwd_tc(const bf16* x, const bf16* g, const bf16* en, const float* norms,
                              const int* mask, int N, int V, int D, const dim3 grid, int splits,
-                             int cols_per_split, const float* temp, float* stats, float* out,
-                             float* dt_part, cudaStream_t stream) {
+                             int n_stats, int cols_per_split, const float* temp, float* stats,
+                             float* out, float* dt_part, int passes, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(ROWS, D);
   cudaError_t err = cudaFuncSetAttribute(vq_bwd_tc_kernel<ROWS, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1124,12 +1149,15 @@ cudaError_t launch_vq_bwd_tc(const bf16* x, const bf16* g, const bf16* en, const
   err = cudaFuncSetAttribute(vq_bwd_tc_kernel<ROWS, true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  vq_bwd_tc_kernel<ROWS, false><<<grid, T_THREADS, smem, stream>>>(
-      x, g, en, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (passes & 1) {
+    vq_bwd_tc_kernel<ROWS, false><<<grid, T_THREADS, smem, stream>>>(
+        x, g, en, norms, mask, N, V, D, splits, n_stats, cols_per_split, temp, stats, out,
+        dt_part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !(passes & 2)) return err;
+  }
   vq_bwd_tc_kernel<ROWS, true><<<grid, T_THREADS, smem, stream>>>(
-      x, g, en, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
+      x, g, en, norms, mask, N, V, D, splits, n_stats, cols_per_split, temp, stats, out, dt_part);
   return cudaGetLastError();
 }
 
@@ -1159,8 +1187,9 @@ __global__ void vq_bwd_dt_kernel(const float* __restrict__ part, int n, float* _
 
 cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void* en,
                           const float* norms, const int* mask, int N, int V, int D,
-                          const float* temp, int rows, int splits, float* stats, float* dx_part,
-                          float* dt_part, float* dx, float* dt, cudaStream_t stream) {
+                          const float* temp, int rows, int splits, int n_stats, int passes,
+                          float* stats, float* dx_part, float* dt_part, float* dx, float* dt,
+                          cudaStream_t stream) {
   const int col_tiles = (V + VC - 1) / VC, row_tiles = (N + rows - 1) / rows;
   const int cols_per_split = (col_tiles + splits - 1) / splits * VC;
   const dim3 grid(row_tiles, splits);
@@ -1169,11 +1198,12 @@ cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void*
   if (is_bf16) {
     const bf16 *xb = static_cast<const bf16*>(x), *gb = static_cast<const bf16*>(g),
                *eb = static_cast<const bf16*>(en);
-    err = rows == 64 ? launch_vq_bwd_tc<64>(xb, gb, eb, norms, mask, N, V, D, grid, splits,
-                                            cols_per_split, temp, stats, out, dt_part, stream)
-                     : launch_vq_bwd_tc<32>(xb, gb, eb, norms, mask, N, V, D, grid, splits,
-                                            cols_per_split, temp, stats, out, dt_part, stream);
-    if (err != cudaSuccess) return err;
+    err = rows == 64
+              ? launch_vq_bwd_tc<64>(xb, gb, eb, norms, mask, N, V, D, grid, splits, n_stats,
+                                     cols_per_split, temp, stats, out, dt_part, passes, stream)
+              : launch_vq_bwd_tc<32>(xb, gb, eb, norms, mask, N, V, D, grid, splits, n_stats,
+                                     cols_per_split, temp, stats, out, dt_part, passes, stream);
+    if (err != cudaSuccess || !(passes & 2)) return err;
   } else {
     const size_t smem = sizeof(float) * VR * D;
     const float *xf = static_cast<const float*>(x), *gf = static_cast<const float*>(g),
@@ -1181,12 +1211,16 @@ cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void*
     err = cudaFuncSetAttribute(vq_bwd_fma_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    vq_bwd_fma_kernel<false><<<grid, V_THREADS, 0, stream>>>(
-        xf, gf, ef, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (passes & 1) {
+      vq_bwd_fma_kernel<false><<<grid, V_THREADS, 0, stream>>>(
+          xf, gf, ef, norms, mask, N, V, D, splits, n_stats, cols_per_split, temp, stats, out,
+          dt_part);
+      err = cudaGetLastError();
+      if (err != cudaSuccess || !(passes & 2)) return err;
+    }
     vq_bwd_fma_kernel<true><<<grid, V_THREADS, smem, stream>>>(
-        xf, gf, ef, norms, mask, N, V, D, splits, cols_per_split, temp, stats, out, dt_part);
+        xf, gf, ef, norms, mask, N, V, D, splits, n_stats, cols_per_split, temp, stats, out,
+        dt_part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1201,61 +1235,89 @@ cudaError_t launch_vq_bwd(int is_bf16, const void* x, const void* g, const void*
   return cudaGetLastError();
 }
 
-template <int ROWS>
-cudaError_t launch_vq_tc(const bf16* x, const bf16* en, const int* mask, int N, int V, int D,
-                         const dim3 grid, int cols_per_split, float* stats, int* best_i,
-                         float* m, float* z, float* col_part, int* k, float* ent,
-                         cudaStream_t stream) {
+template <int ROWS, bool PSUM>
+cudaError_t launch_vq_pass(const bf16* x, const bf16* en, const int* mask, int N, int V, int D,
+                           const dim3 grid, int cols_per_split, float* stats, int* best_i,
+                           const float* m, const float* z, float* col_part,
+                           cudaStream_t stream) {
   const size_t smem = fwd_tc_smem_bytes(ROWS, D);
-  cudaError_t err = cudaFuncSetAttribute(vq_fwd_tc_kernel<ROWS, false>,
+  cudaError_t err = cudaFuncSetAttribute(vq_fwd_tc_kernel<ROWS, PSUM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(vq_fwd_tc_kernel<ROWS, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  vq_fwd_tc_kernel<ROWS, false><<<grid, ROWS * 4, smem, stream>>>(
-      x, en, mask, N, V, D, cols_per_split, stats, best_i, nullptr, nullptr, nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  vq_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(stats, best_i, N, grid.y, k, ent, m, z);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  vq_fwd_tc_kernel<ROWS, true><<<grid, ROWS * 4, smem, stream>>>(
-      x, en, mask, N, V, D, cols_per_split, nullptr, nullptr, m, z, col_part);
+  vq_fwd_tc_kernel<ROWS, PSUM><<<grid, ROWS * 4, smem, stream>>>(
+      x, en, mask, N, V, D, cols_per_split, stats, best_i, m, z, col_part);
   return cudaGetLastError();
 }
 
-cudaError_t launch_vq(int is_bf16, const void* x, const void* en, const int* mask, int N,
-                      int V, int D, int rows, int splits, float* stats, int* best_i,
-                      float* col_part, int* k, float* ent, float* m, float* z, float* psum,
-                      cudaStream_t stream) {
+struct VqGrid {
+  dim3 grid;
+  int cols_per_split, row_tiles;
+};
+
+VqGrid vq_grid(int is_bf16, int N, int V, int rows, int splits) {
   const int cols = is_bf16 ? FC : VC;
   const int col_tiles = (V + cols - 1) / cols, row_tiles = (N + rows - 1) / rows;
-  const int cols_per_split = (col_tiles + splits - 1) / splits * cols;
-  const dim3 grid(row_tiles, splits);
+  return {dim3(row_tiles, splits), (col_tiles + splits - 1) / splits * cols, row_tiles};
+}
+
+// pass 1 and the combine of the splits
+cudaError_t launch_vq_rows(int is_bf16, const void* x, const void* en, const int* mask, int N,
+                           int V, int D, int rows, int splits, float* stats, int* best_i, int* k,
+                           float* ent, float* m, float* z, float* row_stats, int* row_best,
+                           int index_offset, cudaStream_t stream) {
+  const VqGrid g = vq_grid(is_bf16, N, V, rows, splits);
   cudaError_t err;
   if (is_bf16) {
     const bf16 *xb = static_cast<const bf16*>(x), *eb = static_cast<const bf16*>(en);
-    err = rows == 128 ? launch_vq_tc<128>(xb, eb, mask, N, V, D, grid, cols_per_split, stats,
-                                          best_i, m, z, col_part, k, ent, stream)
-                      : launch_vq_tc<64>(xb, eb, mask, N, V, D, grid, cols_per_split, stats,
-                                         best_i, m, z, col_part, k, ent, stream);
+    err = rows == 128 ? launch_vq_pass<128, false>(xb, eb, mask, N, V, D, g.grid,
+                                                   g.cols_per_split, stats, best_i, nullptr,
+                                                   nullptr, nullptr, stream)
+                      : launch_vq_pass<64, false>(xb, eb, mask, N, V, D, g.grid,
+                                                  g.cols_per_split, stats, best_i, nullptr,
+                                                  nullptr, nullptr, stream);
   } else {
-    const float *xf = static_cast<const float*>(x), *ef = static_cast<const float*>(en);
-    vq_rows_kernel<<<grid, V_THREADS, 0, stream>>>(xf, ef, mask, N, V, D, cols_per_split, stats,
-                                                   best_i);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    vq_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(stats, best_i, N, splits, k, ent, m, z);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    vq_cols_kernel<<<grid, V_THREADS, 0, stream>>>(xf, ef, mask, m, z, N, V, D, cols_per_split,
-                                                   col_part);
+    vq_rows_kernel<<<g.grid, V_THREADS, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(en), mask, N, V, D,
+        g.cols_per_split, stats, best_i);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  vq_reduce_kernel<<<(V + 127) / 128, 128, 0, stream>>>(col_part, row_tiles, V, psum);
+  vq_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(stats, best_i, N, splits, k, ent, m, z,
+                                                         row_stats, row_best, index_offset);
   return cudaGetLastError();
+}
+
+// pass 2 from the rows' (m, z) and the reduce of its column partials
+cudaError_t launch_vq_cols(int is_bf16, const void* x, const void* en, const int* mask, int N,
+                           int V, int D, int rows, int splits, const float* m, const float* z,
+                           float* col_part, float* psum, cudaStream_t stream) {
+  const VqGrid g = vq_grid(is_bf16, N, V, rows, splits);
+  cudaError_t err;
+  if (is_bf16) {
+    const bf16 *xb = static_cast<const bf16*>(x), *eb = static_cast<const bf16*>(en);
+    err = rows == 128 ? launch_vq_pass<128, true>(xb, eb, mask, N, V, D, g.grid,
+                                                  g.cols_per_split, nullptr, nullptr, m, z,
+                                                  col_part, stream)
+                      : launch_vq_pass<64, true>(xb, eb, mask, N, V, D, g.grid,
+                                                 g.cols_per_split, nullptr, nullptr, m, z,
+                                                 col_part, stream);
+  } else {
+    vq_cols_kernel<<<g.grid, V_THREADS, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(en), mask, m, z, N, V, D,
+        g.cols_per_split, col_part);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  vq_reduce_kernel<<<(V + 127) / 128, 128, 0, stream>>>(col_part, g.row_tiles, V, psum);
+  return cudaGetLastError();
+}
+
+bool vq_fwd_args_ok(int N, int V, int D, int is_bf16, int rows, int splits) {
+  const int cols = is_bf16 ? FC : VC;
+  const int col_tiles = V > 0 ? (V + cols - 1) / cols : 0;
+  const int want_rows = !is_bf16 ? VR : D <= F_DMAX_128 ? 128 : 64;
+  return N > 0 && V > 0 && D > 0 && D % 16 == 0 && D <= (is_bf16 ? F_DMAX : 1024) &&
+         rows == want_rows && splits >= 1 && splits <= col_tiles;
 }
 
 }  // namespace
@@ -1267,40 +1329,74 @@ extern "C" {
 // bf16, 1024 in fp32); norms (V,) fp32 = ||emb||, mask (V,) int32, temp the
 // temperature, one fp32 in device memory that each block reads (a value that
 // is not positive gives NaN results). rows (bf16: 64 up to D = 512, else 32; fp32: 32) and splits
-// come from the wrapper's plan. Scratch: stats 3 * splits * N fp32, dx_part splits * N * D
+// come from the wrapper's plan. Scratch: stats 3 * n_stats * N fp32, dx_part splits * N * D
 // fp32 (unused, may be null, when splits == 1), dt_part ceil(N / rows) *
 // splits fp32. Outputs: dx (N, D) fp32, dt (1,) fp32. Returns a cudaError_t.
+//
+// `passes` 3 runs the whole backward (n_stats == splits). On a tensor-parallel
+// vocabulary shard en, norms and mask are the shard's, and the call is made
+// twice: passes = 1 writes the shard's per-split statistics [3][splits][N]
+// into `stats`; the caller gathers those of every shard in column order into
+// [3][n_stats][N]; passes = 2 merges all n_stats entries and writes the
+// shard's partial dx and dt, which the caller sums over the shards.
 int sc_vq_bwd(const void* x, const void* g, const void* en, const float* norms,
               const int* mask, int N, int V, int D, const float* temp, int is_bf16, int rows,
               int splits, float* stats, float* dx_part, float* dt_part, float* dx, float* dt,
-              cudaStream_t stream) {
+              int n_stats, int passes, cudaStream_t stream) {
   const int col_tiles = V > 0 ? (V + VC - 1) / VC : 0;
   const int want_rows = !is_bf16 ? VR : D <= T_DMAX_64 ? 64 : 32;
   if (N <= 0 || V <= 0 || D <= 0 || D % 16 || D > (is_bf16 ? T_DMAX : 1024) ||
       temp == nullptr || rows != want_rows || splits < 1 || splits > col_tiles ||
-      (splits > 1 && dx_part == nullptr))
+      (splits > 1 && dx_part == nullptr) || passes < 1 || passes > 3 || n_stats < splits ||
+      (passes == 3 && n_stats != splits))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_vq_bwd(is_bf16, x, g, en, norms, mask, N, V, D, temp, rows, splits, stats,
-                            dx_part, dt_part, dx, dt, stream);
+  return (int)launch_vq_bwd(is_bf16, x, g, en, norms, mask, N, V, D, temp, rows, splits, n_stats,
+                            passes, stats, dx_part, dt_part, dx, dt, stream);
 }
 
-// Forward. x (N, D) and en (V, D) in the compute dtype (is_bf16), row-major,
-// 16-byte aligned, D a multiple of 16 (at most 768 in bf16, 1024 in fp32);
-// mask (V,) int32, nonzero = excluded column. rows (bf16: 128 up to D = 512,
-// else 64; fp32: 32) and splits come from the wrapper's plan. Scratch: stats 4 * splits * N
-// fp32, best_i splits * N int32, col_part ceil(N / rows) * V fp32. Outputs:
-// k (N,) int32, ent, m, z (N,) fp32, psum (V,) fp32. Returns a cudaError_t.
-int sc_vq_fwd(const void* x, const void* en, const int* mask, int N, int V, int D, int is_bf16,
-              int rows, int splits, float* stats, int* best_i, float* col_part, int* k,
-              float* ent, float* m, float* z, float* psum, cudaStream_t stream) {
-  const int cols = is_bf16 ? FC : VC;
-  const int col_tiles = V > 0 ? (V + cols - 1) / cols : 0;
-  const int want_rows = !is_bf16 ? VR : D <= F_DMAX_128 ? 128 : 64;
-  if (N <= 0 || V <= 0 || D <= 0 || D % 16 || D > (is_bf16 ? F_DMAX : 1024) ||
-      rows != want_rows || splits < 1 || splits > col_tiles)
+// Forward, in two entry points that the wrapper calls in turn. x (N, D) and
+// en (V, D) in the compute dtype (is_bf16), row-major, 16-byte aligned, D a
+// multiple of 16 (at most 768 in bf16, 1024 in fp32); mask (V,) int32,
+// nonzero = excluded column. rows (bf16: 128 up to D = 512, else 64; fp32:
+// 32) and splits come from the wrapper's plan. Scratch: stats 4 * splits * N
+// fp32, best_i splits * N int32, col_part ceil(N / rows) * V fp32.
+//
+// The rows: pass 1 and the combine of the splits -> k (N,) int32, ent, m, z
+// (N,) fp32 where k is not null; where row_stats is not null, the merged
+// [4][N] row statistics (m, z, w, best value) and row_best (N,) int32, the
+// best column + index_offset (-1 for none). A tensor-parallel vocabulary
+// shard (en, mask the shard's, index_offset its first id) writes those; the
+// caller gathers every shard's in column order and merges them with
+// sc_vq_combine (splits = the shard count) into k, ent, m and z.
+int sc_vq_fwd_rows(const void* x, const void* en, const int* mask, int N, int V, int D,
+                   int is_bf16, int rows, int splits, float* stats, int* best_i, int* k,
+                   float* ent, float* m, float* z, float* row_stats, int* row_best,
+                   int index_offset, cudaStream_t stream) {
+  if (!vq_fwd_args_ok(N, V, D, is_bf16, rows, splits) ||
+      (k == nullptr && row_stats == nullptr) || (row_stats != nullptr && row_best == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_vq(is_bf16, x, en, mask, N, V, D, rows, splits, stats, best_i, col_part, k,
-                        ent, m, z, psum, stream);
+  return (int)launch_vq_rows(is_bf16, x, en, mask, N, V, D, rows, splits, stats, best_i, k, ent,
+                             m, z, row_stats, row_best, index_offset, stream);
+}
+
+// The merge alone: stats [4][splits][N] (m, z, w, best value) and best_i
+// [splits][N] in column order -> k, ent, m, z (N,).
+int sc_vq_combine(const float* stats, const int* best_i, int N, int splits, int* k, float* ent,
+                  float* m, float* z, cudaStream_t stream) {
+  if (N <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  vq_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(stats, best_i, N, splits, k, ent, m, z,
+                                                         nullptr, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// The columns: pass 2 from the rows' m and z (N,) and the reduce -> psum (V,)
+// fp32, the column sums of softmax(s) over this codebook (a shard's own).
+int sc_vq_fwd_cols(const void* x, const void* en, const int* mask, int N, int V, int D,
+                   int is_bf16, int rows, int splits, const float* m, const float* z,
+                   float* col_part, float* psum, cudaStream_t stream) {
+  if (!vq_fwd_args_ok(N, V, D, is_bf16, rows, splits)) return (int)cudaErrorInvalidValue;
+  return (int)launch_vq_cols(is_bf16, x, en, mask, N, V, D, rows, splits, m, z, col_part, psum,
+                             stream);
 }
 
 }  // extern "C"

@@ -221,7 +221,9 @@ class BucketedLoader:
 
     def set_shard(self, rank: int, world: int) -> None:
         """Decode only rank's rows of each global batch (data parallelism;
-        the module docstring). The worker pool restarts with the new shard."""
+        the module docstring). Under tensor parallelism `rank` and `world` are
+        the data coordinates, so that the ranks of a model group decode the
+        same rows. The worker pool restarts with the new shard."""
         if (rank, world) != self._shard:
             self.close()
             self._shard = (int(rank), int(world))

@@ -48,6 +48,7 @@ from ..ops.fused_keyword import fused_cosine_vq
 from ..ops.kw_bn import kw_bn_dynamic, kw_bn_fixed
 from ..ops.masks import get_keypadding_mask
 from ..ops.vq import scheduled_temperature, simple_vector_quantizer
+from ..parallel.tp import gather_from_model
 from .cif import CIF, CifConfig
 
 __all__ = ["TransformerArgs", "VQConfig", "KwBnConfig", "KeywordHeadConfig", "make_self_att",
@@ -178,11 +179,16 @@ class KeywordHeadConfig:
 class SimpleVectorQuantizer(nn.Module):
     """The VQ with its temperature (JAX ``:168-271``): K3 (K3b backward) where
     the configuration takes the fused route and the form is straight-through
-    (or eval), else the materialized scores of ``ops/vq.py``."""
+    (or eval), else the materialized scores of ``ops/vq.py``. Under tensor
+    parallelism (`tp`, set by ``parallel/tp.py``) the table it is given is this
+    rank's vocabulary shard: K3 and K3b run on the shard and merge across the
+    model group; the materialized route gathers the whole table first, as
+    XLA does for JAX."""
 
     def __init__(self, cfg: VQConfig, fused_score_kernel: bool = True):
         super().__init__()
         self.cfg, self.fused_score_kernel = cfg, fused_score_kernel
+        self.tp = None
         if cfg.temp_type == "learnable":
             self.curr_temp = nn.Parameter(torch.tensor(float(cfg.temp_init)))
 
@@ -205,7 +211,7 @@ class SimpleVectorQuantizer(nn.Module):
         st_compatible = not training or (c.hard and not c.use_gumbel)
         if self.fused_score_kernel and st_compatible and c.time_first:
             res = fused_cosine_vq(xn, emb, temp, prob_msk=c.prob_msk, dtype=compute_dtype,
-                                  training=training, group=group)
+                                  training=training, group=group, model_group=self.tp)
             gt = c.ground_truth_perplexity
             if gt is not None:
                 v = res["num_vars"]
@@ -214,7 +220,7 @@ class SimpleVectorQuantizer(nn.Module):
         # the materialized cosine scores (the reference einsum): bf16 operands
         # under bf16 compute, fp32 products and sums, as JAX's
         # preferred_element_type=float32
-        embf = emb.float()
+        embf = gather_from_model(emb, self.tp).float()
         en = embf / embf.norm(dim=-1, keepdim=True).clamp_min(1e-8)
         scores = xn.to(compute_dtype).float() @ en.to(compute_dtype).float().T
         return simple_vector_quantizer(

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..nn.attention import MultiheadAttention
 from ..nn.transformer import LayerNorm
+from ..parallel.tp import copy_to_model, reduce_from_model, row_parallel_linear
 
 __all__ = ["ClipConfig", "ClipModel", "VisionTransformer", "TextTransformer"]
 
@@ -114,6 +115,7 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(d_model, dtype=dtype)
         self.c_fc = nn.Linear(d_model, 4 * d_model, dtype=dtype)
         self.c_proj = nn.Linear(4 * d_model, d_model, dtype=dtype)
+        self.tp = None  # the model group when the MLP is sharded (parallel/tp.py)
 
     def _attend(self, h: torch.Tensor, attn_mask=None) -> torch.Tensor:
         if self.fused_vjp:
@@ -130,6 +132,10 @@ class ResidualAttentionBlock(nn.Module):
         else:
             x = x + self._attend(h, attn_mask)
         cd, fc, proj = self.cd, self.c_fc, self.c_proj
+        if self.tp is not None:  # c_fc column-parallel, c_proj row-parallel
+            h = copy_to_model(self.ln_2(x), self.tp)
+            h = quick_gelu(F.linear(h, fc.weight.to(cd), fc.bias.to(cd)))
+            return x + row_parallel_linear(h, proj.weight.to(cd), proj.bias.to(cd), self.tp, cd)
         h = quick_gelu(F.linear(self.ln_2(x), fc.weight.to(cd), fc.bias.to(cd)))
         return x + F.linear(h, proj.weight.to(cd), proj.bias.to(cd))
 
@@ -183,7 +189,10 @@ class VisionTransformer(nn.Module):
 class TextTransformer(nn.Module):
     """Causal text tower over embedded token sequences. The token table stays
     fp32: it is also the fp32 VQ codebook; lookups are cast to the compute
-    dtype."""
+    dtype. Under tensor parallelism (`tp` set by ``parallel/tp.py``) the table
+    is this rank's vocabulary shard: a lookup gathers the ids inside the
+    shard, zeros the others and sums over the model group (exactly one rank
+    holds each id)."""
 
     def __init__(self, c: ClipConfig):
         super().__init__()
@@ -200,9 +209,16 @@ class TextTransformer(nn.Module):
         t = c.context_length
         causal = torch.full((t, t), -1e30).triu(1)
         self.register_buffer("causal_bias", causal, persistent=False)
+        self.tp = None  # the model group when the table is vocabulary-sharded
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.token_embedding(ids).to(self.cfg.dtype)
+        if self.tp is None:
+            return self.token_embedding(ids).to(self.cfg.dtype)
+        w = self.token_embedding.weight
+        local = ids - self.tp.model_rank * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        e = torch.where(inside[..., None], F.embedding(local.clamp(0, w.shape[0] - 1), w), 0.0)
+        return reduce_from_model(e, self.tp).to(self.cfg.dtype)
 
     def run(self, x: torch.Tensor, eot_index: torch.Tensor) -> torch.Tensor:
         """Embedded sequence (B, ctx, W) -> pooled feature (B, E) at eot_index."""

@@ -73,6 +73,14 @@ a generator set to the state the step's generator had before the layer, in
 the forward and again in the recompute, so both build the same masks, and
 the step's generator then moves on as if the layer had drawn from it.
 
+Under tensor parallelism (``parallel/tp.py``) each encoder layer runs
+Megatron-style on its model group: the attention on this rank's heads (K1
+fused-out, or the plain routes, on the head range; the WavLM gate and the
+shared position bias computed whole and sliced to those heads) with the
+out-projection row-parallel, `fc1` column-parallel and `fc2` row-parallel,
+each row-parallel product summed in fp32 over the model group before its
+bias (`tp_heads`, `tp_ffn`; `shard_model` sets them).
+
 Layouts at the public surface follow JAX: waveforms (B, T), features
 (B, T', D).
 """
@@ -93,6 +101,7 @@ from ..nn.flash import flash_attention
 from ..nn.fused_attention import fused_attention_dropout
 from ..nn.transformer import LayerNorm
 from ..ops.weighted_sum import layer_norm
+from ..parallel.tp import copy_to_model, row_parallel_linear
 
 __all__ = ["HubertConfig", "HubertModel", "downsample_padding_mask",
            "relative_position_buckets"]
@@ -349,6 +358,9 @@ class HubertEncoderLayer(nn.Module):
             self.gru_rel_pos_linear = nn.Linear(d // cfg.n_heads, 8, dtype=dt)
             # fp32 like the gate it scales (a flax param without a dtype)
             self.gru_rel_pos_const = nn.Parameter(torch.ones(1, cfg.n_heads, 1, 1))
+        # tensor parallelism (parallel/tp.py): the model group, and whether the
+        # attention (by head) and the FFN are sharded
+        self.tp, self.tp_heads, self.tp_ffn = None, False, False
 
     def rel_pos_gate(self, x: torch.Tensor) -> torch.Tensor:
         """WavLM's per-layer gate on the shared relative position bias, from
@@ -366,35 +378,50 @@ class HubertEncoderLayer(nn.Module):
                   generator: Optional[torch.Generator],
                   position_bias: Optional[torch.Tensor]) -> torch.Tensor:
         c, att = self.cfg, self.self_attn
+        h, h0, heads = att.head_range()
+        gate = None
+        if position_bias is not None:
+            # computed whole from the layer input; a head shard takes its heads
+            gate = self.rel_pos_gate(x)[:, h0: h0 + h]
+            position_bias = position_bias[h0: h0 + h]
         if position_bias is not None and c.fused_attention_block:
             return att(x, key_padding_bias=key_padding_bias, generator=generator,
-                       attn_bias=position_bias, attn_gate=self.rel_pos_gate(x))
+                       attn_bias=position_bias, attn_gate=gate)
         if position_bias is None and c.fused_attention_block:
             return att(x, key_padding_bias=key_padding_bias, generator=generator)
         q, k, v = att.project_qkv(x)
         p = c.attention_dropout
+        heads_kw = {"head_offset": h0, "total_heads": heads}
         if position_bias is not None:
-            bias = self.rel_pos_gate(x)[..., None] * position_bias.float()[None]
+            bias = gate[..., None] * position_bias.float()[None]
             if key_padding_bias is not None:
                 bias = bias + key_padding_bias[:, None, None, :]
-            out = dot_product_attention(q, k, v, bias, p, generator)
+            out = dot_product_attention(q, k, v, bias, p, generator, **heads_kw)
         elif c.fused_attention_dropout:
             out = fused_attention_dropout(q, k, v, key_padding_bias, dropout_rate=p,
-                                          generator=generator)
+                                          generator=generator, **heads_kw)
         elif c.use_flash_attention and (generator is None or p == 0.0):
             kpm = None if key_padding_bias is None else key_padding_bias < -1e20
             out = flash_attention(q, k, v, kpm)
         else:
             bias = None if key_padding_bias is None else key_padding_bias[:, None, None, :]
-            out = dot_product_attention(q, k, v, bias, p, generator)
+            out = dot_product_attention(q, k, v, bias, p, generator, **heads_kw)
         return att.project_out(out)
+
+    def ffn(self, h: torch.Tensor) -> torch.Tensor:
+        """fc2(gelu(fc1(h))) in the compute dtype; sharded, fc1
+        column-parallel and fc2 row-parallel over the model group."""
+        cd = self.cfg.dtype
+        if not self.tp_ffn:
+            return _linear(F.gelu(_linear(h, self.fc1, cd)), self.fc2, cd)
+        h = F.gelu(_linear(copy_to_model(h, self.tp), self.fc1, cd))
+        return row_parallel_linear(h, self.fc2.weight.to(cd), self.fc2.bias.to(cd), self.tp, cd)
 
     def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        c, g, cd = self.cfg, generator, self.cfg.dtype
+        c, g, ffn = self.cfg, generator, self.ffn
         # activation_dropout is 0 (JAX :917)
-        ffn = lambda h: _linear(F.gelu(_linear(h, self.fc1, cd)), self.fc2, cd)
         if c.layer_norm_first:
             attn = self.attention(self.self_attn_layer_norm(x), key_padding_bias, g,
                                   position_bias)

@@ -43,6 +43,7 @@ from ..ops.losses import masked_contrastive_loss, quantity_l1_loss, supcon_loss
 from ..ops.weighted_sum import layer_weights, weighted_sum
 from ..nn.mlp import MLPLayers
 from ..optim.optimizer import trainable_mask
+from ..parallel.tp import full_parameter
 from .branches import (CascadedBranch, CascadedBranchPlus, HybridBranch, HybridBranchPlus,
                        KeywordHeadConfig, KwBnConfig, ParallelBranch, TransformerArgs,
                        VQConfig)
@@ -666,7 +667,8 @@ def init_kw_bn_from_token_embedding(model: KWClip) -> None:
     if not (c.has_cascaded and c.head.bn.enabled):
         return
     bn = model.cascaded_branch.head.bn_layer
-    emb = model.clip.text.token_embedding.weight.float()
+    # the whole table (gathered over the model group of a tensor-parallel model)
+    emb = full_parameter(model, "clip.text.token_embedding.weight").float()
     std, mean = emb.std(dim=0) * c.head.bn.std_scale, emb.mean(dim=0)
     if bn.variant == "fixed" and c.head.bn.type == "eachKw":
         k = c.head.keyword_num

@@ -37,6 +37,14 @@ strided views of one packed (B, T, 3D) projection (no transpose copy), the
 attention runs as K5 (``nn/fused_attention.py``), K4 (``nn/flash.py``) or
 `dot_product_attention`, and `project_out` merges the heads and applies the
 out-projection.
+
+Tensor parallelism (``parallel/tp.py``) shards the acoustic tower's
+attention by head: `shard_model` leaves this rank's heads in `in_proj_*` and
+their columns in `out_proj.weight` and sets `tp`. The fused-out route then
+runs K1 on the rank's heads and sums its fp32 partial out-projections over
+the model group before the bias; `project_qkv` gives the rank's heads and
+`project_out` the summed row-parallel product. Dropout masks are keyed by
+the layer's head index, so a shard drops what the whole layer drops.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.random import attention_keep_mask, draw_seed
+from ..parallel.tp import copy_to_model, reduce_from_model, row_parallel_linear
 from .fused_attention_block import fused_attention_block
 from .fused_attention_block_vjp import fused_attention_block_vjp
 
@@ -63,14 +72,16 @@ def padding_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
 def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None,
                           dropout_rate: float = 0.0,
                           generator: Optional[torch.Generator] = None,
-                          return_weights: bool = False):
+                          return_weights: bool = False, head_offset: int = 0,
+                          total_heads: Optional[int] = None):
     """Scaled dot-product attention on (B, H, T, dh), q scaled inside.
 
     bf16 inputs keep bf16 scores and probabilities (the JAX XLA path's
     precision); the softmax itself runs in fp32. `bias` broadcasts to
     (B, H, Tq, Tk). With a `generator`, the weights are dropped at
     `dropout_rate` with the counter mask of ``ops/random.py`` (self-attention
-    only: Tq == Tk). `return_weights` also returns the undropped weights."""
+    only: Tq == Tk), the H heads being heads [head_offset, head_offset + H)
+    of `total_heads`. `return_weights` also returns the undropped weights."""
     q = q * (q.shape[-1] ** -0.5)
     scores = torch.matmul(q, k.transpose(-1, -2)).float()
     if bias is not None:
@@ -79,7 +90,8 @@ def dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None,
     if dropout_rate > 0.0 and generator is not None:
         b, h, t, _ = q.shape
         keep_prob = 1.0 - float(dropout_rate)
-        keep = attention_keep_mask(draw_seed(generator), b, h, t, keep_prob)
+        keep = attention_keep_mask(draw_seed(generator), b, h, t, keep_prob, head_offset,
+                                   total_heads)
         dropped = torch.where(keep, weights / keep_prob, 0.0)
         return (torch.matmul(dropped, v), weights) if return_weights \
             else torch.matmul(dropped, v)
@@ -101,21 +113,36 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, dtype=dtype))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, dtype=dtype))
         self.out_proj = nn.Linear(d_model, d_model, dtype=dtype)
+        self.tp = None  # the model group when sharded by head (parallel/tp.py)
+
+    def head_range(self):
+        """(this module's heads, the first one's index, the layer's heads):
+        (nhead, 0, nhead) unless sharded by head."""
+        dh = self.d_model // self.nhead
+        h = self.in_proj_weight.shape[0] // (3 * dh)
+        return h, (0 if self.tp is None else self.tp.model_rank * h), self.nhead
 
     def project_qkv(self, x: torch.Tensor):
         """q, k, v (B, H, T, dh) in the compute dtype: strided views of one
-        packed (B, T, 3D) projection, q unscaled."""
+        packed (B, T, 3D) projection, q unscaled (this rank's heads when
+        sharded)."""
         cd = self.compute_dtype
         b, t, d = x.shape
-        qkv = F.linear(x.to(cd), self.in_proj_weight.to(cd), self.in_proj_bias.to(cd))
-        return qkv.view(b, t, 3, self.nhead, d // self.nhead).permute(2, 0, 3, 1, 4).unbind(0)
+        x = copy_to_model(x.to(cd), self.tp)
+        qkv = F.linear(x, self.in_proj_weight.to(cd), self.in_proj_bias.to(cd))
+        h = self.head_range()[0]
+        return qkv.view(b, t, 3, h, d // self.nhead).permute(2, 0, 3, 1, 4).unbind(0)
 
     def project_out(self, ctx: torch.Tensor) -> torch.Tensor:
-        """(B, H, T, dh) per-head context -> out-projected (B, T, D)."""
+        """(B, H, T, dh) per-head context -> out-projected (B, T, D); sharded,
+        the row-parallel product summed over the model group."""
         cd = self.compute_dtype
         b, h, t, dh = ctx.shape
-        return F.linear(ctx.transpose(1, 2).reshape(b, t, h * dh),
-                        self.out_proj.weight.to(cd), self.out_proj.bias.to(cd))
+        ctx = ctx.transpose(1, 2).reshape(b, t, h * dh)
+        if self.tp is not None:
+            return row_parallel_linear(ctx, self.out_proj.weight.to(cd),
+                                       self.out_proj.bias.to(cd), self.tp, cd)
+        return F.linear(ctx, self.out_proj.weight.to(cd), self.out_proj.bias.to(cd))
 
     def forward(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None,
@@ -138,6 +165,17 @@ class MultiheadAttention(nn.Module):
             raise ValueError("attn_bias and attn_mask are one additive term: pass one")
         if attn_gate is not None and (attn_bias is None or not self.fuse_out or return_weights):
             raise NotImplementedError("attn_gate outside the fused-out block")
+        if self.tp is not None:
+            if not (self.kernel and self.fuse_out and attn_mask is None and not return_weights):
+                raise NotImplementedError("a head-sharded attention takes K1 fused-out or "
+                                          "project_qkv / project_out")
+            h, h0, total = self.head_range()
+            part = fused_attention_block(
+                x.contiguous(), w_in, self.in_proj_bias, w_out, b_out, key_padding_bias,
+                n_heads=h, fuse_out=True, dropout_rate=self.dropout, generator=generator,
+                attn_bias=attn_bias, attn_gate=attn_gate, head_offset=h0, total_heads=total,
+                partial=True)
+            return (reduce_from_model(part, self.tp) + b_out.float()).to(cd)
         if self.kernel and not return_weights:
             if self.fuse_out and attn_mask is None:
                 return fused_attention_block(

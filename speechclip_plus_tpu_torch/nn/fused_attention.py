@@ -18,7 +18,9 @@ so the (B, H, T, dh) views of a packed (B, T, 3D) projection cost no
 transpose copy; the output is a (B, H, T, dh) view of a (B, T, H·dh) buffer,
 so merging the heads afterwards is a view too. Dropout uses the counter mask
 of ``ops/random.py`` with row = (b·H + h)·T + i: with the same (seed, offset)
-it is the mask K1's context-only mode draws. Forward only: the tower is
+it is the mask K1's context-only mode draws; on a tensor-parallel range of
+heads (`head_offset`, `total_heads`) h and H are the layer's, so a shard
+draws the whole layer's mask rows for its heads. Forward only: the tower is
 frozen, and a backward raises, as ``_fused_bwd`` does on the JAX side.
 """
 from __future__ import annotations
@@ -31,26 +33,31 @@ import torch
 from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 
 __all__ = ["fused_attention_dropout", "plain_fused_attention_dropout", "bhtd_strides",
-           "check_bhtd", "LAUNCHES"]
+           "check_bhtd", "LAUNCHES", "SHARD_LAUNCHES"]
 
 # wrapper calls that launched the kernel on the card
 LAUNCHES = 0
+# those of them on a tensor-parallel range of heads
+SHARD_LAUNCHES = 0
 
 _HEAD_DIMS = (64, 96)
 
 
 def plain_fused_attention_dropout(q, k, v, key_padding_bias=None, seeds=None,
-                                  keep_prob: float = 1.0):
+                                  keep_prob: float = 1.0, head_offset: int = 0,
+                                  total_heads=None):
     """Plain PyTorch twin of the kernel: fp32 arithmetic on the operands'
     values, the output rounded to q's dtype. `seeds` (the (2,) int64 [seed,
-    offset]) turns on dropout at `keep_prob` with the int64 counter mask."""
+    offset]) turns on dropout at `keep_prob` with the int64 counter mask, on
+    heads [head_offset, head_offset + H) of `total_heads`."""
     b, h, t, dh = q.shape
     s = torch.matmul(q.float() * dh ** -0.5, k.float().transpose(-1, -2))
     if key_padding_bias is not None:
         s = s + key_padding_bias.float()[:, None, None, :]
     w = torch.softmax(s, dim=-1)
     if seeds is not None:
-        w = torch.where(attention_keep_mask(seeds, b, h, t, keep_prob), w / keep_prob, 0.0)
+        w = torch.where(attention_keep_mask(seeds, b, h, t, keep_prob, head_offset, total_heads),
+                        w / keep_prob, 0.0)
     return torch.matmul(w, v.float()).to(q.dtype)
 
 
@@ -85,12 +92,16 @@ def check_bhtd(name: str, q, k, v, key_padding_bias):
     return key_padding_bias.to(torch.float32).contiguous()
 
 
-def _launch(q, k, v, key_padding_bias, seeds, keep_prob):
-    global LAUNCHES
+def _launch(q, k, v, key_padding_bias, seeds, keep_prob, head_offset=0, total_heads=None):
+    global LAUNCHES, SHARD_LAUNCHES
     from ..utils.cuda_build import check, kernels
 
     b, h, t, dh = q.shape
+    total = total_heads or h
     kb = check_bhtd("fused_attention_dropout", q, k, v, key_padding_bias)
+    if not 0 <= head_offset <= total - h:
+        raise ValueError(f"fused_attention_dropout: heads [{head_offset}, {head_offset + h}) "
+                         f"of {total}")
     if seeds is not None and (seeds.device != q.device or seeds.dtype != torch.int64
                               or tuple(seeds.shape) != (2,)):
         raise ValueError("fused_attention_dropout: seeds must be (2,) int64 on q's device")
@@ -102,26 +113,29 @@ def _launch(q, k, v, key_padding_bias, seeds, keep_prob):
             bhtd_strides(q, k, v, out), kb.data_ptr(), b, h, t, dh,
             int(q.dtype == torch.bfloat16), dh ** -0.5,
             None if seeds is None else seeds.data_ptr(), keep_threshold(keep_prob),
-            1.0 / keep_prob, torch.cuda.current_stream().cuda_stream),
+            1.0 / keep_prob, head_offset, total, torch.cuda.current_stream().cuda_stream),
             "fused_attention_dropout")
     LAUNCHES += 1
+    SHARD_LAUNCHES += total != h
     return out
 
 
-def _run(q, k, v, key_padding_bias=None, seeds=None, keep_prob: float = 1.0):
+def _run(q, k, v, key_padding_bias=None, seeds=None, keep_prob: float = 1.0,
+         head_offset: int = 0, total_heads=None):
     """The kernel on CUDA tensors, the twin on CPU tensors; dropout from the
     (2,) int64 [seed, offset] pair `seeds` (None: none). No autograd."""
     if q.device.type == "cpu":
-        return plain_fused_attention_dropout(q, k, v, key_padding_bias, seeds, keep_prob)
+        return plain_fused_attention_dropout(q, k, v, key_padding_bias, seeds, keep_prob,
+                                             head_offset, total_heads)
     if q.device.type != "cuda":
         raise NotImplementedError(f"fused_attention_dropout on {q.device.type}")
-    return _launch(q, k, v, key_padding_bias, seeds, keep_prob)
+    return _launch(q, k, v, key_padding_bias, seeds, keep_prob, head_offset, total_heads)
 
 
 class _ForwardOnly(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_bias, seeds, keep_prob):
-        return _run(q, k, v, key_padding_bias, seeds, keep_prob)
+    def forward(ctx, q, k, v, key_padding_bias, seeds, keep_prob, head_offset, total_heads):
+        return _run(q, k, v, key_padding_bias, seeds, keep_prob, head_offset, total_heads)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -136,12 +150,16 @@ def fused_attention_dropout(
     *,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    head_offset: int = 0,
+    total_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """q, k, v (B, H, T, dh); key_padding_bias (B, T) additive fp32 (-1e30 at
     pads). Returns (B, H, T, dh) in q's dtype. Dropout on the attention
     weights at `dropout_rate` when a `generator` is given (one (seed, offset)
-    pair is drawn from it)."""
+    pair is drawn from it). The H heads are heads [head_offset, head_offset
+    + H) of a layer of `total_heads` (default H) in the mask's row key."""
     seeds, keep_prob = None, 1.0
     if dropout_rate > 0.0 and generator is not None:
         seeds, keep_prob = draw_seed(generator), 1.0 - float(dropout_rate)
-    return _ForwardOnly.apply(q, k, v, key_padding_bias, seeds, keep_prob)
+    return _ForwardOnly.apply(q, k, v, key_padding_bias, seeds, keep_prob, head_offset,
+                              total_heads)

@@ -35,6 +35,16 @@ to bf16 only to fit its on-chip memory (JAX ``:559-567``); on the card the
 (H, T, T) tensor (4.9 MB at H=12, T=320) stays in L2. Both compose with the
 dropout mode and the log-sum-exp output.
 
+A tensor-parallel rank runs the block on its range of heads
+(``parallel/tp.py``): `w_in` holds q, k and v of heads [head_offset,
+head_offset + n_heads) of a layer of `total_heads`, `w_out` the matching
+columns of the out-projection. The dropout mask's rows are keyed by the
+layer's head index (``ops/random.py``), so a shard's context is exactly the
+whole block's context for those heads. With `partial` the fused-out mode
+returns the shard's out-projection in fp32 without the bias, which the
+caller sums over the model group, adds the bias to and rounds once (bf16
+partials would round twice where the whole block rounds once).
+
 `fused_attention_block` itself is forward-only: the frozen towers never need
 its gradient, and a backward raises, as ``_fused_bwd`` does on the JAX side.
 """
@@ -49,7 +59,7 @@ from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 
 __all__ = ["fused_attention_block", "attention_forward", "plain_fused_attention_block",
            "projection", "plain_projection", "check_attn_bias", "LAUNCHES", "WIDE_LAUNCHES",
-           "DH128_LAUNCHES", "DH1024_LAUNCHES", "PROJECTION_LAUNCHES"]
+           "DH128_LAUNCHES", "DH1024_LAUNCHES", "PROJECTION_LAUNCHES", "SHARD_LAUNCHES"]
 
 # wrapper calls that ran the kernels on the card (one per call, whatever the
 # number of CUDA launches it makes)
@@ -63,6 +73,8 @@ DH128_LAUNCHES = 0
 DH1024_LAUNCHES = 0
 # launches of the projection GEMM (K1a): two per fused-out block, one per context-only block
 PROJECTION_LAUNCHES = 0
+# those of LAUNCHES on a tensor-parallel range of heads (fewer than the layer's)
+SHARD_LAUNCHES = 0
 
 # 64, 96 and 128: the towers' and the 8-head branches' heads (base and large),
 # whole (64, dh) tiles in shared memory; 768 and 1024: the cascaded branches'
@@ -135,16 +147,19 @@ def projection(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, scale_cols:
 def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
                                 n_heads: int, fuse_out: bool = True, seeds=None,
                                 keep_prob: float = 1.0, return_aux: bool = False,
-                                attn_bias=None, attn_gate=None):
+                                attn_bias=None, attn_gate=None, head_offset: int = 0,
+                                total_heads=None, partial: bool = False):
     """Plain PyTorch twin of the kernels: fp32 arithmetic on the operands'
     values, qkv kept fp32; the context and the output rounded to x's dtype.
     `seeds` (the (2,) int64 [seed, offset]) turns on dropout at `keep_prob`.
     `return_aux` (context-only) returns (ctx, qkv with q scaled, lse (B, H, T)).
-    `attn_bias` (H | 1, T, T) and `attn_gate` (B, H, T) as in the wrapper."""
+    `attn_bias` (H | 1, T, T) and `attn_gate` (B, H, T) as in the wrapper, and
+    the head range (`head_offset`, `total_heads`, `partial`) too."""
     b, t, d = x.shape
-    dh = d // n_heads
-    qkv = plain_projection(x, w_in, b_in, scale_cols=d, scale=dh ** -0.5)
-    q, k, v = (a.reshape(b, t, n_heads, dh).transpose(1, 2) for a in qkv.split(d, dim=-1))
+    dh = d // (total_heads or n_heads)
+    dr = n_heads * dh  # this range's width: d itself without tensor parallelism
+    qkv = plain_projection(x, w_in, b_in, scale_cols=dr, scale=dh ** -0.5)
+    q, k, v = (a.reshape(b, t, n_heads, dh).transpose(1, 2) for a in qkv.split(dr, dim=-1))
     s = torch.matmul(q, k.transpose(-1, -2))
     if key_padding_bias is not None:
         s = s + key_padding_bias.float()[:, None, None, :]
@@ -153,28 +168,36 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
         s = s + (ab if attn_gate is None else attn_gate.float()[..., None] * ab)
     w = torch.softmax(s, dim=-1)
     if seeds is not None:
-        keep = attention_keep_mask(seeds, b, n_heads, t, keep_prob)
+        keep = attention_keep_mask(seeds, b, n_heads, t, keep_prob, head_offset, total_heads)
         w = torch.where(keep, w / keep_prob, 0.0)
-    ctx = torch.matmul(w, v).transpose(1, 2).reshape(b, t, d).to(x.dtype)
+    ctx = torch.matmul(w, v).transpose(1, 2).reshape(b, t, dr).to(x.dtype)
     if return_aux:
         return ctx, qkv, torch.logsumexp(s, dim=-1)
+    if fuse_out and partial:
+        return F.linear(ctx.float(), w_out.float())
     if fuse_out:
         return plain_projection(ctx, w_out, b_out, out_dtype=x.dtype)
     return ctx
 
 
 def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
-            seeds=None, keep_prob=1.0, return_aux=False, attn_bias=None, attn_gate=None):
-    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, DH1024_LAUNCHES
+            seeds=None, keep_prob=1.0, return_aux=False, attn_bias=None, attn_gate=None,
+            head_offset=0, total_heads=None, partial=False):
+    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, DH1024_LAUNCHES, SHARD_LAUNCHES
 
     b, t, d = x.shape
-    dh = d // n_heads
+    total = total_heads or n_heads
+    dh = d // total
+    dr = n_heads * dh
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_attention_block: dtype {x.dtype} (fp32 or bf16)")
-    if dh not in _HEAD_DIMS or d % 8:
+    if dh not in _HEAD_DIMS or d % 8 or d % total:
         raise ValueError(f"fused_attention_block: head dim {dh} not in {_HEAD_DIMS}")
+    if not 0 <= head_offset <= total - n_heads:
+        raise ValueError(f"fused_attention_block: heads [{head_offset}, "
+                         f"{head_offset + n_heads}) of {total}")
     weights = [w_in] + ([w_out] if fuse_out else [])
-    for w, shape in zip(weights, [(3 * d, d), (d, d)]):
+    for w, shape in zip(weights, [(3 * dr, d), (d, dr)]):
         if w.device != x.device or w.dtype != x.dtype or tuple(w.shape) != shape \
                 or not w.is_contiguous():
             raise ValueError(f"fused_attention_block: weight {tuple(w.shape)} "
@@ -200,18 +223,24 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
             raise ValueError(f"attn_gate {tuple(attn_gate.shape)}; want {(b, n_heads, t)} on "
                              f"{x.device}, with an attn_bias")
         gate = attn_gate.to(torch.float32).contiguous()
-    qkv = projection(x, w_in, b_in, scale_cols=d, scale=dh ** -0.5)
-    ctx, lse = _attention(qkv, kb, n_heads, x.dtype, seeds, keep_prob, ab, gate, return_aux)
+    qkv = projection(x, w_in, b_in, scale_cols=dr, scale=dh ** -0.5)
+    ctx, lse = _attention(qkv, kb, n_heads, x.dtype, seeds, keep_prob, ab, gate, return_aux,
+                          head_offset, total)
     LAUNCHES += 1
     WIDE_LAUNCHES += dh == 768
     DH128_LAUNCHES += dh == 128
     DH1024_LAUNCHES += dh == 1024
+    SHARD_LAUNCHES += total != n_heads
     if return_aux:
         return ctx, qkv, lse
+    if fuse_out and partial:
+        zero = torch.zeros(d, dtype=torch.float32, device=x.device)
+        return projection(ctx, w_out, zero, out_dtype=torch.float32)
     return projection(ctx, w_out, b_out, out_dtype=x.dtype) if fuse_out else ctx
 
 
-def _attention(qkv, kb, n_heads, dtype, seeds, keep_prob, ab, gate, return_lse):
+def _attention(qkv, kb, n_heads, dtype, seeds, keep_prob, ab, gate, return_lse,
+               head_offset=0, total_heads=None):
     """K1b on the fp32 (B, T, 3D) buffer with q scaled: (ctx in `dtype`, fp32
     lse (B, H, T) or None). The inputs are checked by `_launch`."""
     from ..utils.cuda_build import check, kernels
@@ -226,8 +255,8 @@ def _attention(qkv, kb, n_heads, dtype, seeds, keep_prob, ab, gate, return_lse):
             int(dtype == torch.bfloat16), None if ab is None else ab.data_ptr(),
             0 if ab is None else ab.shape[0], None if gate is None else gate.data_ptr(),
             None if seeds is None else seeds.data_ptr(), keep_threshold(keep_prob),
-            1.0 / keep_prob, None if lse is None else lse.data_ptr(),
-            torch.cuda.current_stream().cuda_stream),
+            1.0 / keep_prob, None if lse is None else lse.data_ptr(), head_offset,
+            total_heads or n_heads, torch.cuda.current_stream().cuda_stream),
             "fused_attention_block attention")
     return ctx, lse
 
@@ -244,10 +273,11 @@ def _run(*args, **kw):
 class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
-                seeds, keep_prob, attn_bias, attn_gate):
+                seeds, keep_prob, attn_bias, attn_gate, head_offset, total_heads, partial):
         return _run(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
                     seeds=seeds, keep_prob=keep_prob, attn_bias=attn_bias,
-                    attn_gate=attn_gate)
+                    attn_gate=attn_gate, head_offset=head_offset, total_heads=total_heads,
+                    partial=partial)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -288,6 +318,9 @@ def fused_attention_block(
     generator: Optional[torch.Generator] = None,
     attn_bias: Optional[torch.Tensor] = None,
     attn_gate: Optional[torch.Tensor] = None,
+    head_offset: int = 0,
+    total_heads: Optional[int] = None,
+    partial: bool = False,
 ) -> torch.Tensor:
     """x (B, T, D); w_in (3D, D), b_in (3D,), w_out (D, D), b_out (D,) in
     torch's (out, in) layout; key_padding_bias (B, T) additive fp32 (-1e30 at
@@ -295,7 +328,16 @@ def fused_attention_block(
     the attention context when `fuse_out` is False. Attention dropout at
     `dropout_rate` when a `generator` is given. `attn_bias` (T, T), (1, T, T)
     or (H, T, T) is added to every sequence's scores, times `attn_gate`
-    (B, H, T) per query row when that is given (only with an `attn_bias`)."""
+    (B, H, T) per query row when that is given (only with an `attn_bias`).
+
+    On a range of heads (tensor parallelism), `n_heads` heads from
+    `head_offset` of a layer of `total_heads`: w_in (3 D_r, D) and b_in
+    (3 D_r,) are q, k and v of those heads (D_r = n_heads · D / total_heads),
+    w_out (D, D_r), and H above is `n_heads`; the context is (B, T, D_r), and
+    with `partial` the fused-out result is the fp32 (B, T, D) partial
+    out-projection without `b_out`."""
+    if partial and not fuse_out:
+        raise ValueError("fused_attention_block: partial needs fuse_out")
     t = x.shape[1]
     if attn_gate is not None and attn_bias is None:
         raise ValueError("fused_attention_block: attn_gate needs an attn_bias")
@@ -308,4 +350,5 @@ def fused_attention_block(
     if dropout_rate > 0.0 and generator is not None:
         seeds, keep_prob = draw_seed(generator), 1.0 - float(dropout_rate)
     return _ForwardOnly.apply(x, w_in, b_in, w_out, b_out, key_padding_bias,
-                              n_heads, fuse_out, seeds, keep_prob, attn_bias, attn_gate)
+                              n_heads, fuse_out, seeds, keep_prob, attn_bias, attn_gate,
+                              head_offset, total_heads, partial)

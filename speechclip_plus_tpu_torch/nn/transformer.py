@@ -13,7 +13,11 @@ out-projection after it is a plain ``ctx @ Wo + bo``. A frozen tower's layer
 `kernel=False` takes the plain attention with its dropout
 (`model_settings.fused_attention_vjp: false`, a trainable mel tower).
 Attention maps take the plain path. Parameters are fp32 master weights
-computed in `compute_dtype` (flax `dtype=`).
+computed in `compute_dtype` (flax `dtype=`). Under tensor parallelism
+(``parallel/tp.py`` sets a layer's `tp`) the FFN's `linear1` is
+column-parallel and `linear2` row-parallel; the dropout between them draws
+the whole-width mask and keeps this rank's columns, so the draws and the
+mask are the unsharded step's. The attention stays replicated.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tp import copy_to_model, dropout_columns, row_parallel_linear
 from .attention import MultiheadAttention, padding_bias
 from .dropout import dropout
 
@@ -101,6 +106,7 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, eps=layer_norm_eps, compute_dtype=compute_dtype)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.tp = None  # the model group when the FFN is sharded
 
     def _sa(self, x, bias, generator):
         return dropout(self.self_attn(x, key_padding_bias=bias, generator=generator),
@@ -108,6 +114,14 @@ class TransformerEncoderLayer(nn.Module):
 
     def _ff(self, x, generator):
         cd, l1, l2 = self.compute_dtype, self.linear1, self.linear2
+        if self.tp is not None:
+            h = self.act(F.linear(copy_to_model(x.to(cd), self.tp), l1.weight.to(cd),
+                                  l1.bias.to(cd)))
+            width = h.shape[-1]
+            h = dropout_columns(h, self.dropout, generator, width * self.tp.model_world,
+                                width * self.tp.model_rank)
+            h = row_parallel_linear(h, l2.weight.to(cd), l2.bias.to(cd), self.tp, cd)
+            return dropout(h, self.dropout, generator)
         h = self.act(F.linear(x.to(cd), l1.weight.to(cd), l1.bias.to(cd)))
         h = F.linear(dropout(h, self.dropout, generator), l2.weight.to(cd), l2.bias.to(cd))
         return dropout(h, self.dropout, generator)

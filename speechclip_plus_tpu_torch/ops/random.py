@@ -8,6 +8,10 @@ pure function
     keep(seed, offset, b, h, i, j) = mix32(mix32(row ^ seed) ^ mix32(j + offset)) < thresh
     row = (b * H + h) * T + i,   thresh = round(keep_prob * 2**32)
 
+(H the heads of the whole layer and h a head's index among them: a tensor-
+parallel rank that holds heads [h0, h0 + H_r) draws exactly the whole mask's
+rows for those heads, `head_offset` h0 and `total_heads` H.)
+
 with `mix32` the "lowbias32" integer finalizer. It does not depend on how a
 kernel tiles the (T, T) weights, so the backward (K2) regenerates the
 forward's (K1) mask with no saved mask and no shared state. The CUDA side is
@@ -19,6 +23,8 @@ per kernel call, as an int64 tensor on the generator's device: the kernels
 read it from device memory, so drawing it never waits for the card.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -55,14 +61,23 @@ def draw_seed(generator: torch.Generator) -> torch.Tensor:
 
 
 def attention_keep_mask(seeds: torch.Tensor, b: int, h: int, t: int,
-                        keep_prob: float) -> torch.Tensor:
+                        keep_prob: float, head_offset: int = 0,
+                        total_heads: Optional[int] = None) -> torch.Tensor:
     """(b, h, t, t) bool keep mask on `seeds`' device for attention weights
-    of b sequences, h heads, t queries and keys."""
-    if b * h * t >= 2 ** 32:
-        raise ValueError(f"attention_keep_mask: {b}*{h}*{t} rows exceed 32 bits")
+    of b sequences, h heads, t queries and keys: heads [head_offset,
+    head_offset + h) of a layer of `total_heads` (default h)."""
+    total = h if total_heads is None else int(total_heads)
+    if not 0 <= head_offset <= total - h:
+        raise ValueError(f"attention_keep_mask: heads [{head_offset}, {head_offset + h}) "
+                         f"of {total}")
+    if b * total * t >= 2 ** 32:
+        raise ValueError(f"attention_keep_mask: {b}*{total}*{t} rows exceed 32 bits")
     seed, offset = (int(v) for v in seeds.tolist())
     dev = seeds.device
-    rows = torch.arange(b * h * t, dtype=torch.int64, device=dev).reshape(b, h, t, 1)
+    heads = torch.arange(head_offset, head_offset + h, dtype=torch.int64, device=dev)
+    rows = ((torch.arange(b, dtype=torch.int64, device=dev)[:, None] * total
+             + heads[None, :])[:, :, None] * t
+            + torch.arange(t, dtype=torch.int64, device=dev)[None, None, :])[..., None]
     cols = torch.arange(t, dtype=torch.int64, device=dev)
     row_key = mix32(rows ^ seed)
     col_key = mix32((cols + offset) & _MASK32)

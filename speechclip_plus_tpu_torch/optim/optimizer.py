@@ -26,7 +26,10 @@ scale_by_adam -> lr schedule; here:
     optimizer step count (optax's `scale_by_learning_rate` count).
 
 Gradient accumulation (optax.MultiSteps in JAX) is counted by the train step
-(``parallel/train_step.py``).
+(``parallel/train_step.py``). Under tensor parallelism (``parallel/tp.py``)
+the optimizer holds this rank's shards, its moments are shard-local, and
+the clip's norm is the whole gradient's: each sharded tensor's squares
+summed over the model group, each replicated tensor's counted once.
 """
 from __future__ import annotations
 
@@ -100,12 +103,23 @@ class Optimizer:
         adam = torch.optim.AdamW if decoupled else torch.optim.Adam
         self.adam = adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                          weight_decay=weight_decay)
+        # tensor parallelism: the model group and which of `params` are shards
+        self.model_group, self.sharded = None, None
+
+    def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of a gradient aligned with `params` (of the whole
+        model under tensor parallelism)."""
+        if self.model_group is None:
+            return global_norm(grads)
+        from ..parallel.tp import sharded_global_norm
+
+        return sharded_global_norm(grads, self.sharded, self.model_group)
 
     @torch.no_grad()
     def apply(self, grads: Sequence[torch.Tensor], step: int) -> None:
         if self.gradient_clip_val > 0:
             # optax clip_by_global_norm: g * min(1, c / |g|), on the device
-            scale = torch.clamp(self.gradient_clip_val / global_norm(grads), max=1.0)
+            scale = torch.clamp(self.gradient_clip_val / self.global_norm(grads), max=1.0)
             grads = [g * scale for g in grads]
         for p, g in zip(self.params, grads):
             p.grad = g.to(p.dtype)
@@ -125,10 +139,14 @@ def build_optimizer(model: nn.Module, *, optim_name: str = "Adam", lr: float = 1
     if optim_name.lower() not in ("adam", "adamw"):
         raise NotImplementedError(f"optimizer {optim_name!r} (the port has Adam and AdamW)")
     schedule = get_schedule(scheduler_name, lr, **(scheduler_args or {}))
-    return Optimizer([p for _, p in trainable_parameters(model)], lr=lr,
-                     weight_decay=weight_decay, schedule=schedule,
-                     gradient_clip_val=gradient_clip_val,
-                     decoupled=optim_name.lower() == "adamw")
+    named = trainable_parameters(model)
+    opt = Optimizer([p for _, p in named], lr=lr, weight_decay=weight_decay, schedule=schedule,
+                    gradient_clip_val=gradient_clip_val, decoupled=optim_name.lower() == "adamw")
+    tp = getattr(model, "_tp", None)  # a model parallel/tp.py sharded
+    if tp is not None:
+        opt.model_group = tp.group
+        opt.sharded = [tp.plan.get(n) is not None for n, _ in named]
+    return opt
 
 
 def build_optimizer_from_config(model: nn.Module, cfg_node) -> Optimizer:

@@ -62,9 +62,10 @@ class DataGroup:
 
 def make_mesh(device=None) -> Optional[DataGroup]:
     """The 1-D data group of the initialized process group, or None without
-    one (JAX builds no mesh for one device). `device` is the device this
-    process drives; by default `cuda:LOCAL_RANK` under NCCL, else the CPU
-    (``parallel/multihost.py``)."""
+    one (JAX builds no mesh for one device); under tensor parallelism the data
+    group is `make_mesh_2d(tp).data()` (``parallel/tp.py``). `device` is the
+    device this process drives; by default `cuda:LOCAL_RANK` under NCCL, else
+    the CPU (``parallel/multihost.py``)."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     if device is None:
@@ -262,7 +263,13 @@ def reduce_gradients(grads: Sequence[torch.Tensor], group: DataGroup,
 @torch.no_grad()
 def broadcast_module(module: torch.nn.Module, group: Optional[DataGroup]) -> None:
     """Rank 0's parameters and floating-point buffers to every rank, in place
-    (the rest are constants of the build)."""
+    (the rest are constants of the build); a tensor-parallel model's sharded
+    parameters within their data column (``parallel/tp.py``)."""
+    if getattr(module, "_tp", None) is not None:
+        from .tp import broadcast_sharded_module
+
+        broadcast_sharded_module(module)
+        return
     if group is None:
         return
     for t in list(module.parameters()) + [b for b in module.buffers() if b.is_floating_point()]:

@@ -81,10 +81,13 @@ def cuda_index(spec: Dict, count: int) -> int:
 
 
 def maybe_initialize_distributed(env: Optional[Dict[str, str]] = None, device: str = "cuda",
-                                 timeout_s: float = 600.0) -> bool:
+                                 timeout_s: float = 600.0, backend: Optional[str] = None) -> bool:
     """Initialize `torch.distributed` from the environment (idempotent).
     Returns True when a process group is (already) up. `device` is the
-    caller's `--device`: `cuda` (NCCL, `cuda:LOCAL_RANK`) or `cpu` (gloo)."""
+    caller's `--device`: `cuda` (NCCL, `cuda:LOCAL_RANK`) or `cpu` (gloo).
+    `backend` None takes that pairing; `"gloo"` with `device="cuda"` lets
+    ranks share one card (NCCL refuses two ranks on one device), for a
+    check on a one-GPU machine: nothing in the package asks for it."""
     global _device
     if dist.is_initialized():
         return True
@@ -97,9 +100,12 @@ def maybe_initialize_distributed(env: Optional[Dict[str, str]] = None, device: s
             raise RuntimeError("a process group on `cuda` needs a CUDA device")
         _device = torch.device("cuda", cuda_index(spec, torch.cuda.device_count()))
         torch.cuda.set_device(_device)
-        backend = "nccl"
+        backend = backend or "nccl"
     elif kind == "cpu":
-        _device, backend = torch.device("cpu"), "gloo"
+        _device = torch.device("cpu")
+        if backend not in (None, "gloo"):
+            raise ValueError(f"backend {backend!r} on the CPU (gloo)")
+        backend = "gloo"
     else:
         raise ValueError(f"no process-group backend for device {device!r}")
     dist.init_process_group(backend, init_method=spec["init_method"], rank=spec["rank"],

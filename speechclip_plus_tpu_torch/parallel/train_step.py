@@ -37,6 +37,12 @@ group, so a group of one draws bit for bit what no group draws. `grad_norm`
 is then the global gradient's norm: every micro-step's without accumulation,
 and with it the window's mean gradient's, logged at the window's last
 micro-step (the micro-steps' own global norms would need a reduction each).
+
+Under tensor parallelism (``parallel/tp.py``) `group` is this rank's data
+column: the gradients are averaged over it alone, the generators are seeded
+by the data rank (the peers of a model group draw the same masks on the
+activations they both hold), and `grad_norm` and the clip take the whole
+gradient's norm (`Optimizer.global_norm`).
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 
 from ..models.kwclip import KWClip
-from ..optim.optimizer import Optimizer, global_norm
+from ..optim.optimizer import Optimizer
 from .mesh import (DataGroup, CollectiveTimer, all_gather_rows, broadcast_module,
                    reduce_gradients)
 
@@ -132,11 +138,11 @@ def make_train_step(model: KWClip, optimizer: Optimizer, accumulate_grad_batches
                         for k, v in log_metrics.items()})
         state.step += 1
         if group is None:
-            metrics["grad_norm"] = global_norm(grads)
+            metrics["grad_norm"] = optimizer.global_norm(grads)
         if accum == 1:
             if group is not None:
                 grads = reduce_gradients(grads, group, timer)
-                metrics["grad_norm"] = global_norm(grads)
+                metrics["grad_norm"] = optimizer.global_norm(grads)
             optimizer.apply(grads, opt_step)
             return metrics
         with torch.no_grad():
@@ -151,7 +157,7 @@ def make_train_step(model: KWClip, optimizer: Optimizer, accumulate_grad_batches
                 acc = reduce_gradients(acc, group, timer)
             mean = [a / accum for a in acc]
             if group is not None:
-                metrics["grad_norm"] = global_norm(mean)
+                metrics["grad_norm"] = optimizer.global_norm(mean)
             optimizer.apply(mean, opt_step)
             state.grad_acc = None
         return metrics

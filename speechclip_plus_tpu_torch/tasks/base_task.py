@@ -15,7 +15,8 @@ task runs on `cuda:LOCAL_RANK` (gloo ranks on the CPU with `--device cpu`)
 and `--devices` must equal the world size; without one, N > 1 spawns N ranks
 on this host (`torch.multiprocessing`, a free local port), each running the
 task, and `run` returns None. One device and no process group is the
-single-process path.
+single-process path. `trainer.tensor_parallel` must divide the ranks, as in
+JAX (``tasks/trainer.py:71-76``); the Trainer lays them out on the 2-D grid.
 """
 from __future__ import annotations
 
@@ -102,6 +103,15 @@ def requested_ranks(devices: Optional[int], device: str) -> int:
     return max(int(devices), 1)
 
 
+def check_tensor_parallel(cfg, ranks: int) -> None:
+    """Raise unless the config's `trainer.tensor_parallel` divides `ranks`
+    (no config: nothing to check)."""
+    trainer = getattr(cfg, "trainer", None) if cfg is not None else None
+    tp = int(getattr(trainer, "tensor_parallel", 1) or 1)
+    if tp <= 0 or ranks % tp:
+        raise ValueError(f"trainer.tensor_parallel={tp} must divide --devices {ranks}")
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -141,6 +151,8 @@ class TrainSpeechClipBaseTask(BaseTask):
                 set_logging("WARNING")  # only rank 0 logs
         else:
             n = requested_ranks(args.devices, args.device)
+            check_tensor_parallel(config if config is not None or not args.config
+                                  else load_config(args.config), n)
             if n > 1:
                 import torch.multiprocessing as mp
 

@@ -21,7 +21,13 @@ keyword artifacts, and a barrier follows; every rank reads a resume; a
 preemption flag is all-reduced at each optimizer-step boundary, so every rank
 stops at the same step. The generators of every micro-step are
 `step_generators(seed, step, ...)`, so a resumed run repeats an unbroken one.
-`timings` keeps the loop's own clock: the host's wait on the loader (and the
+`trainer.tensor_parallel: tp` > 1 lays the ranks out on a (data, model) grid
+of tp ranks to a model group (``parallel/tp.py``, JAX ``:66-98``): the model
+is sharded Megatron-style over each model group before the optimizer is
+built, the loader decodes each data rank's rows (the peers of a model group
+decode the same ones), the gradients are averaged over the data group, the
+checkpoints hold whole tensors written by global rank 0, and the preemption
+flag and the barriers span every rank. `timings` keeps the loop's own clock: the host's wait on the loader (and the
 copy to the device) per micro-step, the seconds of each pass over the
 training loader (from its start to the end of its last step on the device,
 so each epoch's loader restart is in it and no validation or save is), of
@@ -44,7 +50,8 @@ from ..checkpoint import CheckpointManager
 from ..models.kwclip import KWClip
 from ..ops.retrieval import mutual_retrieval
 from ..optim.optimizer import build_optimizer_from_config
-from ..parallel.mesh import any_rank, barrier, make_mesh, pad_batch, shard_batch
+from ..parallel import tp as tensor_parallel
+from ..parallel.mesh import DataGroup, any_rank, barrier, make_mesh, pad_batch, shard_batch
 from ..parallel.multihost import make_global_batch
 from ..parallel.train_step import (create_train_state, make_eval_step, make_train_step,
                                    step_generators)
@@ -77,13 +84,19 @@ class Trainer:
         self.device = next(model.parameters()).device
         os.makedirs(save_path, exist_ok=True)
         tp = int(getattr(cfg_node.trainer, "tensor_parallel", 1) or 1)
+        # the data group of the process group, None alone (JAX :63-81); with
+        # tensor parallelism this rank's data column, and `world` every rank
+        self.model_group = None
         if tp > 1:
-            raise NotImplementedError(
-                f"trainer.tensor_parallel={tp}: the port has data parallelism only; "
-                "tensor parallelism is ROADMAP.md queue A item 8b")
-        # the data group of the process group, None alone (JAX :63-81)
-        self.group = make_mesh(self.device)
-        self.writer = self.group is None or self.group.rank == 0
+            self.model_group = tensor_parallel.make_mesh_2d(tp, self.device)
+            tensor_parallel.shard_model(model, self.model_group)
+            self.group = self.model_group.data()
+            self.world = DataGroup(rank=self.model_group.global_rank,
+                                   world=self.group.world * tp, device=self.device)
+        else:
+            self.group = make_mesh(self.device)
+            self.world = self.group
+        self.writer = self.world is None or self.world.rank == 0
 
         self.optimizer = build_optimizer_from_config(model, cfg_node)
         self.accum = max(
@@ -158,7 +171,7 @@ class Trainer:
             with open(self._fit_state_path, "w") as f:
                 json.dump({"epoch": self.epoch, "opt_step": self.opt_step,
                            "batches_done": batches_done}, f)
-        barrier(self.group)
+        barrier(self.world)
 
     def _save(self, metrics: Optional[Dict[str, float]] = None) -> None:
         t0 = time.perf_counter()
@@ -224,17 +237,17 @@ class Trainer:
         Under a group: the max over the ranks of the flags of the previous
         boundary, all-reduced there and read here, so that reading it waits
         only for the step before last and every rank stops at the same step."""
-        if self.group is None:
+        if self.world is None:
             return self._preempt_signum is not None
         pending = self._stop_flag
-        self._stop_flag = any_rank(self._preempt_signum is not None, self.group)
+        self._stop_flag = any_rank(self._preempt_signum is not None, self.world)
         return pending is not None and pending()
 
     def _stop_now(self) -> bool:
         """The same, read at once (after a pass, validation and save)."""
-        if self.group is None:
+        if self.world is None:
             return self._preempt_signum is not None
-        return any_rank(self._preempt_signum is not None, self.group)()
+        return any_rank(self._preempt_signum is not None, self.world)()
 
     def _preempt_save(self, batches_done: int) -> None:
         self._save()  # the manager skips a step it holds
@@ -390,23 +403,27 @@ class Trainer:
 
         # ---- keyword artifacts (reference kwClip.py:295-445) ----
         has_keywords = any("keywords" in o for o in all_out)
+        if has_keywords and self.log_detok and self.epoch % self.detok_every == 0:
+            # the whole table: a collective over a tensor-parallel model group
+            token_emb = tensor_parallel.full_parameter(
+                self.model, "clip.text.token_embedding.weight")
         if (has_keywords and self.log_detok and self.epoch % self.detok_every == 0
                 and self.writer):
             t0 = time.perf_counter()
-            self._dump_keyword_artifacts(all_out)
+            self._dump_keyword_artifacts(all_out, token_emb)
             self.timings["artifacts_s"].append(time.perf_counter() - t0)
 
         self.metrics_logger.log(val_metrics, self.opt_step)
         return val_metrics
 
-    def _dump_keyword_artifacts(self, all_out) -> None:
+    def _dump_keyword_artifacts(self, all_out, token_emb: torch.Tensor) -> None:
         os.makedirs(os.path.join(self.save_path, "retokenizeText"), exist_ok=True)
         os.makedirs(os.path.join(self.save_path, "visualization"), exist_ok=True)
         kws = np.concatenate([o["keywords"] for o in all_out if "keywords" in o])
         lens = None
         if all("keywords_len" in o for o in all_out):
             lens = np.concatenate([o["keywords_len"] for o in all_out])
-        token_emb = self.model.clip.text.token_embedding.weight.detach().float().cpu().numpy()
+        token_emb = token_emb.detach().float().cpu().numpy()
         if self.pca_every > 0 and self.epoch % self.pca_every == 0:
             draw_embedding_space_pca(
                 kws, token_emb,

@@ -79,7 +79,9 @@ def test_adamw_from_the_tiny_config_matches_jax_over_3_steps():
     jcfg = _adamw(jax_load_config(TINY))
     args = jcfg.audio_encoder.optim.args
     sched = jcfg.audio_encoder.scheduler
-    params = {n.replace(".", "/"): jnp.asarray(p.detach().numpy()) for n, p in named}
+    # copies: jnp.asarray would alias the parameters' memory, which the port's
+    # in-place step then changes under JAX's asynchronous update
+    params = {n.replace(".", "/"): jnp.asarray(p.detach().numpy().copy()) for n, p in named}
     # every tensor of the flat tree trains (no tower root among its names)
     trains = SimpleNamespace(audio_trainable=False, image_encoder_trainable=False,
                              text_encoder_trainable=False, reinit_layers=(), unfreeze_layers=())

@@ -17,7 +17,14 @@ temperature a float or a device tensor (the same bits at t = 0.1; a training
 step with a learnable one makes no device-to-host sync); the bf16 attention
 kernels against their numerical model (`nn/attention_numerics.py`) 4e-3 x RMS
 beyond half an ulp, a fifth of what the twin is allowed. K2, K3 and K3b repeat
-bit for bit (no float atomics), as do K1, K4, K5 and K6.
+bit for bit (no float atomics), as do K1, K4, K5 and K6. On a tensor-parallel
+shard (a range of heads, a vocabulary shard): K1's and K5's contexts equal
+the whole kernel's columns for those heads bit for bit, K1's fp32 partial
+out-projection against its twin (bf16: the error beyond one ulp of each
+context element, through |Wo|, <= 2e-2 x RMS) and the partials summed with
+the bias within the bf16 check of the whole block,
+K3's merged shards give the whole kernel's k bit for bit with ent and psum
+to rtol 1e-3, and K3b's summed shards pass its dx and dt tolerances.
 """
 import pytest
 import torch
@@ -1302,3 +1309,177 @@ def test_mel_tower_on_the_card_matches_its_cpu_twin(cuda_device, arch):
     assert tuple(want["hidden_states"].shape) == (cfg.num_hidden_states, 4, 638, cfg.d_model)
     for key in ("hidden_states", "weighted_sum"):
         _close(got[key].cpu(), want[key], torch.float32)
+
+
+# ------------------------------------------------- tensor-parallel shards ----
+
+def _head_shard(w_in, b_in, w_out, r, tp):
+    from speechclip_plus_tpu_torch.parallel.tp import shard_tensor
+
+    d = w_out.shape[0]
+    return (shard_tensor("in_proj_weight", w_in, 0, r, tp).contiguous(),
+            shard_tensor("in_proj_bias", b_in, 0, r, tp).contiguous(),
+            shard_tensor("out_proj.weight", w_out, 1, r, tp).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("p,gated", [(0.0, False), (0.1, False), (0.1, True)])
+def test_head_shards_are_the_whole_blocks_heads(cuda_device, dtype, tp, p, gated):
+    """K1 on each range of heads: the context equals the whole kernel's
+    columns bit for bit (dropout mask and WavLM bias and gate included), and
+    the fp32 partial out-projections summed with the bias once pass the
+    whole block's bf16 check; each shard call against its twin."""
+    b, t, d, heads = 4, 320, 768, 12
+    x, w_in, b_in, w_out, b_out, kb = _block_args(cuda_device, b, t, d)
+    x, w_in, b_in, w_out, b_out = (a.to(dtype) for a in (x, w_in, b_in, w_out, b_out))
+    kw = {}
+    if p:
+        kw.update(seeds=draw_seed(torch.Generator(device=cuda_device).manual_seed(3)),
+                  keep_prob=1.0 - p)
+    ab = gate = None
+    if gated:
+        ab, gate = _bias_gate(cuda_device, b, t, heads)
+    whole = fab._run(x, w_in, b_in, None, None, kb, heads, False, attn_bias=ab, attn_gate=gate,
+                     **kw)
+    want = fab.plain_fused_attention_block(x.float(), w_in.float(), b_in.float(),
+                                           w_out.float(), b_out.float(), kb, heads, True,
+                                           attn_bias=ab, attn_gate=gate, **kw)
+    h, dh = heads // tp, d // heads
+    parts = []
+    before = fab.SHARD_LAUNCHES
+    for r in range(tp):
+        wi, bi, wo = _head_shard(w_in, b_in, w_out, r, tp)
+        sl = dict(attn_bias=None if ab is None else ab[r * h:(r + 1) * h].contiguous(),
+                  attn_gate=None if gate is None else gate[:, r * h:(r + 1) * h].contiguous(),
+                  head_offset=r * h, total_heads=heads, **kw)
+        ctx = fab._run(x, wi, bi, None, None, kb, h, False, **sl)
+        assert torch.equal(ctx, whole[..., r * h * dh:(r + 1) * h * dh]), r
+        part = fab._run(x, wi, bi, wo, b_out, kb, h, True, partial=True, **sl)
+        assert part.dtype == torch.float32 and part.shape == (b, t, d)
+        f32 = (x.float(), wi.float(), bi.float())
+        twin = fab.plain_fused_attention_block(*f32, wo.float(), None, kb, h, True, partial=True,
+                                               **sl)
+        err, rms = (part - twin).abs(), twin.pow(2).mean().sqrt().item()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-4 * max(1.0, rms), r
+        else:  # beyond one bf16 ulp of each context element, through |Wo|
+            ctx0 = fab.plain_fused_attention_block(*f32, None, None, kb, h, False, **sl).to(dtype)
+            _, exp = torch.frexp(ctx0.float())
+            explained = torch.nn.functional.linear(
+                torch.ldexp(torch.ones_like(ctx0, dtype=torch.float32), exp - 8),
+                wo.float().abs())
+            assert (err - explained).clamp_min(0).max().item() <= 2e-2 * rms, r
+        parts.append(part)
+    assert fab.SHARD_LAUNCHES == before + 2 * tp
+    _close((sum(parts) + b_out.float()).to(dtype), want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_fused_attention_dropout_head_shards(cuda_device, dtype, tp, p):
+    """K5 on each range of heads equals the whole kernel's heads bit for bit."""
+    from speechclip_plus_tpu_torch.nn import fused_attention as fa
+
+    b, heads, t, dh = 4, 12, 320, 64
+    q, k, v, kb = _qkv(cuda_device, b, heads, t, dh, dtype, True)
+    seeds = draw_seed(torch.Generator(device=cuda_device).manual_seed(3)) if p else None
+    whole = fa._run(q, k, v, kb, seeds, 1.0 - p)
+    h = heads // tp
+    before = fa.SHARD_LAUNCHES
+    for r in range(tp):
+        sl = slice(r * h, (r + 1) * h)
+        got = fa._run(q[:, sl], k[:, sl], v[:, sl], kb, seeds, 1.0 - p, r * h, heads)
+        assert torch.equal(got, whole[:, sl]), r
+        twin = fa.plain_fused_attention_dropout(q[:, sl].float(), k[:, sl].float(),
+                                                v[:, sl].float(), kb, seeds, 1.0 - p, r * h,
+                                                heads)
+        _close(got, twin, dtype)
+    assert fa.SHARD_LAUNCHES == before + tp
+
+
+def _vocab_shards(x, en, mask, tp, merge=True):
+    """K3's halves on each of tp vocabulary shards, merged as a model group
+    merges them (one process stands in for the ranks)."""
+    v_r = en.shape[0] // tp
+    rows = [fk.vq_rows(x, en[r * v_r:(r + 1) * v_r].contiguous(),
+                       mask[r * v_r:(r + 1) * v_r].contiguous(), r * v_r) for r in range(tp)]
+    k, ent, m, z = fk.vq_combine(torch.stack([s for s, _ in rows], dim=1),
+                                 torch.stack([bi for _, bi in rows], dim=0))
+    psum = torch.cat([fk.vq_cols(x, en[r * v_r:(r + 1) * v_r].contiguous(),
+                                 mask[r * v_r:(r + 1) * v_r].contiguous(), m, z)
+                      for r in range(tp)])
+    return k, ent, psum
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("n", [1024, 9600])
+def test_cosine_vq_vocabulary_shards(cuda_device, dtype, tp, n):
+    """K3 on vocabulary shards merged across them: the whole kernel's k bit
+    for bit, ent and psum to rtol 1e-3."""
+    d, v = 512, 8112
+    x, en = _vq_inputs(cuda_device, dtype, n, d, v)
+    mask = fk.column_mask(v, SPECIAL, cuda_device)
+    k1, e1, p1 = fk.cosine_vq_stats(x, en, mask)
+    k, ent, psum = _vocab_shards(x, en, mask, tp)
+    assert torch.equal(k, k1)
+    torch.testing.assert_close(ent, e1, rtol=1e-3, atol=0)
+    torch.testing.assert_close(psum, p1, rtol=1e-3, atol=0)
+    k0, e0, p0 = fk.plain_cosine_vq_stats(x, en, mask)
+    torch.testing.assert_close(ent, e0, rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cosine_vq_shard_ties_go_to_the_lowest_id(cuda_device, dtype):
+    """Exact ties across a shard boundary resolve to the lowest global id."""
+    n, d, v, tp = 600, 512, 8112, 2
+    x, en = _vq_inputs(cuda_device, dtype, n, d, v, seed=3)
+    sources = 4 + 8 * torch.arange(250, device=cuda_device)
+    en[sources + v // 2] = en[sources]  # the same vector in the other shard
+    src = sources[torch.arange(n, device=cuda_device) % 250]
+    x = en[src].contiguous()
+    k, _, _ = _vocab_shards(x, en, fk.column_mask(v, SPECIAL, cuda_device), tp)
+    assert torch.equal(k.long(), src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("n", [1024, 9600])
+def test_st_backward_vocabulary_shards(cuda_device, dtype, tp, n):
+    """K3b's halves on vocabulary shards: the statistics gathered in column
+    order, the shards' dx and dt summed, within K3b's tolerances of the whole
+    kernel's; each shard's half against its twin."""
+    d, v = 512, 8112
+    x, cot, en, norms = _st_inputs(cuda_device, dtype, n, d, v)
+    mask = fk.column_mask(v, SPECIAL, cuda_device)
+    temp = torch.full((), 0.1, device=cuda_device)
+    dx1, dt1 = fk.st_backward(x, cot, en, norms, mask, temp)
+    v_r = v // tp
+    cut = lambda a, r: a[r * v_r:(r + 1) * v_r].contiguous()
+    stats = torch.cat([fk.st_backward_stats(x, cot, cut(en, r), cut(norms, r), cut(mask, r),
+                                            temp) for r in range(tp)], dim=1)
+    halves = [fk.st_backward_apply(x, cot, cut(en, r), cut(norms, r), cut(mask, r), temp, stats)
+              for r in range(tp)]
+    dx, dt = sum(h[0] for h in halves), sum(h[1] for h in halves)
+    rms = dx1.pow(2).mean().sqrt().item()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (dx - dx1).abs().max().item() <= tol * rms
+    s = x.float() @ en.float().T
+    p = torch.softmax(torch.where(mask.bool()[None], -torch.inf, s / 0.1), dim=-1)
+    u = (cot.float() @ en.float().T) * norms
+    scale = (p * (u - (p * u).sum(-1, keepdim=True)) * s).abs().sum().item() / 0.01
+    assert abs(dt.item() - dt1.item()) <= 1e-4 * scale
+    twin_stats = torch.cat([fk.plain_st_backward_stats(x, cot, cut(en, r), cut(norms, r),
+                                                       cut(mask, r), temp) for r in range(tp)],
+                           dim=1)
+    for r in range(tp):
+        dx0, _ = fk.plain_st_backward_apply(x, cot, cut(en, r), cut(norms, r), cut(mask, r),
+                                            temp, twin_stats)
+        assert (halves[r][0] - dx0).abs().max().item() <= tol * rms, r

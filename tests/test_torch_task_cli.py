@@ -98,8 +98,11 @@ def test_unported_options_raise(argv, error, match):
         _run(["--config", os.path.join(REPO, TINY), "--device", "cpu", *argv])
 
 
-def test_tensor_parallel_raises(tmp_path):
+@pytest.mark.parametrize("devices", ["1", "3"])
+def test_tensor_parallel_must_divide_devices(tmp_path, devices):
+    # as JAX's Trainer (tasks/trainer.py:71-76); tensor parallelism itself
+    # runs: tests/test_torch_tp_cli.py
     cfg = load_config(os.path.join(REPO, TINY))
     cfg.trainer.tensor_parallel = 2
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        _run(["--device", "cpu", "--save_path", str(tmp_path)], cfg)
+    with pytest.raises(ValueError, match="must divide --devices"):
+        _run(["--device", "cpu", "--devices", devices, "--save_path", str(tmp_path)], cfg)

@@ -220,6 +220,7 @@ def test_wrapper_sizes_its_scratch_from_the_plan(monkeypatch, dtype, n, d, v):
     assert scratch["dt_part"].numel() == -(-n // rows) * splits
     assert args[12:15] == tuple(scratch[k].data_ptr() for k in ("stats", "dx_part", "dt_part"))
     assert args[15:17] == (dx.data_ptr(), dt.data_ptr())
+    assert args[17:19] == (splits, 3)  # every split's statistics, both passes
     assert dx.shape == (n, d) and dx.dtype == torch.float32 and dt.shape == ()
 
 

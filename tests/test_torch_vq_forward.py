@@ -210,7 +210,8 @@ def _stand_in_for_the_card(monkeypatch):
     from speechclip_plus_tpu_torch.utils import cuda_build
 
     calls = []
-    lib = types.SimpleNamespace(sc_vq_fwd=lambda *a: calls.append(a) or 0)
+    lib = types.SimpleNamespace(sc_vq_fwd_rows=lambda *a: calls.append(("rows", a)) or 0,
+                                sc_vq_fwd_cols=lambda *a: calls.append(("cols", a)) or 0)
     monkeypatch.setattr(cuda_build, "kernels", lambda: lib)
     monkeypatch.setattr(fk, "_sm_count", lambda device: 132)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -232,15 +233,20 @@ def test_wrapper_sizes_its_scratch_from_the_plan(monkeypatch, dtype, n, d, v):
     k, ent, psum = fk._launch(x, en, mask)
     assert fk.LAUNCHES == before + 1
     rows, splits = fk._fwd_plan(n, v, d, dtype, 132)
-    (args,) = calls
-    assert args[3:9] == (n, v, d, int(dtype == torch.bfloat16), rows, splits)
+    # the two entry points in turn: pass 1 and the merge, then pass 2 and the reduce
+    (first, args), (second, cols) = calls
+    assert (first, second) == ("rows", "cols")
+    assert args[3:9] == cols[3:9] == (n, v, d, int(dtype == torch.bfloat16), rows, splits)
     (scratch,) = made
     assert scratch["stats"].numel() == 4 * splits * n
     assert scratch["best_i"].numel() == splits * n and scratch["best_i"].dtype == torch.int32
     assert scratch["col_part"].numel() == -(-n // rows) * v
-    assert args[9:12] == tuple(scratch[key].data_ptr() for key in ("stats", "best_i", "col_part"))
-    assert args[12:17] == (k.data_ptr(), ent.data_ptr(), scratch["m"].data_ptr(),
-                           scratch["z"].data_ptr(), psum.data_ptr())
+    assert args[9:11] == tuple(scratch[key].data_ptr() for key in ("stats", "best_i"))
+    assert args[11:15] == (k.data_ptr(), ent.data_ptr(), scratch["m"].data_ptr(),
+                           scratch["z"].data_ptr())
+    assert args[15:18] == (None, None, 0)  # no shard's row statistics
+    assert cols[9:13] == (scratch["m"].data_ptr(), scratch["z"].data_ptr(),
+                          scratch["col_part"].data_ptr(), psum.data_ptr())
     assert scratch["m"].numel() == scratch["z"].numel() == n
     assert k.shape == (n,) and k.dtype == torch.int32
     assert ent.shape == (n,) and psum.shape == (v,) and psum.dtype == torch.float32
