@@ -215,6 +215,14 @@ cosine-VQ; after each path, K1 context-only, K2, K3 and K3b are held against
 their twins at every recorded shape that no earlier check covered (the
 `[shapes]` lines), and those rows join the kernel line as `modes`.
 
+Each timed training cell (phase 6, paths A, B, E-I and L-P) and phase J's
+loop (its median window and its whole) also prints an `[mfu]` line: the
+analytic TFLOP of the step by component (`utils/flops.py`, with cached or
+live images as the cell ran), TFLOP/s at the cell's ms/step, and
+`mfu_analytic`, the share of the card's dense bf16 peak from
+MODEL_PEAK_TFLOPS (no share for a card that table does not name), with the
+card's name and power limit. The kernel timer is `utils/timing.median_ms`.
+
 Prints a JSON line of kernel results (the launch counts of the paths, each
 counted from 0; not printed by --phase kernels, which drives no path) before
 the last line, and as the last line {"ok": true, "device": {...}}. Exits
@@ -227,6 +235,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -236,6 +245,11 @@ import threading
 import time
 
 import numpy as np
+
+if __name__ == "__main__":
+    # the port only where this file runs as the script: the loader's decode
+    # workers re-import it as __mp_main__, and they need no torch
+    from speechclip_plus_tpu_torch.utils.timing import median_ms
 
 CONFIG = "config/speechclip_plus/base/hybrid_plus.yaml"
 LARGE_CONFIGS = {  # path M, the large plus family (flickr)
@@ -258,6 +272,10 @@ REPS = 5  # timed requests per serving cell
 # published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# the model-FLOP share's denominator: each card's dense bf16 tensor-core peak
+# in TFLOP/s, by the name nvidia-smi reports (NVIDIA's data sheet: H100 SXM5,
+# 989.4); a card not listed gets no share
+MODEL_PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.4}
 
 
 class SmokeFailure(RuntimeError):
@@ -269,6 +287,7 @@ def require(cond, what):
         raise SmokeFailure(what)
 
 
+@functools.lru_cache(maxsize=1)
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -277,22 +296,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, runs=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 TRAIN_BATCH, TRAIN_WAV = 128, 102400  # bench.py's training shapes
+
+
+def print_mfu(label, model_cfg, batch_size, wav_len, cached, ms_per_step):
+    """The model-FLOP share of a timed training step: the analytic TFLOP a
+    step (`utils/flops.py`, 2 FLOPs a multiply-add, fwd+bwd multipliers, with
+    cached or live images as the cell ran), TFLOP/s at `ms_per_step`, and
+    `mfu_analytic`, their share of the card's dense bf16 peak, with the
+    card's name and power limit; no share for a card without a known peak."""
+    from speechclip_plus_tpu_torch.utils.flops import train_step_flops
+
+    flops = train_step_flops(model_cfg, batch_size, wav_len, cached_image=cached)
+    tflop = flops["total"] / 1e12
+    rate = tflop / (ms_per_step / 1e3)
+    card = card_line()
+    name = card.split(",")[0].strip()
+    peak = MODEL_PEAK_TFLOPS.get(name)
+    share = (f"peak unknown for {name}" if peak is None else
+             f"mfu_analytic {rate / peak:.4f} of {peak} TFLOP/s dense bf16")
+    parts = ", ".join(f"{k} {v / 1e12:.4f}" for k, v in sorted(flops.items(), key=lambda kv: -kv[1])
+                      if k != "total")
+    print(f"[mfu] {label} {'cached' if cached else 'live'} images, B={batch_size} x {wav_len}: "
+          f"{tflop:.4f} TFLOP/step analytic ({parts}); {rate:.2f} TFLOP/s at "
+          f"{ms_per_step:.2f} ms/step; {share} ({card})")
 WARMUP_STEPS, TIMED_STEPS = 3, 5
 
 
@@ -451,9 +478,9 @@ def check_attention(torch, fab, name, b, t, d, heads, fuse_out, padded, dtype, g
     if dtype == torch.bfloat16:
         tol += f"; vs the bf16 twin {twin_err:.3e}"
     moved = nbytes(x, w_in, b_in, bias, got.to(dtype)) + (nbytes(w_out, b_out) if fuse_out else 0)
-    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+    row = {"max_abs_err": err, "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(block_flops(b, t, d, heads, fuse_out), moved, dtype),
-           "library_ms": median_ms(torch, lambda: library_block(torch, *args, heads, fuse_out)),
+           "library_ms": median_ms(lambda: library_block(torch, *args, heads, fuse_out)),
            "library": "composite: cuBLAS linear + SDPA [+ cuBLAS linear]"}
     print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}) {timing_text(row)}")
     require(ok, f"{name} {dtype}: error {err} over tolerance ({tol})")
@@ -480,9 +507,9 @@ def check_block_parts(torch, fab, dtype, gen, b=128, t=320, d=768, heads=12):
         require(torch.equal(got, call()), f"K1a {what} {name}: two runs differ")
         err, ok, tol = compare(torch, got, ref(), out_dtype)  # ref: the twin, not rounded
         require(ok, f"K1a {what} {name}: error {err} ({tol})")
-        row = {"max_abs_err": err, "ms": median_ms(torch, call), "plain_ms": median_ms(torch, plain),
+        row = {"max_abs_err": err, "ms": median_ms(call), "plain_ms": median_ms(plain),
                **bound(flops, nbytes(*inputs, got), dtype),
-               "library_ms": median_ms(torch, library),
+               "library_ms": median_ms(library),
                "library": "F.linear in the working dtype (cuBLAS"
                           + ("; no scale, output not fp32)" if out_dtype != dtype else ")")}
         print(f"[kernel] K1a projection GEMM {what} {name}: max_abs_err={err:.3e} ({tol}), "
@@ -515,11 +542,11 @@ def check_block_parts(torch, fab, dtype, gen, b=128, t=320, d=768, heads=12):
         q, k, v = (a.reshape(b, t, heads, dh).transpose(1, 2).to(dtype)
                    for a in qkv.split(d, dim=-1))
         mask = bias[:, None, None, :].to(dtype)
-        row = {"max_abs_err": err, "ms": median_ms(torch, call),
-               "plain_ms": median_ms(torch, twin),
+        row = {"max_abs_err": err, "ms": median_ms(call),
+               "plain_ms": median_ms(twin),
                "plain": "the context-only twin, its fp32 qkv projection included",
                **bound(4 * b * t * t * d, nbytes(qkv, bias, got), dtype),
-               "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
+               "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, dropout_p=p, scale=1.0)),
                "library": "scaled_dot_product_attention with a key mask on q, k, v in the "
                           "working dtype"}
@@ -576,7 +603,7 @@ def check_vq(torch, fk, vocab, n, dtype, gen, d=512):
     row = {"max_abs_err": max(ent_err, psum_err), "max_abs_err_of": "ent, psum",
            "ent_max_abs_err": ent_err, "psum_max_abs_err": psum_err,
            "target_mismatches_decided": mismatches, "decided_rows": int(decided.sum()),
-           "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(2 * n * d * v, nbytes(x, en, mask, k1, e1, p1), dtype), "library_ms": None,
            "plan": plan}
     print(f"[kernel] K3 cosine_vq N={n} D={d} V={v} {str(dtype)[6:]}, plan {rows} rows x "
@@ -655,9 +682,9 @@ def check_attention_dropout(torch, fab, name, b, t, d, heads, fuse_out, dtype, g
     err, ok, tol = compare(torch, got, want, dtype)
     moved = nbytes(*args[:3], args[5], got)
     moved += nbytes(*args[3:5]) if fuse_out else b * t * 3 * d * 4 + b * heads * t * 4
-    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+    row = {"max_abs_err": err, "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(block_flops(b, t, d, heads, fuse_out), moved, dtype),
-           "library_ms": median_ms(torch, lambda: library_block(torch, *args, heads, fuse_out,
+           "library_ms": median_ms(lambda: library_block(torch, *args, heads, fuse_out,
                                                                 p=0.1)),
            "library": "composite: cuBLAS linear + SDPA with dropout_p [+ cuBLAS linear]"}
     print(f"[kernel] {name} p=0.1 {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), lse "
@@ -742,9 +769,9 @@ def check_attention_bwd(torch, fab, vjp, dtype, p, gen, shape=(128, 321, 768, 8)
     # five T x T x dh products per head (s, dp, dv, dq, dk); no single library
     # call takes the saved qkv, lse and the counter mask: the composite is the
     # backward of plain attention from its saved weights
-    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+    row = {"max_abs_err": err, "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(10 * b * t * t * d, nbytes(qkv, bias, ab, dctx, ctx, lse, got), dtype),
-           "library_ms": median_ms(torch, library_backward(torch, qkv, bias, ab, dctx, heads,
+           "library_ms": median_ms(library_backward(torch, qkv, bias, ab, dctx, heads,
                                                            dtype, p)),
            "library": "composite: autograd backward through cuBLAS products and a masked "
                       "softmax, from saved (B, H, T, T) weights"}
@@ -776,9 +803,9 @@ def check_attention_causal(torch, fab, dtype, gen, b=128):
     require(lse_err <= 1e-4, f"{name}: lse error {lse_err} > 1e-4")
     err, ok, tol = compare(torch, got, want, dtype)
     moved = nbytes(x, w_in, b_in, ab, got, lse) + b * t * 3 * d * 4
-    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+    row = {"max_abs_err": err, "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(block_flops(b, t, d, heads, False), moved, dtype),
-           "library_ms": median_ms(torch, lambda: library_block(
+           "library_ms": median_ms(lambda: library_block(
                torch, x, w_in, b_in, w_out, b_out, None, heads, False, ab=ab)),
            "library": "composite: cuBLAS linear + SDPA with a (T, T) mask"}
     print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), lse max_abs_err="
@@ -887,7 +914,7 @@ def check_vq_bwd(torch, fk, vocab, dtype, gen, n=128 * 75, d=512):
     plan = {"rows": rows, "splits": splits, "blocks": -(-n // rows) * splits}
     # three N x D x V products (s, u, dx); no single library call
     row = {"max_abs_err": err, "max_abs_err_of": "dx", "dt_abs_err": dt_err,
-           "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+           "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(6 * n * d * v, nbytes(x, g, en, norms, mask, dx, dt), dtype),
            "library_ms": None, "plan": plan}
     print(f"[kernel] K3b ST backward N={n} D={d} V={v} {str(dtype)[6:]}, plan {rows} rows x "
@@ -932,9 +959,9 @@ def check_attention_bias(torch, fab, gated, p, dtype, gen):
     require(lse_err <= 1e-4, f"{name}: lse error {lse_err} > 1e-4")
     err, ok, tol = compare(torch, got, want, dtype)
     del want
-    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+    row = {"max_abs_err": err, "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(block_flops(b, t, d, heads, True), nbytes(*args, ab, gate, got), dtype),
-           "library_ms": median_ms(torch, lambda: library_block(
+           "library_ms": median_ms(lambda: library_block(
                torch, *args, heads, True, p=p, ab=ab, gate=gate)),
            "library": "composite: cuBLAS linear + (B, H, T, T) mask + SDPA + cuBLAS linear"}
     print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), lse max_abs_err="
@@ -975,9 +1002,9 @@ def check_fused_attention(torch, b, t, p, dtype, gen):
     del want
     mask = kb[:, None, None, :].to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = {"max_abs_err": err, "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+    row = {"max_abs_err": err, "ms": median_ms(kern), "plain_ms": median_ms(plain),
            **bound(4 * b * h * t * t * dh, nbytes(q, k, v, kb, got), dtype),
-           "library_ms": median_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=p)),
+           "library_ms": median_ms(lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=p)),
            "library": "scaled_dot_product_attention with a key mask"
                       + (" and dropout_p" if p else "")}
     print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), bit-identical "
@@ -1007,10 +1034,10 @@ def check_flash(torch, b, t, dtype, gen):
     del want, lse0
     mask = kb[:, None, None, :].to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = {"max_abs_err": err, "lse_max_abs_err": lse_err, "ms": median_ms(torch, kern),
-           "plain_ms": median_ms(torch, plain),
+    row = {"max_abs_err": err, "lse_max_abs_err": lse_err, "ms": median_ms(kern),
+           "plain_ms": median_ms(plain),
            **bound(4 * b * h * t * t * dh, nbytes(q, k, v, kb, got, lse), dtype),
-           "library_ms": median_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask)),
+           "library_ms": median_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
            "library": "scaled_dot_product_attention with a key mask (no lse output)"}
     print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), lse max_abs_err="
           f"{lse_err:.3e} (<= 1e-4), bit-identical rerun; {timing_text(row)}")
@@ -1069,10 +1096,10 @@ def check_conv0(torch, dtype, gen):
     lib = conv1d(wav[:, None], weight, stride=s).transpose(1, 2)
     lib_err = (lib.float() - got.float()).abs().max().item()
     del lib
-    row = {"max_abs_err": err, "ms": median_ms(torch, kern),
-           "plain_ms": median_ms(torch, plain, runs=5, warmup=1),
+    row = {"max_abs_err": err, "ms": median_ms(kern),
+           "plain_ms": median_ms(plain, runs=5, warmup=1),
            **bound(2 * b * t0 * c * k, nbytes(wav, kernel, got), dtype),
-           "library_ms": median_ms(torch, lambda: conv1d(wav[:, None], weight, stride=s)),
+           "library_ms": median_ms(lambda: conv1d(wav[:, None], weight, stride=s)),
            "library": "F.conv1d (channel-first output)"}
     print(f"[kernel] {name} {str(dtype)[6:]}: max_abs_err={err:.3e} ({tol}), vs F.conv1d "
           f"{lib_err:.3e}, bit-identical rerun; {timing_text(row)}")
@@ -1775,8 +1802,8 @@ def phase_lstm_parity(torch):
         tf32_err = (lstm(mel, True).cpu() - want["hidden_states"][-1]).abs().max().item()
         big = train_batch(torch, TRAIN_BATCH, TRAIN_WAV, 8, seed=5)["wav"]
         mel = log_mel_spectrogram(big)
-        off_ms = median_ms(torch, lambda: lstm(mel, False), runs=5, warmup=1)
-        on_ms = median_ms(torch, lambda: lstm(mel, True), runs=5, warmup=1)
+        off_ms = median_ms(lambda: lstm(mel, False), runs=5, warmup=1)
+        on_ms = median_ms(lambda: lstm(mel, True), runs=5, warmup=1)
     print(f"[path O2] APC tower fp32, card vs CPU, B=8 x {TRAIN_WAV} ragged: hidden states and "
           f"weighted sum max_abs_err / max(1, RMS) {worst:.3e} (<= 1e-4), cuDNN LSTM with TF32 "
           f"off; with TF32 on the last layer would be {tf32_err:.3e} off. 3 LSTM layers at "
@@ -2399,6 +2426,7 @@ def phase_train(torch, label, config, *, tower="k1", cells=("cached", "live"),
               f"{loss[-1]:.4f}, grad_norm {gn:.4f}, " + ", ".join(
                   f"{k[len('train_'):]} {float(v):.4f}" for k, v in metrics.items()
                   if k.endswith("_loss")))
+        print_mfu(label, model_cfg, batch_size, TRAIN_WAV, cell == "cached", sec * 1e3)
         require(bool(torch.isfinite(loss).all()), f"train {label} {cell}: non-finite loss")
         require(peak_bytes < 80e9, f"train {label} {cell}: peak {peak_bytes / 1e9:.2f} GB")
         require(gn > 0 and np.isfinite(gn), f"train {label} {cell}: grad_norm {gn}")
@@ -2807,6 +2835,7 @@ def phase_fit(torch, bare_ms):
             k_reference = {key: value.detach().cpu().clone() for key, value in
                            SpeechCLIP(first.model, "cuda").encode_speech(k_wavs).items()
                            if key in ("parallel_audio_feat", "cascaded_audio_feat")}
+            fit_model_cfg = first.model.cfg
             del first
             free_cuda(torch)
             second, _, resumed = fit_run(
@@ -2871,16 +2900,23 @@ def phase_fit(torch, bare_ms):
             with open(os.path.join(path, "metrics.jsonl")) as f:
                 rates = [r["steps_per_sec"] for r in map(json.loads, f)
                          if "steps_per_sec" in r and r["micro_step"] > 1]
-            median_ms = 1e3 / float(np.median(rates))
+            window_ms = 1e3 / float(np.median(rates))
             wait = np.array(t["loader_wait_s"]) * 1e3
             whole_ms = 1e3 * sum(t["train_s"]) / len(wait)
-            print(f"[fit] loop with {what}, B={batch}: median window {median_ms:.2f} ms/step, "
-                  f"{batch * 1e3 / median_ms:.1f} pairs/s ({len(rates)} steps_per_sec windows of "
-                  f"2 steps), {median_ms / bare_ms:.2f}x the bare step; whole {whole_ms:.2f} "
+            print(f"[fit] loop with {what}, B={batch}: median window {window_ms:.2f} ms/step, "
+                  f"{batch * 1e3 / window_ms:.1f} pairs/s ({len(rates)} steps_per_sec windows of "
+                  f"2 steps), {window_ms / bare_ms:.2f}x the bare step; whole {whole_ms:.2f} "
                   f"ms/step, {batch * 1e3 / whole_ms:.1f} pairs/s ({len(wait)} steps in "
                   f"{sum(t['train_s']):.2f} s of {len(t['train_s'])} passes over the loader), "
                   f"{whole_ms / bare_ms:.2f}x the bare step; bare step of phase 6 in this run "
                   f"{bare_ms:.2f} ms/step")
+            # every training batch pads to the top bucket, max_audio_len: the
+            # synthetic wavs are uniform in 2-6.4 s, so a batch of 128 without
+            # one over 5 s (the next bucket down) has odds of (3/4.4)^128
+            wav_len = int(base.audio_encoder.max_audio_len)
+            for clock, ms in (("median window", window_ms), ("whole", whole_ms)):
+                print_mfu(f"J fit loop with {what}, {clock}", fit_model_cfg, batch, wav_len,
+                          True, ms)
             print(f"[fit] loader wait per step (next batch + copy to the card) with {what}: "
                   f"median {np.median(wait):.2f} ms, mean {wait.mean():.2f}, max {wait.max():.2f} "
                   f"over {len(wait)} steps")
@@ -3483,7 +3519,7 @@ def check_head_shards(torch, fab, name, b, t, d, heads, p, dtype, gen, gated=Fal
         gate = 1.0 + torch.rand(b, heads, t, generator=gen, device="cuda")
     whole_kw = dict(attn_bias=ab, attn_gate=gate, **kw)
     whole_ctx = fab._run(x, w_in, b_in, None, None, bias, heads, False, **whole_kw)
-    whole_ms = median_ms(torch, lambda: fab._run(x, w_in, b_in, w_out, b_out, bias, heads, True,
+    whole_ms = median_ms(lambda: fab._run(x, w_in, b_in, w_out, b_out, bias, heads, True,
                                                  **whole_kw))
     want = fab.plain_fused_attention_block(*[a.float() for a in (x, w_in, b_in, w_out, b_out)],
                                            bias, heads, True, **whole_kw)
@@ -3513,8 +3549,8 @@ def check_head_shards(torch, fab, name, b, t, d, heads, p, dtype, gen, gated=Fal
                 moved = nbytes(x, wi, bi, wo, bias, sl["attn_bias"], sl["attn_gate"], part)
                 dr = h * dh
                 flops = 2 * b * t * d * 3 * dr + 4 * b * t * t * dr + 2 * b * t * dr * d
-                timed = {"ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
-                         **bound(flops, moved, dtype), "library_ms": median_ms(torch, lib)}
+                timed = {"ms": median_ms(kern), "plain_ms": median_ms(plain),
+                         **bound(flops, moved, dtype), "library_ms": median_ms(lib)}
         summed = (sum(parts) + b_out.float()).to(dtype)
         err, ok, tol = compare(torch, summed, want, dtype)
         require(ok, f"R0 {name} tp={tp}: the summed partials miss the whole block ({tol})")
@@ -3543,7 +3579,7 @@ def check_k5_shards(torch, b, t, p, dtype, gen):
     q, k, v, kb = packed_qkv(torch, b, heads, t, dh, dtype, gen)
     seeds = draw_seed(torch.Generator(device="cuda").manual_seed(17)) if p else None
     whole = fa._run(q, k, v, kb, seeds, 1.0 - p)
-    whole_ms = median_ms(torch, lambda: fa._run(q, k, v, kb, seeds, 1.0 - p))
+    whole_ms = median_ms(lambda: fa._run(q, k, v, kb, seeds, 1.0 - p))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = kb[:, None, None, :].to(dtype)
     rows = {}
@@ -3563,9 +3599,9 @@ def check_k5_shards(torch, b, t, p, dtype, gen):
         require(ok, f"R0 K5 tp={tp}: shard vs twin ({tol})")
         rows[tp] = {"shape": f"K5 B={b} H={h} of {heads} (tp={tp}) T={t} dh={dh}, dropout {p}, "
                              f"{str(dtype)[6:]}", "max_abs_err": err,
-                    "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+                    "ms": median_ms(kern), "plain_ms": median_ms(plain),
                     **bound(4 * b * h * t * t * dh, nbytes(qs, ks, vs, kb, got), dtype),
-                    "library_ms": median_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                    "library_ms": median_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask,
                                                                 dropout_p=p)),
                     "library": "scaled_dot_product_attention on the shard's heads",
                     "whole_ms": whole_ms}
@@ -3595,7 +3631,7 @@ def check_vq_shards(torch, fk, vocab, n, dtype, gen, d=512):
     x, en, _ = vq_inputs(torch, vocab, n, d, dtype, gen)
     mask = fk.column_mask(v, (0, vocab.sot_reduced, vocab.eot_reduced), "cuda")
     k1, e1, p1 = fk.cosine_vq_stats(x, en, mask)
-    whole_ms = median_ms(torch, lambda: fk.cosine_vq_stats(x, en, mask))
+    whole_ms = median_ms(lambda: fk.cosine_vq_stats(x, en, mask))
     rows = {}
     for tp in TP_SIZES:
         v_r = v // tp
@@ -3617,7 +3653,7 @@ def check_vq_shards(torch, fk, vocab, n, dtype, gen, d=512):
                          fk.plain_vq_cols(x, e0, m0, m, z))
         rows[tp] = {"shape": f"N={n} D={d} V={v_r} of {v} (tp={tp}) {str(dtype)[6:]}",
                     "max_abs_err": err, "max_abs_err_of": "ent, psum (vs the whole kernel)",
-                    "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
+                    "ms": median_ms(kern), "plain_ms": median_ms(plain),
                     **bound(2 * n * d * v_r, nbytes(x, e0, m0, k, ent, psum[:v_r]), dtype),
                     "library_ms": None, "whole_ms": whole_ms}
         print(f"[R0] K3 vocabulary shards N={n} tp={tp} (V={v_r} each): k bit-identical to the "
@@ -3636,7 +3672,7 @@ def check_vq_bwd_shards(torch, fk, vocab, n, dtype, gen, d=512):
     g = (torch.randn(n, d, generator=gen, device="cuda") * 1e-3).to(dtype).contiguous()
     mask = fk.column_mask(v, (0, vocab.sot_reduced, vocab.eot_reduced), "cuda")
     temp = torch.full((), 0.1, device="cuda")
-    whole_ms = median_ms(torch, lambda: fk.st_backward(x, g, en, norms, mask, temp))
+    whole_ms = median_ms(lambda: fk.st_backward(x, g, en, norms, mask, temp))
     dx0, dt0 = fk.plain_st_backward(x, g, en, norms, mask, temp)
     s = x.float() @ en.float().T
     pr = torch.softmax(torch.where(mask.bool()[None], -torch.inf, s / 0.1), dim=-1)
@@ -3663,8 +3699,8 @@ def check_vq_bwd_shards(torch, fk, vocab, n, dtype, gen, d=512):
             [fk.plain_st_backward_stats(x, g, *sh0, temp)] * tp, dim=1))
         rows[tp] = {"shape": f"N={n} D={d} V={v_r} of {v} (tp={tp}) {str(dtype)[6:]}",
                     "max_abs_err": err, "max_abs_err_of": "dx summed over the shards",
-                    "dt_abs_err": dt_err, "ms": median_ms(torch, kern),
-                    "plain_ms": median_ms(torch, plain),
+                    "dt_abs_err": dt_err, "ms": median_ms(kern),
+                    "plain_ms": median_ms(plain),
                     **bound(6 * n * d * v_r, nbytes(x, g, *sh0, halves[0][0], halves[0][1]),
                             dtype),
                     "library_ms": None, "whole_ms": whole_ms}
@@ -3690,15 +3726,15 @@ def time_row_parallel(torch, gen, m=128 * 320, d=768):
     for name, k in (("fc2", 4 * d), ("out_proj", d)):
         x = torch.randn(m, k, device="cuda", generator=gen).to(bf)
         w = (torch.randn(d, k, device="cuda", generator=gen) * k ** -0.5).to(bf)
-        whole = median_ms(torch, lambda: F.linear(x, w))
+        whole = median_ms(lambda: F.linear(x, w))
         for tp in TP_SIZES:
             xs, ws = x[:, :k // tp].contiguous(), w[:, :k // tp].contiguous()
             new, old = partial_product(xs, ws), F.linear(xs.float(), ws.float())
             err = float((new - old).abs().max() / old.pow(2).mean().sqrt())
             print(f"[R0] row-parallel {name} partial, M={m} N={d} K={k // tp} (tp={tp}): bf16 "
-                  f"operands to fp32 {median_ms(torch, lambda: partial_product(xs, ws)):.4f} ms, "
+                  f"operands to fp32 {median_ms(lambda: partial_product(xs, ws)):.4f} ms, "
                   f"the operands upcast to fp32 "
-                  f"{median_ms(torch, lambda: F.linear(xs.float(), ws.float())):.4f} ms (the "
+                  f"{median_ms(lambda: F.linear(xs.float(), ws.float())):.4f} ms (the "
                   f"whole K={k} in bf16 {whole:.4f} ms); difference {err:.3e} x RMS")
             require(new.dtype == torch.float32 and err <= 1e-4,
                     f"R0: the {name} partial product differs by {err:.3e} x RMS")
@@ -4113,7 +4149,7 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
     # feature_extractor_s3prl: the (L+1)-deep stack is built only here
     def fe8():
         return sc.feature_extractor_s3prl(wavs8)
-    fe_ms = median_ms(torch, fe8, runs=5, warmup=1)
+    fe_ms = median_ms(fe8, runs=5, warmup=1)
     add_counts(expect, tower_branch, 6)
     peak = {}
     for b, wavs in ((8, wavs8), (64, ragged_wavs(np.random.RandomState(12), 64, False))):
@@ -4134,7 +4170,7 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
 
     def kw8():
         return sc.extract_keywords(wavs8)
-    kw_ms = median_ms(torch, kw8, runs=5, warmup=1)
+    kw_ms = median_ms(kw8, runs=5, warmup=1)
     add_counts(expect, full, 6)
     kw = kw8()
     add_counts(expect, full)
@@ -4173,7 +4209,7 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
                 and np.array_equal(scores, want_scores[:, :10].cpu().numpy()),
                 f"{label}: search_text B={b} differs from the plain ranking")
         check_search(ids, scores, b, 10, index.ids, f"{label} search_text B={b}")
-        text_ms[b] = median_ms(torch, lambda: retriever.search_text(texts, k=10), runs=5,
+        text_ms[b] = median_ms(lambda: retriever.search_text(texts, k=10), runs=5,
                                warmup=1)
     print(f"[K] search_text over 256 images (config/dev/merges.txt): ids and scores equal to "
           f"encode_text -> L2 -> product -> sort; " + ", ".join(
