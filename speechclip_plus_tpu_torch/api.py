@@ -24,6 +24,7 @@ import torch
 
 from .config import ConfigNode, load_config
 from .models.kwclip import KWClip, KWClipConfig
+from .utils.profiling import span
 
 __all__ = ["SpeechCLIP", "load_from_checkpoint"]
 
@@ -70,12 +71,14 @@ class SpeechCLIP:
         """Pad on the host and copy (B, T) waveforms + lengths to the device;
         returns (wav fp32, wav_len, host buffers to keep alive until the copy
         has run)."""
-        w, lens = _pad_wavs(wavs)
-        w_host, l_host = torch.from_numpy(w), torch.from_numpy(lens)
-        if non_blocking and self.device.type == "cuda":
-            w_host, l_host = w_host.pin_memory(), l_host.pin_memory()
-        wav = w_host.to(self.device, non_blocking=non_blocking)
-        wav_len = l_host.to(self.device, non_blocking=non_blocking)
+        with span("serve.pad"):
+            w, lens = _pad_wavs(wavs)
+        with span("serve.copy"):
+            w_host, l_host = torch.from_numpy(w), torch.from_numpy(lens)
+            if non_blocking and self.device.type == "cuda":
+                w_host, l_host = w_host.pin_memory(), l_host.pin_memory()
+            wav = w_host.to(self.device, non_blocking=non_blocking)
+            wav_len = l_host.to(self.device, non_blocking=non_blocking)
         return _wav_to_f32(wav), wav_len, (w_host, l_host)
 
     @torch.inference_mode()

@@ -49,6 +49,7 @@ from ..ops.kw_bn import kw_bn_dynamic, kw_bn_fixed
 from ..ops.masks import get_keypadding_mask
 from ..ops.vq import scheduled_temperature, simple_vector_quantizer
 from ..parallel.tp import gather_from_model
+from ..utils.profiling import span
 from .cif import CIF, CifConfig
 
 __all__ = ["TransformerArgs", "VQConfig", "KwBnConfig", "KeywordHeadConfig", "make_self_att",
@@ -296,11 +297,13 @@ class KeywordHead(nn.Module):
         else:
             x = F.linear(feats.to(cd), lp.weight.to(cd), lp.bias.to(cd))
         if self.cfg.bn.enabled:
-            x = self.bn_layer(x, training, group)
+            with span("branch.kw_bn"):
+                x = self.bn_layer(x, training, group)
         xf = x.float()
         xn = xf / xf.norm(dim=-1, keepdim=True).clamp_min(1e-8)
-        vq = self.vector_quantizer(xn, token_embedding.float(), cd, training, global_step,
-                                   generator, group)
+        with span("branch.vq"):
+            vq = self.vector_quantizer(xn, token_embedding.float(), cd, training, global_step,
+                                       generator, group)
         keywords = vq.pop("keywords")
         return vq, keywords
 
@@ -429,9 +432,10 @@ class HybridBranch(nn.Module):
 def _downsample_head(branch, frames, pad_mask, token_embedding, target_len, global_step,
                      training, generator, group):
     """CIF, then the dynamic keyword head: the tail of both plus branches."""
-    dsample = branch.downsampling(frames, pad_mask, target_len if training else None,
-                                  global_step, training=training, generator=generator,
-                                  group=group)
+    with span("branch.cif"):
+        dsample = branch.downsampling(frames, pad_mask, target_len if training else None,
+                                      global_step, training=training, generator=generator,
+                                      group=group)
     if target_len is not None:
         dsample["target_len"] = target_len
     vq_results, keywords = branch.head(dsample["dsample_feats"], token_embedding, training,

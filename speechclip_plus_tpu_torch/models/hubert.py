@@ -102,6 +102,7 @@ from ..nn.fused_attention import fused_attention_dropout
 from ..nn.transformer import LayerNorm
 from ..ops.weighted_sum import layer_norm
 from ..parallel.tp import copy_to_model, row_parallel_linear
+from ..utils.profiling import span
 
 __all__ = ["HubertConfig", "HubertModel", "downsample_padding_mask",
            "relative_position_buckets"]
@@ -296,21 +297,26 @@ class ConvFeatureExtractor(nn.Module):
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         x = wav[:, None, :].to(self.cd)
-        for i, conv in enumerate(self.conv_layers):
-            x = _conv1d(x, conv, self.cd)
-            if self.mode == "layer_norm":
-                x = _channel_layer_norm(x, self.layer_norms[i])
-                continue
-            if i == 0:
-                # per-(utterance, channel) statistics over time, in fp32
-                xf = x.float()
-                mean = xf.mean(dim=-1, keepdim=True)
-                var = xf.var(dim=-1, unbiased=False, keepdim=True)
-                xf = (xf - mean) * torch.rsqrt(var + self.gn.eps)
-                x = (xf * self.gn.weight.float()[:, None]
-                     + self.gn.bias.float()[:, None]).to(x.dtype)
-            x = F.gelu(x)
+        with span("tower.frontend.layer0"):
+            x = self._layer(0, x)
+        for i in range(1, len(self.conv_layers)):
+            x = self._layer(i, x)
         return x.transpose(1, 2)
+
+    def _layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Conv i, its norm (layer 0 or every layer) and GELU."""
+        x = _conv1d(x, self.conv_layers[i], self.cd)
+        if self.mode == "layer_norm":
+            return _channel_layer_norm(x, self.layer_norms[i])
+        if i == 0:
+            # per-(utterance, channel) statistics over time, in fp32
+            xf = x.float()
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = xf.var(dim=-1, unbiased=False, keepdim=True)
+            xf = (xf - mean) * torch.rsqrt(var + self.gn.eps)
+            x = (xf * self.gn.weight.float()[:, None]
+                 + self.gn.bias.float()[:, None]).to(x.dtype)
+        return F.gelu(x)
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -489,16 +495,18 @@ class HubertModel(nn.Module):
         alone)."""
         c, g = self.cfg, generator
         p = c.dropout
-        feats = self.feature_extractor(wav)
-        pad = downsample_padding_mask(wav_padding_mask, feats.shape[1])
-        feats = self.layer_norm(feats)
-        if self.post_extract_proj is not None:
-            feats = _linear(feats, self.post_extract_proj, c.dtype)
-        x = dropout(feats, p, g).masked_fill(pad[:, :, None], 0.0)
-        x = x + self.pos_conv(x)
-        if not c.layer_norm_first:  # a pre-norm tower keeps the norm unapplied
-            x = self.encoder_layer_norm(x)
-        x = dropout(x, p, g)
+        with span("tower.frontend"):
+            feats = self.feature_extractor(wav)
+        with span("tower.prenet"):
+            pad = downsample_padding_mask(wav_padding_mask, feats.shape[1])
+            feats = self.layer_norm(feats)
+            if self.post_extract_proj is not None:
+                feats = _linear(feats, self.post_extract_proj, c.dtype)
+            x = dropout(feats, p, g).masked_fill(pad[:, :, None], 0.0)
+            x = x + self.pos_conv(x)
+            if not c.layer_norm_first:  # a pre-norm tower keeps the norm unapplied
+                x = self.encoder_layer_norm(x)
+            x = dropout(x, p, g)
         bias = padding_bias(pad)
         position_bias = self.position_bias(x.shape[1])
         keep = None
@@ -511,16 +519,21 @@ class HubertModel(nn.Module):
             h = h.float()
             return layer_norm(h) if normalize_contrib else h
 
-        acc = None if layer_weights is None else layer_weights[0] * contrib(x)
+        acc = None
+        if layer_weights is not None:
+            with span("tower.wsum"):
+                acc = layer_weights[0] * contrib(x)
         hidden = None
         if return_hidden_states:  # filled layer by layer: one copy of the stack
             hidden = x.new_empty((len(self.layers) + 1, *x.shape))
             hidden[0] = x
         for i, layer in enumerate(self.layers):
-            y = self._run_layer(layer, x, bias, g, position_bias)
-            x = y if keep is None else torch.where(keep[i], y, x)
+            with span("tower.layer", layer=i):
+                y = self._run_layer(layer, x, bias, g, position_bias)
+                x = y if keep is None else torch.where(keep[i], y, x)
             if acc is not None:
-                acc = acc + layer_weights[i + 1] * contrib(x)
+                with span("tower.wsum"):
+                    acc = acc + layer_weights[i + 1] * contrib(x)
             if hidden is not None:
                 hidden[i + 1] = x
         out = {"x": x, "weighted_sum": acc, "padding_mask": pad}

@@ -44,6 +44,7 @@ from ..ops.weighted_sum import layer_weights, weighted_sum
 from ..nn.mlp import MLPLayers
 from ..optim.optimizer import trainable_mask
 from ..parallel.tp import full_parameter
+from ..utils.profiling import backward_span, span
 from .branches import (CascadedBranch, CascadedBranchPlus, HybridBranch, HybridBranchPlus,
                        KeywordHeadConfig, KwBnConfig, ParallelBranch, TransformerArgs,
                        VQConfig)
@@ -430,32 +431,35 @@ class KWClip(nn.Module):
         stack, normalized first by method1 / method2 (the stack returned is
         then the normalized one, as JAX returns it)."""
         c = self.cfg
-        pad = torch.arange(wav.shape[1], device=wav.device)[None, :] >= wav_len[:, None]
-        s3prl = c.normalize_hiddenstates and c.normalize_type == "s3prl"
-        fused = c.feat_select_idx == "weighted_sum" and (s3prl or not c.normalize_hiddenstates)
-        out = self.audio_encoder(wav, pad, layer_weights(self.weightedsum) if fused else None,
-                                 generator, return_hidden_states=return_hidden_states or not fused,
-                                 normalize_contrib=s3prl,
-                                 layer_drop_generator=layer_drop_generator)
-        hidden = out.get("hidden_states")
-        if fused:
-            feat = out["weighted_sum"]
-        else:
-            h = hidden.float()
-            if c.normalize_hiddenstates and c.normalize_type == "method1":
-                hidden = h = h / (h.norm(dim=-1, keepdim=True) + 1e-8)
-            elif c.normalize_hiddenstates and c.normalize_type == "method2":
-                hidden = h = h / h.norm(dim=-1).mean(dim=-1)[:, :, None, None]
-            if isinstance(c.feat_select_idx, tuple):
-                sel = h[list(c.feat_select_idx)]
-                feat = sel[0] if len(c.feat_select_idx) == 1 else sel
-            elif c.feat_select_idx == "weighted_sum":
-                feat = weighted_sum(h, self.weightedsum)
+        with span("tower"):
+            pad = torch.arange(wav.shape[1], device=wav.device)[None, :] >= wav_len[:, None]
+            s3prl = c.normalize_hiddenstates and c.normalize_type == "s3prl"
+            fused = c.feat_select_idx == "weighted_sum" and (s3prl or not c.normalize_hiddenstates)
+            weights = layer_weights(self.weightedsum) if fused else None
+            out = self.audio_encoder(wav, pad, weights, generator,
+                                     return_hidden_states=return_hidden_states or not fused,
+                                     normalize_contrib=s3prl,
+                                     layer_drop_generator=layer_drop_generator)
+            hidden = out.get("hidden_states")
+            if fused:
+                feat = out["weighted_sum"]
             else:
-                feat = h[-1]
-        rate = c.audio.downsample_rate
-        feat_len = torch.clamp(torch.round(wav_len.float() / rate).to(torch.int64),
-                               max=feat.shape[-2])
+                h = hidden.float()
+                if c.normalize_hiddenstates and c.normalize_type == "method1":
+                    hidden = h = h / (h.norm(dim=-1, keepdim=True) + 1e-8)
+                elif c.normalize_hiddenstates and c.normalize_type == "method2":
+                    hidden = h = h / h.norm(dim=-1).mean(dim=-1)[:, :, None, None]
+                if isinstance(c.feat_select_idx, tuple):
+                    sel = h[list(c.feat_select_idx)]
+                    feat = sel[0] if len(c.feat_select_idx) == 1 else sel
+                elif c.feat_select_idx == "weighted_sum":
+                    feat = weighted_sum(h, self.weightedsum)
+                else:
+                    feat = h[-1]
+            rate = c.audio.downsample_rate
+            feat_len = torch.clamp(torch.round(wav_len.float() / rate).to(torch.int64),
+                                   max=feat.shape[-2])
+        backward_span("tower.bwd", feat, weights)
         if return_hidden_states:
             return feat, feat_len, hidden
         return feat, feat_len
@@ -493,25 +497,28 @@ class KWClip(nn.Module):
         if not hasattr(branch, "parallel_feature"):
             raise ValueError(f"{self.cfg.branch_type} has no parallel feature")
         feat, feat_len = self.forward_audio(wav, wav_len)
-        out = branch.parallel_feature(feat, feat_len)
-        return out if self.p_branch_proj_net is None else self.p_branch_proj_net(out)
+        with span("branch"):
+            out = branch.parallel_feature(feat, feat_len)
+            return out if self.p_branch_proj_net is None else self.p_branch_proj_net(out)
 
     def encode_speech(self, wav: torch.Tensor, wav_len: torch.Tensor) -> Dict[str, Any]:
         """JAX `KWClip.encode_speech` (reference `kwClip.py:1042-1091`); a
         feature the model does not have is None."""
         feat, feat_len = self.forward_audio(wav, wav_len)
-        if self.cascaded_branch is not None:
-            out = self.cascaded_branch(feat, feat_len, self.clip.text.token_embedding.weight)
-        else:
-            out = self.parallel_branch(feat, feat_len)
+        with span("branch"):
+            if self.cascaded_branch is not None:
+                out = self.cascaded_branch(feat, feat_len, self.clip.text.token_embedding.weight)
+            else:
+                out = self.parallel_branch(feat, feat_len)
+            parallel = out.get("parallel_audio_feat")
+            if parallel is not None and self.p_branch_proj_net is not None:
+                parallel = self.p_branch_proj_net(parallel)
         cascaded = None
         if out.get("keywords") is not None:
-            cascaded = self.clip.encode_keywords(
-                out["keywords"], out["keywords_len"] if "keywords_len" in out
-                else out["keyword_num"])
-        parallel = out.get("parallel_audio_feat")
-        if parallel is not None and self.p_branch_proj_net is not None:
-            parallel = self.p_branch_proj_net(parallel)
+            with span("text"):
+                cascaded = self.clip.encode_keywords(
+                    out["keywords"], out["keywords_len"] if "keywords_len" in out
+                    else out["keyword_num"])
         return {
             "cascaded_audio_feat": cascaded,
             "parallel_audio_feat": parallel,
@@ -575,23 +582,27 @@ class KWClip(nn.Module):
                 target_len = eot_pos - 1
             else:
                 target_len = torch.round(audio_feat_len.float() / 20.0).to(torch.int64)
-        if self.cascaded_branch is not None:
-            out = self.cascaded_branch(
-                audio_feat, audio_feat_len, self.clip.text.token_embedding.weight,
-                target_len=target_len, global_step=global_step, training=training,
-                generator=generator, group=group)
-        else:
-            out = self.parallel_branch(audio_feat, audio_feat_len, generator)
+        with span("branch"):
+            if self.cascaded_branch is not None:
+                out = self.cascaded_branch(
+                    audio_feat, audio_feat_len, self.clip.text.token_embedding.weight,
+                    target_len=target_len, global_step=global_step, training=training,
+                    generator=generator, group=group)
+            else:
+                out = self.parallel_branch(audio_feat, audio_feat_len, generator)
+        backward_span("branch.bwd", out, audio_feat)
         ids = batch["id"]
         loss_feats: Dict[str, Any] = {"id": ids, "image_feat": image_feat}
         cascaded = parallel = None
         if out.get("keywords") is not None:
-            cascaded = self.clip.encode_keywords(
-                out["keywords"], out["keywords_len"] if "keywords_len" in out
-                else out["keyword_num"])
-            if self.c_branch_proj_net is not None:
-                cascaded = self.c_branch_proj_net(cascaded, generator)
-            loss_feats["cascaded_audio_feat"] = cascaded = _l2norm(cascaded)
+            with span("text"):
+                cascaded = self.clip.encode_keywords(
+                    out["keywords"], out["keywords_len"] if "keywords_len" in out
+                    else out["keyword_num"])
+                if self.c_branch_proj_net is not None:
+                    cascaded = self.c_branch_proj_net(cascaded, generator)
+                loss_feats["cascaded_audio_feat"] = cascaded = _l2norm(cascaded)
+            backward_span("text.bwd", cascaded, out["keywords"])
         if out.get("parallel_audio_feat") is not None:
             parallel = out["parallel_audio_feat"]
             if self.p_branch_proj_net is not None:

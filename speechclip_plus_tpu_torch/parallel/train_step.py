@@ -54,6 +54,7 @@ import torch
 
 from ..models.kwclip import KWClip
 from ..optim.optimizer import Optimizer
+from ..utils.profiling import span
 from .mesh import (DataGroup, CollectiveTimer, all_gather_rows, broadcast_module,
                    reduce_gradients)
 
@@ -125,41 +126,45 @@ def make_train_step(model: KWClip, optimizer: Optimizer, accumulate_grad_batches
     def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator],
                 layer_drop_generator: Optional[torch.Generator] = None):
         opt_step = state.step // accum
-        loss_feats, log_metrics, _ = model(batch, training=True, global_step=opt_step,
-                                           generator=generator, group=group,
-                                           layer_drop_generator=layer_drop_generator)
-        if "valid" in batch:
-            loss_feats = dict(loss_feats, valid=batch["valid"])
-        losses = model.compute_loss(gather_rows(loss_feats, group))
-        grads = torch.autograd.grad(losses["loss"], params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with span("step.forward"):
+            loss_feats, log_metrics, _ = model(batch, training=True, global_step=opt_step,
+                                               generator=generator, group=group,
+                                               layer_drop_generator=layer_drop_generator)
+        with span("step.loss"):
+            if "valid" in batch:
+                loss_feats = dict(loss_feats, valid=batch["valid"])
+            losses = model.compute_loss(gather_rows(loss_feats, group))
+        with span("step.backward"):
+            grads = torch.autograd.grad(losses["loss"], params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         metrics = {f"train_{k}": v.detach() for k, v in losses.items()}
         metrics.update({f"train_{k}": torch.as_tensor(v).detach()
                         for k, v in log_metrics.items()})
         state.step += 1
-        if group is None:
-            metrics["grad_norm"] = optimizer.global_norm(grads)
-        if accum == 1:
-            if group is not None:
-                grads = reduce_gradients(grads, group, timer)
+        with span("step.optimizer"):
+            if group is None:
                 metrics["grad_norm"] = optimizer.global_norm(grads)
-            optimizer.apply(grads, opt_step)
-            return metrics
-        with torch.no_grad():
-            if state.grad_acc is None:
-                state.grad_acc = [g.clone() for g in grads]
-            else:
-                for a, g in zip(state.grad_acc, grads):
-                    a.add_(g)
-        if state.step % accum == 0:
-            acc = state.grad_acc
-            if group is not None:
-                acc = reduce_gradients(acc, group, timer)
-            mean = [a / accum for a in acc]
-            if group is not None:
-                metrics["grad_norm"] = optimizer.global_norm(mean)
-            optimizer.apply(mean, opt_step)
-            state.grad_acc = None
+            if accum == 1:
+                if group is not None:
+                    grads = reduce_gradients(grads, group, timer)
+                    metrics["grad_norm"] = optimizer.global_norm(grads)
+                optimizer.apply(grads, opt_step)
+                return metrics
+            with torch.no_grad():
+                if state.grad_acc is None:
+                    state.grad_acc = [g.clone() for g in grads]
+                else:
+                    for a, g in zip(state.grad_acc, grads):
+                        a.add_(g)
+            if state.step % accum == 0:
+                acc = state.grad_acc
+                if group is not None:
+                    acc = reduce_gradients(acc, group, timer)
+                mean = [a / accum for a in acc]
+                if group is not None:
+                    metrics["grad_norm"] = optimizer.global_norm(mean)
+                optimizer.apply(mean, opt_step)
+                state.grad_acc = None
         return metrics
 
     step_fn.timer = timer

@@ -19,6 +19,7 @@ need the model's BPE tokenizer (`SpeechCLIP(..., tokenizer=...)`, or
 """
 from __future__ import annotations
 
+import itertools
 from collections import deque
 from typing import Optional, Sequence, Tuple
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from .api import SpeechCLIP
+from .utils.profiling import span
 
 __all__ = ["RetrievalIndex", "SpeechRetriever", "PendingSearch", "build_image_index"]
 
@@ -66,9 +68,10 @@ class PendingSearch:
     """Handle for an in-flight retrieval query."""
 
     def __init__(self, index: RetrievalIndex, scores: torch.Tensor, idx: torch.Tensor,
-                 keep_alive=()):
+                 keep_alive=(), request: Optional[int] = None):
         self._index, self._scores, self._idx = index, scores, idx
         self._keep_alive = keep_alive  # pinned host buffers of the upload
+        self._request = request  # the id the query's spans carry
         self._event = None
         if scores.is_cuda:
             self._event = torch.cuda.Event()
@@ -80,10 +83,12 @@ class PendingSearch:
 
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
         """Block until the query finishes; returns (ids, scores), each (B, k)."""
-        if self._event is not None:
-            self._event.synchronize()
-        self._keep_alive = ()
-        return self._index.ids[self._idx.cpu().numpy()], self._scores.cpu().numpy()
+        with span("serve.wait", request=self._request):
+            if self._event is not None:
+                self._event.synchronize()
+        with span("serve.d2h", request=self._request):
+            self._keep_alive = ()
+            return self._index.ids[self._idx.cpu().numpy()], self._scores.cpu().numpy()
 
 
 class SpeechRetriever:
@@ -102,6 +107,7 @@ class SpeechRetriever:
             raise ValueError(f"feat_src {feat_src!r}: this model ({cfg.branch_type or 'parallel'}"
                              f" branch) has no {feat_src} feature")
         self.sc, self.index, self.feat_src = speechclip, index, feat_src
+        self._requests = itertools.count()  # each query batch's id in the spans
         self._text_processor = None
         if speechclip.tokenizer is not None:
             from .data.tokenizer import ClipTextProcessor
@@ -135,16 +141,21 @@ class SpeechRetriever:
     @torch.inference_mode()
     def submit(self, wavs: Sequence[np.ndarray], k: int = 10) -> PendingSearch:
         """Enqueue a query batch without waiting for the device."""
-        k = min(int(k), len(self.index))
-        wav, wav_len, host = self.sc.to_device(wavs, non_blocking=True)
-        model = self.sc.model
-        if self.feat_src == "parallel":
-            feat = model.encode_parallel(wav, wav_len)
-        else:
-            feat = model.encode_speech(wav, wav_len)["cascaded_audio_feat"]
-        scores = _l2_normalize(feat) @ self.index.feats.T          # (B, N) cosines
-        top_scores, top_idx = torch.topk(scores, k, dim=-1)
-        return PendingSearch(self.index, top_scores, top_idx, keep_alive=host)
+        request = next(self._requests)
+        with span("serve.submit", request=request):
+            k = min(int(k), len(self.index))
+            wav, wav_len, host = self.sc.to_device(wavs, non_blocking=True)
+            model = self.sc.model
+            with span("serve.encode"):
+                if self.feat_src == "parallel":
+                    feat = model.encode_parallel(wav, wav_len)
+                else:
+                    feat = model.encode_speech(wav, wav_len)["cascaded_audio_feat"]
+            with span("serve.score"):
+                scores = _l2_normalize(feat) @ self.index.feats.T          # (B, N) cosines
+                top_scores, top_idx = torch.topk(scores, k, dim=-1)
+            return PendingSearch(self.index, top_scores, top_idx, keep_alive=host,
+                                 request=request)
 
     def search_stream(self, batches, k: int = 10, depth: int = 2):
         """Pipelined bulk retrieval: yields (ids, scores) per input batch, in

@@ -57,6 +57,7 @@ from ..parallel.train_step import (create_train_state, make_eval_step, make_trai
                                    step_generators)
 from ..utils.keyword_extraction import KeywordDecoder, extract_keyword_neighbors
 from ..utils.log import MetricsLogger
+from ..utils.profiling import span
 from ..utils.visualization import draw_embedding_space_pca
 
 logger = logging.getLogger(__name__)
@@ -286,7 +287,8 @@ class Trainer:
                 i = -1
                 while True:
                     t0 = time.perf_counter()
-                    batch = next(batches, None)
+                    with span("fit.next_batch", step=int(self.state.step)):
+                        batch = next(batches, None)
                     if batch is None:
                         break
                     i += 1
@@ -305,27 +307,32 @@ class Trainer:
                         epoch_complete = False
                         break
                     micro_step = int(self.state.step)
-                    dev_batch = self._device_batch(batch, local)
+                    with span("fit.h2d", step=micro_step):
+                        dev_batch = self._device_batch(batch, local)
                     self.timings["loader_wait_s"].append(time.perf_counter() - t0)
-                    gen, layer_drop_gen = step_generators(self.seed, micro_step, self.device,
-                                                          self.group)
-                    extra = () if layer_drop_gen is None else (layer_drop_gen,)
-                    metrics = self.train_step(self.state, dev_batch, gen, *extra)
+                    with span("fit.step", step=micro_step):
+                        gen, layer_drop_gen = step_generators(self.seed, micro_step,
+                                                              self.device, self.group)
+                        extra = () if layer_drop_gen is None else (layer_drop_gen,)
+                        metrics = self.train_step(self.state, dev_batch, gen, *extra)
                     if micro_step % self.log_every == 0:
-                        names = [k for k, v in metrics.items() if torch.as_tensor(v).ndim == 0]
-                        values = torch.stack([torch.as_tensor(metrics[k]).float()
-                                              for k in names]).cpu().tolist()
-                        row = dict(zip(names, values))
-                        now = time.time()
-                        done = int(self.state.step) - last_log_step
-                        row["steps_per_sec"] = (
-                            done / max(now - last_log_time, 1e-9) if done else 0.0)
-                        row["micro_step"] = float(int(self.state.step))
-                        last_log_step = int(self.state.step)
-                        last_log_time = now
-                        self.metrics_logger.log(row, self.opt_step)
+                        with span("fit.log", step=micro_step):
+                            names = [k for k, v in metrics.items()
+                                     if torch.as_tensor(v).ndim == 0]
+                            values = torch.stack([torch.as_tensor(metrics[k]).float()
+                                                  for k in names]).cpu().tolist()
+                            row = dict(zip(names, values))
+                            now = time.time()
+                            done = int(self.state.step) - last_log_step
+                            row["steps_per_sec"] = (
+                                done / max(now - last_log_time, 1e-9) if done else 0.0)
+                            row["micro_step"] = float(int(self.state.step))
+                            last_log_step = int(self.state.step)
+                            last_log_time = now
+                            self.metrics_logger.log(row, self.opt_step)
                 if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                    with span("fit.sync"):
+                        torch.cuda.synchronize(self.device)
                 self.timings["train_s"].append(time.perf_counter() - t_pass)
                 self.timings["allreduce_s"] += self._allreduce_timer.collect()
                 if not epoch_complete:

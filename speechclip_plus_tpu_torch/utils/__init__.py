@@ -8,5 +8,5 @@ from .keyword_extraction import (  # noqa: F401
 from .log import MetricsLogger, set_logging, set_metrics_logger  # noqa: F401
 from .metric import cer, per, report_bleu, ter, wer  # noqa: F401
 from .penalty_scheduler import PenaltyScheduler  # noqa: F401
-from .profiling import StepTimer, annotate, trace  # noqa: F401
+from .profiling import StepTimer, backward_span, recorded, span, trace  # noqa: F401
 from .visualization import draw_embedding_space_pca  # noqa: F401

@@ -16,7 +16,7 @@ into the port through `checkpoint/from_jax.py`, both packages padding to one
     JAX `load_from_checkpoint` route on the same file at 1e-5);
   - `run_task --test --device cpu --ckpt x.ckpt` on a Flickr-shaped tree;
   - `utils/metric.py` against JAX on goldens and seeded token lists;
-    `utils/profiling.py`'s `StepTimer` and `trace`.
+    `utils/profiling.py`'s `StepTimer`, `trace` and a `span` inside it.
 """
 import json
 import os
@@ -290,12 +290,15 @@ def test_step_timer_and_trace(tmp_path):
     assert timer.pairs_per_sec == pytest.approx(4 * timer.steps_per_sec, rel=0.5)
     timer.reset()
     assert timer.steps_per_sec == 0.0
-    from speechclip_plus_tpu_torch.utils import annotate
+    from speechclip_plus_tpu_torch.utils import recorded, span
+    from speechclip_plus_tpu_torch.utils.profiling import clear
 
+    clear()
     with trace(str(tmp_path / "traces")):
-        with annotate("double"):
+        with span("double"):
             (x * 2).sum()
     files = os.listdir(tmp_path / "traces")
     assert len(files) == 1 and files[0].endswith(".json")
     events = json.loads((tmp_path / "traces" / files[0]).read_text())["traceEvents"]
     assert any(e.get("name") == "double" for e in events)
+    assert [s["name"] for s in recorded()] == ["double"]
