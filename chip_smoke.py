@@ -359,6 +359,9 @@ KERNEL_COUNTERS = {  # kernel name -> (module under speechclip_plus_tpu_torch, c
     "flash_attention": ("nn.flash", "LAUNCHES"),
     "fused_attention_dropout": ("nn.fused_attention", "LAUNCHES"),
     "conv0": ("ops.conv_frontend", "LAUNCHES"),
+    # the fused group-norm layer 0: one a forward of a HuBERT or WavLM base
+    # tower whose layer 0 needs no gradient
+    "conv0_gn_gelu": ("ops.conv_frontend", "GN_LAUNCHES"),
     # subsets of the K1 and K2 counts: the wide-head kernels for one head of
     # 768, and K2 launches that read a per-head bias
     "fused_attention_block_dh768": ("nn.fused_attention_block", "WIDE_LAUNCHES"),
@@ -1107,6 +1110,55 @@ def check_conv0(torch, dtype, gen):
     return row
 
 
+def check_conv0_gn(torch, b, gen):
+    """The fused group-norm layer 0 (`conv0_gn_gelu`) at B x 102400 samples,
+    C=512, k=10, s=5, bf16, against its twin (the composite the tower ran:
+    `F.conv1d`, the fp32 GroupNorm, GELU): the RMS of the difference <= 1e-2 x
+    the output's RMS (the twin's library convolution rounds some conv values
+    the other way; the element bounds are the `cuda` tests'). Library:
+    `F.conv1d` -> `F.group_norm` -> `F.gelu`. Bound: one pass of conv 0's
+    multiply-adds on the CUDA cores against reading the waveform and writing
+    the output once."""
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    F = torch.nn.functional
+    t, c, k, s, dtype = TRAIN_WAV, 512, 10, 5, torch.bfloat16
+    name = f"conv0_gn_gelu B={b} T={t} C={c} k={k} s={s}"
+    wav = torch.randn(b, t, generator=gen, device="cuda").to(dtype)
+    weight = (torch.randn(c, 1, k, generator=gen, device="cuda") * k ** -0.5).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    kern = lambda: cf.conv0_gn_gelu(wav, weight, gamma, beta, 1e-5, stride=s)
+    plain = lambda: cf.plain_conv0_gn_gelu(wav, weight, gamma, beta, 1e-5, s)
+    lib = lambda: F.gelu(F.group_norm(F.conv1d(wav[:, None], weight, stride=s), c, gamma,
+                                      beta, 1e-5))
+    got = kern()
+    require(torch.equal(got, kern()), f"{name}: two runs differ")
+    t0 = (t - k) // s + 1
+    require(tuple(got.shape) == (b, c, t0) and got.dtype == dtype, f"{name}: {tuple(got.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
+    want = plain().float()
+    rms = want.pow(2).mean().sqrt().item()
+    err = (got.float() - want).abs().max().item()
+    rms_err = (got.float() - want).pow(2).mean().sqrt().item()
+    del want
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kern()
+    scratch_gib = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+    row = {"max_abs_err": err, "rms_err": rms_err, "ms": median_ms(kern),
+           "plain_ms": median_ms(plain, runs=5, warmup=1),
+           **bound(2 * b * t0 * c * k, nbytes(wav, got), torch.float32),
+           "library_ms": median_ms(lib, runs=5, warmup=1),
+           "library": "F.conv1d -> F.group_norm -> F.gelu"}
+    print(f"[kernel] {name} bf16: max_abs_err={err:.3e}, rms_err={rms_err:.3e} (<= 1e-2 x RMS "
+          f"{rms:.3e}) vs the composite, bit-identical rerun, a call allocates "
+          f"{scratch_gib:.3f} GiB (the output {nbytes(got) / 2 ** 30:.3f}); {timing_text(row)}")
+    require(rms_err <= 1e-2 * rms, f"{name}: RMS error {rms_err} over 1e-2 x {rms}")
+    return row
+
+
 # rows of `check_path_shapes`, (kernel name, row), joined to the `kernels` line
 PATH_ROWS = []
 
@@ -1307,6 +1359,9 @@ def phase_kernels(torch):
         torch.cuda.empty_cache()
         rows[("k6", dtype)] = check_conv0(torch, dtype, gen)
         torch.cuda.empty_cache()
+    for b in (256, 64):  # the benchmark's training and serving batches
+        rows[("gn", b)] = check_conv0_gn(torch, b, gen)
+        torch.cuda.empty_cache()
     check_keep_rate(torch)
     check_attention_fd(torch, vjp, gen)
     check_attention_fd(torch, vjp, gen, (2, 328, 768, 1), 0.1, what="cascaded")
@@ -1408,6 +1463,10 @@ def phase_kernels(torch):
          "replaces": jax_pkg + "ops/conv_frontend.py:45",
          "shape": "B=128 T=102400 C=512 k=10 s=5 bf16", **rows[("k6", bf)],
          "modes": [{"shape": "same, fp32", **rows[("k6", f32)]}]},
+        {"name": "conv0_gn_gelu", "route": "cuda", "source": csrc + "conv_frontend.cu",
+         "replaces": "the composite F.conv1d + fp32 GroupNorm + GELU (models/hubert.py)",
+         "shape": "B=256 T=102400 C=512 k=10 s=5 bf16", **rows[("gn", 256)],
+         "modes": [{"shape": "B=64, bf16 (serving)", **rows[("gn", 64)]}]},
     ]
 
 
@@ -1991,12 +2050,24 @@ def k1_plan(fused_out=0, context_only=0):
             "projection_gemm": 2 * fused_out + context_only}
 
 
+def layer0_plan(audio, trains_layer0=False):
+    """The fused group-norm layer 0's launches a tower forward: one for a
+    group-norm frontend without a conv bias (HuBERT, WavLM base) whose layer
+    0 takes no gradient; none for a layer-norm frontend (data2vec, the large
+    towers), a mel upstream or a trainable frontend's step."""
+    fused = (getattr(audio, "extractor_mode", None) == "group_norm"
+             and not getattr(audio, "conv_bias", False) and not trains_layer0)
+    return {"conv0_gn_gelu": int(fused)}
+
+
 def speech_query_plan(tower, cascaded):
-    """Kernel launches of one speech query: the tower's 12 layers (K1, or K5
-    around plain projections), the branch attention (K1) and, for the
-    cascaded feature, the fused cosine-VQ (K3)."""
+    """Kernel launches of one speech query through the base HuBERT or WavLM
+    tower: its fused layer 0, its 12 layers (K1, or K5 around plain
+    projections), the branch attention (K1) and, for the cascaded feature, the
+    fused cosine-VQ (K3)."""
     plan = (k1_plan(12, 1) if tower == "k1"
             else {"fused_attention_dropout": 12, **k1_plan(0, 1)})
+    plan["conv0_gn_gelu"] = 1
     if cascaded:
         plan["fused_cosine_vq"] = 1
     return plan
@@ -2049,6 +2120,7 @@ def family_plans(mc):
     k3 = mc.has_cascaded and mc.head.fused_score_kernel and vq.time_first
     k3b = k3 and vq.hard and not vq.use_gumbel
     branch = k1_plan(tower_k1_layers(mc.audio), int(mc.fused_attention_vjp))
+    add_counts(branch, layer0_plan(mc.audio))
     if at:
         branch["fused_attention_block" + at] = 1
     full = dict(branch)
@@ -2058,7 +2130,10 @@ def family_plans(mc):
             full["fused_cosine_vq_d768"] = 1
     if mc.has_cascaded:
         add_counts(full, k1_plan(0, text))
-    step = dict(full, fused_attention_block_bwd=int(mc.fused_attention_vjp) + text)
+    # a trainable tower without a subset policy trains its layer 0 (the twin)
+    trains0 = mc.audio_trainable and not (mc.reinit_layers or mc.unfreeze_layers)
+    step = dict(full, fused_attention_block_bwd=int(mc.fused_attention_vjp) + text,
+                **layer0_plan(mc.audio, trains0))
     if at:
         step["fused_attention_block_bwd" + at] = 1
     if text:
@@ -2493,7 +2568,7 @@ def phase_tower_flash(torch):
                 run(flash_tower)
             flash_ms = (time.perf_counter() - t0) / n * 1e3
             counts = read_counts(torch, f"path C tower {str(dtype)[6:]}",
-                                 {"flash_attention": 12 * (n + 1)})
+                                 {"flash_attention": 12 * (n + 1), "conv0_gn_gelu": n + 1})
             want = block_tower(wav, pad, weights)
             t0 = time.perf_counter()
             for _ in range(n):
@@ -4087,7 +4162,8 @@ def phase_inference(torch, ck, tree, tmp, final_state, wavs8, reference):
     from speechclip_plus_tpu_torch.tasks import base_task
 
     full = speech_query_plan("k1", True)  # encode_speech / extract_keywords: 13 K1, 1 K3
-    tower_branch = k1_plan(12, 1)  # feature_extractor_s3prl: the tower and the branch
+    # feature_extractor_s3prl: the tower and the branch
+    tower_branch = {**k1_plan(12, 1), "conv0_gn_gelu": 1}
     label = "path K inference"
     reset_counts()
     expect, shape_sets, hooks = {}, [], []

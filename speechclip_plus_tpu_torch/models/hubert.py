@@ -7,6 +7,9 @@ Port of ``speechclip_plus_tpu/models/hubert.py`` (reference
   post_extract_proj -> zero padded frames -> + weight-normed pos_conv
   (k=128, 16 groups) -> encoder LayerNorm -> 12 post-norm layers.
 
+A frozen group-norm layer 0 (conv 0, GroupNorm, GELU) is one fused operation
+on the card (`ops.conv_frontend.conv0_gn_gelu`, `ConvFeatureExtractor`).
+
 data2vec-audio base (`HubertConfig.data2vec_base`, JAX ``:195-206``) keeps
 the encoder and changes the two convolution stacks: a LayerNorm over
 channels after every frontend conv (`extractor_mode="layer_norm"`, no conv
@@ -100,6 +103,7 @@ from ..nn.dropout import dropout
 from ..nn.flash import flash_attention
 from ..nn.fused_attention import fused_attention_dropout
 from ..nn.transformer import LayerNorm
+from ..ops.conv_frontend import conv0_gn_gelu, plain_conv0_gn_gelu
 from ..ops.weighted_sum import layer_norm
 from ..parallel.tp import copy_to_model, row_parallel_linear
 from ..utils.profiling import span
@@ -276,7 +280,14 @@ def _conv1d(x: torch.Tensor, mod: nn.Conv1d, cd: torch.dtype) -> torch.Tensor:
 class ConvFeatureExtractor(nn.Module):
     """Waveform (B, T) -> frames (B, T', C), run channel-first as torch convs
     want: conv -> [GroupNorm(C, C) on layer 0] -> GELU (`group_norm` mode), or
-    conv -> LayerNorm over channels -> GELU at every layer (`layer_norm`)."""
+    conv -> LayerNorm over channels -> GELU at every layer (`layer_norm`).
+
+    A group-norm layer 0 whose result needs no gradient (grad mode off, or
+    neither the waveform nor conv 0's and the GroupNorm's parameters require
+    one) and whose conv has no bias runs `ops.conv_frontend.conv0_gn_gelu`:
+    on the card one fused operation that never stores the raw conv output
+    nor an fp32 copy of it, on the CPU its twin. A trainable layer 0 runs the
+    twin (`plain_conv0_gn_gelu`, the composite) through autograd."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
@@ -296,26 +307,29 @@ class ConvFeatureExtractor(nn.Module):
                                              for ch, _, _ in cfg.conv_layers)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        x = wav[:, None, :].to(self.cd)
         with span("tower.frontend.layer0"):
-            x = self._layer(0, x)
+            x = (self._group_norm_layer0(wav.to(self.cd)) if self.mode == "group_norm"
+                 else self._layer(0, wav[:, None, :].to(self.cd)))
         for i in range(1, len(self.conv_layers)):
             x = self._layer(i, x)
         return x.transpose(1, 2)
 
+    def _group_norm_layer0(self, wav: torch.Tensor) -> torch.Tensor:
+        conv, gn = self.conv_layers[0], self.gn
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (wav, conv.weight, gn.weight, gn.bias))
+        if needs_grad or conv.bias is not None:
+            return plain_conv0_gn_gelu(wav, conv.weight, gn.weight, gn.bias, gn.eps,
+                                       conv.stride[0], bias=conv.bias)
+        return conv0_gn_gelu(wav.contiguous(), conv.weight, gn.weight, gn.bias, gn.eps,
+                             stride=conv.stride[0])
+
     def _layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """Conv i, its norm (layer 0 or every layer) and GELU."""
+        """Conv i, its LayerNorm over channels (`layer_norm` mode) and GELU;
+        a group-norm frontend's layer 0 is `_group_norm_layer0`."""
         x = _conv1d(x, self.conv_layers[i], self.cd)
         if self.mode == "layer_norm":
             return _channel_layer_norm(x, self.layer_norms[i])
-        if i == 0:
-            # per-(utterance, channel) statistics over time, in fp32
-            xf = x.float()
-            mean = xf.mean(dim=-1, keepdim=True)
-            var = xf.var(dim=-1, unbiased=False, keepdim=True)
-            xf = (xf - mean) * torch.rsqrt(var + self.gn.eps)
-            x = (xf * self.gn.weight.float()[:, None]
-                 + self.gn.bias.float()[:, None]).to(x.dtype)
         return F.gelu(x)
 
 

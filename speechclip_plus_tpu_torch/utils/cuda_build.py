@@ -64,6 +64,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sc_fused_attention.argtypes = [p, p, p, p, i64p, p, i, i, i, i, i, f, p, u, f, i, i, p]
     lib.sc_flash_attention.argtypes = [p, p, p, p, i64p, p, p, i, i, i, i, i, f, p]
     lib.sc_conv0.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.sc_conv0_gn_gelu.argtypes = [p, p, p, p, f, p, p, p, i, i, i, i, i, i, p]
     lib.sc_fab_attention_bwd.argtypes = [p, p, p, i, p, p, p, p, p, u, f, f, p, i, i, i, i, i, p]
     lib.sc_vq_fwd_rows.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, i, p]
     lib.sc_vq_combine.argtypes = [p, p, i, i, p, p, p, p, p]
@@ -71,7 +72,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sc_vq_bwd.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, p, p, p, p, p, i, i, p]
     for fn in (lib.sc_fab_gemm, lib.sc_fab_attention, lib.sc_fab_attention_bwd,
                lib.sc_fused_attention, lib.sc_flash_attention, lib.sc_conv0,
-               lib.sc_vq_fwd_rows, lib.sc_vq_combine, lib.sc_vq_fwd_cols, lib.sc_vq_bwd):
+               lib.sc_conv0_gn_gelu, lib.sc_vq_fwd_rows, lib.sc_vq_combine, lib.sc_vq_fwd_cols, lib.sc_vq_bwd):
         fn.restype = ctypes.c_int
     lib.sc_error_string.argtypes = [i]
     lib.sc_error_string.restype = ctypes.c_char_p

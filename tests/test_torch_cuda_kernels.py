@@ -8,8 +8,9 @@ JAX kernels is in `test_torch_fused_attention_block.py` and
 `test_torch_fused_keyword.py`.
 
 Tolerances: fp32 1e-4 abs (K1) or 1e-4 x max(1, RMS) (K1 with dropout, bias
-or gate, K2, K4, K5, K6); bf16 K1, K2, K4, K5 and K6 error beyond half an ulp
-of the bf16 output <= 2e-2 x the output's RMS; K4's lse 1e-4 relative; K3
+or gate, K2, K4, K5, K6, the fused layer 0); bf16 K1, K2, K4, K5 and K6 error
+beyond half an ulp of the bf16 output <= 2e-2 x the output's RMS, the fused
+layer 0's as its test states; K4's lse 1e-4 relative; K3
 targets equal wherever the top-2 margin exceeds 1e-3 (bf16) or 1e-5 (fp32),
 ent and psum to rtol 1e-3, exact ties to the lowest index; K3b dx to 1e-4 (fp32) or 1e-2
 (bf16) x RMS and dt to 1e-4 x the sum of its terms' sizes, with the
@@ -17,8 +18,8 @@ temperature a float or a device tensor (the same bits at t = 0.1; a training
 step with a learnable one makes no device-to-host sync); the bf16 attention
 kernels against their numerical model (`nn/attention_numerics.py`) 4e-3 x RMS
 beyond half an ulp, a fifth of what the twin is allowed. K2, K3 and K3b repeat
-bit for bit (no float atomics), as do K1, K4, K5 and K6. On a tensor-parallel
-shard (a range of heads, a vocabulary shard): K1's and K5's contexts equal
+bit for bit (no float atomics), as do K1, K4, K5, K6 and the fused layer
+0. On a tensor-parallel shard (a range of heads, a vocabulary shard): K1's and K5's contexts equal
 the whole kernel's columns for those heads bit for bit, K1's fp32 partial
 out-projection against its twin (bf16: the error beyond one ulp of each
 context element, through |Wo|, <= 2e-2 x RMS) and the partials summed with
@@ -623,6 +624,158 @@ def test_conv0_rejects_bad_inputs(cuda_device):
         cf.conv0(wav[:, :5], kernel)
     with pytest.raises(TypeError):
         cf.conv0(wav.half(), kernel.half())
+
+
+# ---- the fused group-norm layer 0 (conv0_gn_gelu) ----
+
+def _gn_case(dev, b, t, c, k, dtype, seed=3):
+    """When B >= 2 row 0 of the waveform carries a DC offset and the last row
+    is all zero (variance 0: the output is GELU(beta)). In fp32 the offset is
+    500 and the samples and taps are multiples of 1/16 and 1/256, so every
+    product and partial sum of conv 0 is exact in any order and the
+    comparison sees the statistics alone, where a one-pass variance would lose
+    five digits; in bf16 it is 100, at which a sample keeps its spread."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wav = torch.randn(b, t, generator=g, device=dev)
+    weight = torch.randn(c, 1, k, generator=g, device=dev) * k ** -0.5
+    if b >= 2:
+        wav[0] += 500.0 if dtype == torch.float32 else 100.0
+        wav[-1] = 0.0
+    if dtype == torch.float32:
+        wav, weight = torch.round(wav * 16) / 16, torch.round(weight * 256) / 256
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    return [x.to(dtype) for x in (wav, weight, gamma, beta)]
+
+
+def _gn_model(wav, weight, gamma, beta, s):
+    """The kernel's arithmetic in plain PyTorch: conv 0 as fp32 sums in tap
+    order (`plain_conv0`; bf16 products are exact in fp32, so the sums are the
+    kernel's), rounded to the dtype, then the statistics and the affine in
+    fp64, rounded to the dtype, and GELU. Returns the output, the rounded
+    affine value y GELU takes, and the size of the affine's terms,
+    (|x - mean| + |mean|) * rstd * |gamma| + |beta|: fp32 holds the mean
+    itself only to its own ulps, so a kernel's mean error scales with it."""
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    x = cf.plain_conv0(wav, weight.permute(2, 1, 0), s, wav.dtype).transpose(1, 2)
+    xd, g, b = x.double(), gamma.double()[:, None], beta.double()[:, None]
+    mean = xd.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(xd.var(dim=-1, unbiased=False, keepdim=True) + 1e-5)
+    y = ((xd - mean) * rstd * g + b).to(x.dtype)
+    terms = ((xd - mean).abs() + mean.abs()) * rstd * g.abs() + b.abs()
+    return torch.nn.functional.gelu(y), y, terms.float()
+
+
+def _ulp(x):
+    """One ulp of each bf16 value (2^(e - 8) for |x| in [2^(e-1), 2^e))."""
+    _, exp = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,k,s", [(4, 102400, 512, 10, 5), (1, 16000, 512, 10, 5),
+                                       (3, 1003, 64, 10, 5), (2, 700, 16, 3, 2),
+                                       (2, 333, 6, 4, 7)])
+def test_conv0_gn_gelu_kernel_matches_plain(cuda_device, dtype, b, t, c, k, s):
+    """Against the kernel's arithmetic with exact statistics (`_gn_model`) and
+    the twin (the library composite). The kernel's fp32 statistics hold the
+    mean to its own ulps, so its affine value z may differ by a few fp32 ulps
+    of the terms' size. fp32: <= 1e-4 x max(1, RMS) + 1.13 x 2^-18 x terms (64
+    ulps, carried through GELU's slope of at most 1.13; a one-pass variance
+    misses it at the offset row by its square); bf16: z may differ by 2^-16 of
+    the terms, and its rounding y by an ulp more (two across a binade edge),
+    carried through GELU, plus the output's rounding on both sides: <= 2 x
+    (ulp(y) + ulp(out)) + 1.13 x 2^-16 x terms, and in the rows without an
+    offset in at most 1e-3 of the elements. The twin's own fp32 statistics
+    carry the offset row's mean to its ulps as well: fp32 against it <= 1e-4
+    x max(1, RMS) on the other rows; bf16, where its
+    library convolution rounds some conv values the other way, the RMS of the
+    difference <= 1e-2 x the output's RMS. Reruns are bit-identical."""
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    wav, weight, gamma, beta = _gn_case(cuda_device, b, t, c, k, dtype)
+    before = cf.GN_LAUNCHES
+    got = cf.conv0_gn_gelu(wav, weight, gamma, beta, 1e-5, stride=s)
+    assert cf.GN_LAUNCHES == before + 1
+    assert got.shape == (b, c, (t - k) // s + 1) and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, cf.conv0_gn_gelu(wav, weight, gamma, beta, 1e-5, stride=s))
+    want, y, terms = _gn_model(wav, weight, gamma, beta, s)
+    twin = cf.plain_conv0_gn_gelu(wav, weight, gamma, beta, 1e-5, s)
+    err = (got.float() - want.float()).abs()
+    rms = want.float().pow(2).mean().sqrt().item()
+    if dtype == torch.float32:
+        limit = 1e-4 * max(1.0, rms) + 1.13 * 2.0 ** -18 * terms
+        assert bool((err <= limit).all()), (err / limit).max().item()
+        rows = slice(1 if b >= 2 else 0, b)
+        assert (got[rows] - twin[rows]).abs().max().item() <= 1e-4 * max(1.0, rms)
+    else:
+        limit = 2 * (_ulp(y) + _ulp(want)) + 1.13 * 2.0 ** -16 * terms
+        assert bool((err <= limit).all()), (err / limit).max().item()
+        plain_rows = err[1:-1] if b >= 3 else err[b - 1:]
+        assert (plain_rows > 0).float().mean().item() <= 1e-3
+        diff = (got.float() - twin.float()).pow(2).mean().sqrt().item()
+        assert diff <= 1e-2 * rms, diff
+    if b >= 2:  # the all-zero utterance: GELU(beta) in every frame
+        last = torch.nn.functional.gelu(beta.float()).to(dtype)[:, None].expand(c, got.shape[2])
+        assert torch.equal(got[-1], last)
+
+
+@pytest.mark.cuda
+def test_frozen_hubert_forward_takes_fused_layer0(cuda_device, monkeypatch):
+    """A frozen bf16 HuBERT-base forward launches the fused layer 0 once and
+    matches the composite's forward: RMS of the difference of the last hidden
+    state and of the weighted sum <= 2e-2 x their RMS (the rare flipped
+    roundings of layer 0 carried through 12 bf16 layers)."""
+    from speechclip_plus_tpu_torch.models import hubert
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    torch.manual_seed(0)
+    model = hubert.HubertModel(hubert.HubertConfig(dtype=torch.bfloat16)).to(cuda_device)
+    model.requires_grad_(False).eval()
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    wav = torch.randn(3, 32000, generator=g, device=cuda_device)
+    pad = torch.zeros(3, 32000, dtype=torch.bool, device=cuda_device)
+    pad[1, 20000:] = True
+    wav = wav.masked_fill(pad, 0.0)
+    weights = torch.softmax(torch.randn(13, generator=g, device=cuda_device), 0)
+    before = cf.GN_LAUNCHES
+    got = model(wav, pad, weights)
+    assert cf.GN_LAUNCHES == before + 1
+    monkeypatch.setattr(hubert, "conv0_gn_gelu",
+                        lambda w, k, ga, be, eps, *, stride: cf.plain_conv0_gn_gelu(
+                            w, k, ga, be, eps, stride))
+    want = model(wav, pad, weights)
+    assert cf.GN_LAUNCHES == before + 1
+    for key in ("x", "weighted_sum"):
+        a, b_ = got[key].float(), want[key].float()
+        rms = b_.pow(2).mean().sqrt().item()
+        assert (a - b_).pow(2).mean().sqrt().item() <= 2e-2 * rms, key
+
+
+@pytest.mark.cuda
+def test_conv0_gn_gelu_rejects_bad_inputs(cuda_device):
+    from speechclip_plus_tpu_torch.ops import conv_frontend as cf
+
+    wav, weight, gamma, beta = _gn_case(cuda_device, 2, 100, 8, 10, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.conv0_gn_gelu(wav[:, ::2], weight, gamma, beta, 1e-5)
+    with pytest.raises(ValueError, match="even"):
+        cf.conv0_gn_gelu(wav, weight[:7], gamma[:7], beta[:7], 1e-5)
+    with pytest.raises(ValueError, match="taps"):
+        cf.conv0_gn_gelu(wav, weight.repeat(1, 1, 2), gamma, beta, 1e-5)
+    with pytest.raises(ValueError, match="want"):
+        cf.conv0_gn_gelu(wav, weight, gamma[:4], beta, 1e-5)
+    with pytest.raises(ValueError, match="want"):
+        cf.conv0_gn_gelu(wav[0], weight, gamma, beta, 1e-5)
+    with pytest.raises(ValueError, match="shorter"):
+        cf.conv0_gn_gelu(wav[:, :5], weight, gamma, beta, 1e-5)
+    with pytest.raises(TypeError):
+        cf.conv0_gn_gelu(wav.half(), weight.half(), gamma, beta, 1e-5)
+    with pytest.raises(ValueError, match="cpu"):
+        cf.conv0_gn_gelu(wav, weight.cpu(), gamma, beta, 1e-5)
 
 
 # ---- K2's attn_bias input, and K1 / K2 at the single-head width dh = 768 ----
