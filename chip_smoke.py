@@ -3314,8 +3314,10 @@ def phase_dp(torch):
         saves = {name: os.path.join(tmp, name) for name in ("alone", "nccl", "resumed")}
 
         def leg(name, max_steps, group, argv=()):
+            # one rank: without `--devices`, run_task spawns a rank per visible GPU
             run = fit_run_spec(tmp, name, {"trainer.max_steps": max_steps,
-                                           "trainer.log_every_n_steps": 2}, argv)
+                                           "trainer.log_every_n_steps": 2},
+                               ("--devices", "1", *argv))
             return finish_leg(start_leg({"label": f"Q1 {name}", "tree": tree, "world": 1,
                                          "group": group, "runs": [run]}))[name][0]
 

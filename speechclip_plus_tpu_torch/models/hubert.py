@@ -37,8 +37,9 @@ precedence (``:794-910``):
 
 WavLM (`rel_pos_bias`): one bucketed relative-position table
 `rel_attn_embed` (buckets, H) owned by the model is gathered to (H, T, T)
-once per forward (``:993-1005``); each layer gates it per head and query
-from its input (`rel_pos_gate`, ``:775-790``).
+once per forward (``:993-1005``, span `tower.relpos`); each layer gates it
+per head and query from its input (`rel_pos_gate`, ``:775-790``, span
+`tower.gate`).
 
 In training (a generator passed) the tower runs its dropouts
 at the JAX sites, all p=0.1 for HuBERT-base: features after the projection
@@ -180,6 +181,12 @@ class HubertConfig:
 
     @staticmethod
     def wavlm_large() -> "HubertConfig":
+        """WavLM Large (arXiv:2110.13900): HuBERT-Large's block with the gated
+        relative position bias, 320 buckets up to distance 800. `conv_bias`
+        is HuBERT-Large's, as JAX resolves it: WavLM's own `WavLMConfig`
+        defaults it to False, and the published checkpoint's configuration is
+        not in the repository. The waveform `normalize` of its checkpoints
+        is the dataset's (`data.dataset.normalize_waveform`)."""
         return dataclasses.replace(HubertConfig.large(), rel_pos_bias=True)
 
     @staticmethod
@@ -387,12 +394,13 @@ class HubertEncoderLayer(nn.Module):
         the layer input split per head (HF `WavLMAttention`): (B, H, T) fp32."""
         b, t, d = x.shape
         h = self.cfg.n_heads
-        gh = x.reshape(b, t, h, d // h).transpose(1, 2)
-        proj = _linear(gh, self.gru_rel_pos_linear, self.cfg.dtype).float()
-        proj = proj.reshape(b, h, t, 2, 4).sum(-1)
-        gate_a, gate_b = torch.sigmoid(proj).split(1, dim=-1)
-        gate = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
-        return gate[..., 0]
+        with span("tower.gate"):
+            gh = x.reshape(b, t, h, d // h).transpose(1, 2)
+            proj = _linear(gh, self.gru_rel_pos_linear, self.cfg.dtype).float()
+            proj = proj.reshape(b, h, t, 2, 4).sum(-1)
+            gate_a, gate_b = torch.sigmoid(proj).split(1, dim=-1)
+            gate = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
+            return gate[..., 0]
 
     def attention(self, x: torch.Tensor, key_padding_bias: Optional[torch.Tensor],
                   generator: Optional[torch.Generator],
@@ -477,13 +485,14 @@ class HubertModel(nn.Module):
         if not c.rel_pos_bias:
             return None
         dev = self.rel_attn_embed.device
-        if (t, dev) not in self._buckets:
-            if len(self._buckets) >= 16:  # a handful of lengths in practice (length buckets)
-                self._buckets.clear()
-            self._buckets[(t, dev)] = relative_position_buckets(
-                t, c.rel_buckets, c.rel_max_distance).reshape(-1).to(dev)
-        # (T*T, H) gathered rows -> one contiguous (H, T, T) tensor for every layer
-        return self.rel_attn_embed[self._buckets[(t, dev)]].t().reshape(c.n_heads, t, t)
+        with span("tower.relpos"):
+            if (t, dev) not in self._buckets:
+                if len(self._buckets) >= 16:  # a handful of lengths in practice (length buckets)
+                    self._buckets.clear()
+                self._buckets[(t, dev)] = relative_position_buckets(
+                    t, c.rel_buckets, c.rel_max_distance).reshape(-1).to(dev)
+            # (T*T, H) gathered rows -> one contiguous (H, T, T) tensor for every layer
+            return self.rel_attn_embed[self._buckets[(t, dev)]].t().reshape(c.n_heads, t, t)
 
     def forward(self, wav: torch.Tensor, wav_padding_mask: torch.Tensor,
                 layer_weights: Optional[torch.Tensor],

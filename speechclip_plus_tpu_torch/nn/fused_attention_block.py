@@ -59,7 +59,8 @@ from ..ops.random import attention_keep_mask, draw_seed, keep_threshold
 
 __all__ = ["fused_attention_block", "attention_forward", "plain_fused_attention_block",
            "projection", "plain_projection", "check_attn_bias", "LAUNCHES", "WIDE_LAUNCHES",
-           "DH128_LAUNCHES", "DH1024_LAUNCHES", "PROJECTION_LAUNCHES", "SHARD_LAUNCHES"]
+           "DH128_LAUNCHES", "DH1024_LAUNCHES", "PROJECTION_LAUNCHES", "SHARD_LAUNCHES",
+           "GATE_LAUNCHES"]
 
 # wrapper calls that ran the kernels on the card (one per call, whatever the
 # number of CUDA launches it makes)
@@ -75,6 +76,8 @@ DH1024_LAUNCHES = 0
 PROJECTION_LAUNCHES = 0
 # those of LAUNCHES on a tensor-parallel range of heads (fewer than the layer's)
 SHARD_LAUNCHES = 0
+# those of them with an `attn_bias` and an `attn_gate` (WavLM's gated bias)
+GATE_LAUNCHES = 0
 
 # 64, 96 and 128: the towers' and the 8-head branches' heads (base and large),
 # whole (64, dh) tiles in shared memory; 768 and 1024: the cascaded branches'
@@ -183,7 +186,8 @@ def plain_fused_attention_block(x, w_in, b_in, w_out, b_out, key_padding_bias,
 def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
             seeds=None, keep_prob=1.0, return_aux=False, attn_bias=None, attn_gate=None,
             head_offset=0, total_heads=None, partial=False):
-    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, DH1024_LAUNCHES, SHARD_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, DH128_LAUNCHES, DH1024_LAUNCHES, SHARD_LAUNCHES, \
+        GATE_LAUNCHES
 
     b, t, d = x.shape
     total = total_heads or n_heads
@@ -231,6 +235,7 @@ def _launch(x, w_in, b_in, w_out, b_out, key_padding_bias, n_heads, fuse_out,
     DH128_LAUNCHES += dh == 128
     DH1024_LAUNCHES += dh == 1024
     SHARD_LAUNCHES += total != n_heads
+    GATE_LAUNCHES += gate is not None
     if return_aux:
         return ctx, qkv, lse
     if fuse_out and partial:

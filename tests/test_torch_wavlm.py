@@ -191,6 +191,14 @@ def test_upstream_names():
         assert (got.d_model, got.n_layers, got.rel_pos_bias, got.layer_norm_first) == (
             want.d_model, want.n_layers, want.rel_pos_bias, want.layer_norm_first)
     assert HubertConfig.from_upstream_name("wavlm_large") == HubertConfig.wavlm_large()
+    # WavLM Large as resolved: HuBERT-Large's block (its conv bias kept, as JAX keeps
+    # it) with the gated bias at 320 buckets up to distance 800
+    large, jlarge = HubertConfig.wavlm_large(), JHubertConfig.wavlm_large()
+    fields = ("extractor_mode", "conv_bias", "d_model", "n_layers", "n_heads", "ffn_dim",
+              "layer_norm_first", "conv_pos", "conv_pos_groups", "rel_pos_bias", "rel_buckets",
+              "rel_max_distance")
+    assert [getattr(large, f) for f in fields] == [getattr(jlarge, f) for f in fields] == [
+        "layer_norm", True, 1024, 24, 16, 4096, True, 128, 16, True, 320, 800]
 
 
 # ------------------------------------------- K1's twin: bias and gate ----
